@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --mutants  # self-test of its agreement checks
+    python3 chip_smoke.py --sweep    # the kernel's row tiles and breakdown
 
 Builds every CUDA kernel of the scoring path from the sources in this
 checkout, holds each against its plain PyTorch version on the card,
@@ -18,6 +19,12 @@ exits non-zero before printing any result. Imports nothing of JAX.
 temporary copy of the port and runs the kernel and served checks
 against each in a fresh interpreter; it fails unless every check fails
 on every mutant.
+
+``--sweep`` builds variants of the kernel in temporary copies and times
+each at ``TIMED_ROWS``, one after another on this card: the row tiles
+of ``TILES`` (rows a block owns), each checked against plain first, and
+the ``BREAKDOWN`` variants, which skip part of the work and so compute
+nothing checkable.
 """
 
 from __future__ import annotations
@@ -47,12 +54,13 @@ ROW_SHARE = 0.01
 KERNEL_ROWS = (1, 37, 256, 1000, 1024, 4096)
 SERVE_ROWS = (1, 37, 1024, 4096)
 IN_FLIGHT = 4           # concurrent 1024-row batches through the ring
-TIMED_ROWS = (1024, 4096)
+TIMED_ROWS = (1, 37, 1024, 4096)
 TIMING_REPS = 60
 SERVICE_ROUNDS = 100
 TRACED_ROUNDS = 30      # the same load again, under the profiler
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+TILES = (16, 32, 64)       # rows a block owns, for --sweep
 
 
 def card_line() -> str:
@@ -144,7 +152,9 @@ def flops_per_row(params) -> int:
 def bound_ms(params, n: int, in_dim: int):
     """Least time for the kernel's work on this card: each input read
     once (x, bf16 weights, mu, var), each score written once, against
-    the bf16 dense peak for the operations."""
+    the bf16 dense peak for the operations. ``params`` is the model at
+    its own widths (``KernelParams.params``), never the padded buffer,
+    whose zeros are no work of the function."""
     weight_bytes = sum(t.numel() * t.element_size()
                        for g in ("enc", "dec", "cls")
                        for layer in params[g] for t in layer.values())
@@ -370,18 +380,34 @@ async def time_service(cfg, rng):
 # Broken kernels the checks must catch: (line in score_mlp.cu, its
 # replacement). A dropped bias, a neighbouring column's bias, one bf16
 # rounding of a layer instead of two, the error taken against the bf16
-# copy of the input.
+# copy of the input, the error averaged over the padded width.
 KERNEL_SOURCE = "linkerd_tpu_torch/ops/csrc/score_mlp.cu"
 MUTANTS = {
-    "no_bias": ("const float bj = __bfloat162float(L.b[j]);",
-                "const float bj = 0.f;"),
-    "neighbour_bias": ("const float bj = __bfloat162float(L.b[j]);",
-                       "const float bj = __bfloat162float("
-                       "L.b[(j + 1) % L.out]);"),
-    "one_rounding": ("round_bf16(round_bf16(acc[r]) + bj)",
-                     "round_bf16(acc[r] + bj)"),
-    "error_vs_bf16_x": ("s_x[r * MAXW + d] = v;",
-                        "s_x[r * MAXW + d] = round_bf16(v);"),
+    "no_bias": ("const float b0 = __low2float(bb), b1 = __high2float(bb);",
+                "const float b0 = 0.f, b1 = 0.f;"),
+    "neighbour_bias": ("*reinterpret_cast<const __nv_bfloat162*>(bias + col);",
+                       "*reinterpret_cast<const __nv_bfloat162*>("
+                       "bias + (col + 2) % L.npad);"),
+    "one_rounding": ("const float h = round_bf16(round_bf16(acc) + b);",
+                     "const float h = round_bf16(acc + b);"),
+    "error_vs_bf16_x": (
+        "const float diff = __bfloat162float(recon[r * AST + d]) - v;",
+        "const float diff = __bfloat162float(recon[r * AST + d]) - "
+        "round_bf16(v);"),
+    "error_over_padded_width": (
+        "const float err = s / (float)in_dim;",
+        "const float err = s / (float)t.l[t.n_layers - 1].npad;"),
+}
+ROWS_LINE = "constexpr int ROWS = {};         // rows per block"
+# Where the kernel's time goes, for --sweep: the launch alone (every
+# block returns at once), and the weight stream with the tile loads,
+# epilogues and error but no products (no ldmatrix, no mma).
+BREAKDOWN = {
+    "launch_only": (
+        "  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;",
+        "  if (n > 0) return;\n"
+        "  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;"),
+    "no_products": ("    if (TILES > 0) {", "    if (false) {"),
 }
 CHECKS = ("kernel", "served")
 
@@ -400,6 +426,19 @@ def run_check(which: str) -> int:
     return 0
 
 
+def copy_with(tmp: Path, name: str, line: str, replacement: str) -> Path:
+    """A copy of this checkout under ``tmp/name`` whose kernel source
+    has ``line`` (found exactly once) replaced."""
+    shutil.copytree(ROOT, tmp / name, ignore=shutil.ignore_patterns(
+        "_build", "_tree", ".git", "__pycache__"))
+    src = tmp / name / KERNEL_SOURCE
+    text = src.read_text()
+    if text.count(line) != 1:
+        raise AssertionError(f"{name}: line not found once: {line}")
+    src.write_text(text.replace(line, replacement))
+    return tmp / name
+
+
 def check_mutants() -> int:
     """Every check must fail on every mutant, by its own assertion (a
     build failure or a crash is not a catch)."""
@@ -413,13 +452,7 @@ def check_mutants() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for name, (line, broken) in MUTANTS.items():
-            shutil.copytree(ROOT, tmp / name, ignore=shutil.ignore_patterns(
-                "_build", "chiprun_out", ".git", "__pycache__"))
-            src = tmp / name / KERNEL_SOURCE
-            text = src.read_text()
-            if text.count(line) != 1:
-                raise AssertionError(f"mutant {name}: line not found once")
-            src.write_text(text.replace(line, broken))
+            copy_with(tmp, name, line, broken)
         # kernel checks in parallel (each builds its mutant), then the
         # served checks on the built libraries
         with ThreadPoolExecutor(len(MUTANTS)) as pool:
@@ -439,6 +472,119 @@ def check_mutants() -> int:
     return 0
 
 
+def time_rows(cfg, rng, packed, params, mu, var, plain: bool):
+    """Median device ms of the kernel (and, with ``plain``, of its plain
+    version) at each of TIMED_ROWS, with the bound of that work."""
+    import torch
+
+    from linkerd_tpu_torch.ops.scoring import (
+        fused_anomaly_scores, fused_anomaly_scores_plain,
+    )
+
+    by_rows = {}
+    for n in TIMED_ROWS:
+        x = torch.tensor(make_inputs(rng, n, mu.cpu().numpy(),
+                                     var.cpu().numpy()), device="cuda")
+        row = {"ms": device_ms(lambda: fused_anomaly_scores(packed, x, cfg,
+                                                            mu, var))}
+        if plain:
+            row["plain_ms"] = device_ms(lambda: fused_anomaly_scores_plain(
+                params, x, cfg, mu, var))
+        row["bound_ms"], row["bound_by"] = bound_ms(packed.params, n,
+                                                    cfg.in_dim)
+        by_rows[n] = row
+    return by_rows
+
+
+def run_timing(check: bool) -> int:
+    """The kernel timed at TIMED_ROWS, after the kernel check when
+    ``check``; prints one JSON line."""
+    import torch
+
+    from linkerd_tpu_torch.models.anomaly import AnomalyModelConfig
+    from linkerd_tpu_torch.models.convert import params_from_numpy
+    from linkerd_tpu_torch.ops.scoring import pack_params
+
+    cfg = AnomalyModelConfig(recon_weight=0.7)
+    rng = np.random.default_rng(0)
+    if check:
+        worst, params, packed, mu, var = check_kernel(cfg, rng)
+    else:
+        worst = None
+        params = params_from_numpy(random_params(0, cfg), "cuda")
+        packed = pack_params(params, cfg)
+        mu_h, var_h = make_stats(rng, cfg.in_dim)
+        mu, var = torch.tensor(mu_h, device="cuda"), torch.tensor(
+            var_h, device="cuda")
+    print(json.dumps({"max_abs_err": worst, "by_rows": time_rows(
+        cfg, rng, packed, params, mu, var, plain=False)}))
+    return 0
+
+
+def sweep() -> int:
+    """The kernel's row tiles and breakdown variants, built in parallel
+    in temporary copies, then timed one after another."""
+    text = (ROOT / KERNEL_SOURCE).read_text()
+    current = [t for t in TILES if ROWS_LINE.format(t) in text]
+    if len(current) != 1:
+        raise AssertionError("the kernel's ROWS line is not one of TILES")
+    variants = {f"rows{t}": (ROWS_LINE.format(current[0]),
+                             ROWS_LINE.format(t), True) for t in TILES}
+    variants.update({k: (a, b, False) for k, (a, b) in BREAKDOWN.items()})
+    build = [sys.executable, "-c", "from linkerd_tpu_torch.ops import "
+             "_build; _build.build('score_mlp')"]
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        dirs = {k: copy_with(tmp, k, a, b) for k, (a, b, _) in
+                variants.items()}
+        procs = {k: subprocess.Popen(build, cwd=d) for k, d in dirs.items()}
+        if any(p.wait(timeout=600) for p in procs.values()):
+            raise AssertionError("a variant of the kernel did not build")
+        for k, d in dirs.items():
+            ptxas = next((d / "linkerd_tpu_torch/ops/_build").glob(
+                "*.ptxas.txt")).read_text()
+            mode = "--time" if variants[k][2] else "--time-only"
+            proc = subprocess.run(
+                [sys.executable, "chip_smoke.py", mode], cwd=d,
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"{k}: {proc.stderr[-2000:]}")
+            results[k] = json.loads(proc.stdout.strip().splitlines()[-1])
+            results[k]["ptxas"] = [ln.strip() for ln in ptxas.splitlines()
+                                   if "registers" in ln or "spill" in ln]
+            err = results[k]["max_abs_err"]
+            print(f"{k}: " + ", ".join(
+                f"n={n} {r['ms']:.4f} ms"
+                for n, r in results[k]["by_rows"].items())
+                + ("" if err is None else f"; max|diff| {err:.3e}"))
+    print(json.dumps({"card": card_line(), "variants": results}))
+    return 0
+
+
+SASS_OPS = ("HMMA", "LDSM", "UBLKCP", "LDGSTS", "SYNCS", "BAR.SYNC")
+SASS_NEEDED = ("HMMA", "UBLKCP", "LDGSTS")  # tensor cores, staged copies
+
+
+def sass_summary(lib: Path):
+    """Counts of the kernel's tensor-core, shared-memory, copy and
+    barrier instructions (cuobjdump -sass), with a line of each needed
+    one; raises if one of SASS_NEEDED is missing. None where cuobjdump
+    is not installed."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout.splitlines()
+    counts = {op: sum(f" {op}" in ln for ln in sass) for op in SASS_OPS}
+    missing = [op for op in SASS_NEEDED if not counts[op]]
+    if missing:
+        raise AssertionError(f"kernel SASS lacks {missing}: {counts}")
+    excerpt = [next(ln.split("/*")[1].split("*/")[1].strip()
+                    for ln in sass if f" {op}" in ln) for op in SASS_NEEDED]
+    return {"counts": counts, "excerpt": excerpt}
+
+
 def main() -> int:
     import torch
 
@@ -456,6 +602,10 @@ def main() -> int:
     args = sys.argv[1:]
     if args == ["--mutants"]:
         return check_mutants()
+    if args == ["--sweep"]:
+        return sweep()
+    if args in (["--time"], ["--time-only"]):
+        return run_timing(check=args == ["--time"])
     if len(args) == 2 and args[0] == "--check" and args[1] in CHECKS:
         return run_check(args[1])
     if args:
@@ -464,9 +614,7 @@ def main() -> int:
 
     from linkerd_tpu_torch.models.anomaly import AnomalyModelConfig
     from linkerd_tpu_torch.ops import _build
-    from linkerd_tpu_torch.ops.scoring import (
-        fused_anomaly_scores, fused_anomaly_scores_plain,
-    )
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -477,7 +625,16 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build("score_mlp")
     print(f"build score_mlp.cu: {time.perf_counter() - t0:.2f} s")
-    print(lib.with_suffix(".ptxas.txt").read_text().strip())
+    ptxas = lib.with_suffix(".ptxas.txt").read_text().strip()
+    print(ptxas)
+    spills = [ln for ln in ptxas.splitlines()
+              if "spill" in ln and " 0 bytes spill stores, 0 bytes spill "
+              "loads" not in ln]
+    if spills:
+        raise AssertionError(f"ptxas reports spills: {spills}")
+    sass = sass_summary(lib)
+    print("SASS: not measured (no cuobjdump)" if sass is None else
+          f"SASS: {sass['counts']}\n  " + "\n  ".join(sass["excerpt"]))
 
     rng = np.random.default_rng(0)
     cfg = AnomalyModelConfig(recon_weight=0.7)
@@ -492,19 +649,10 @@ def main() -> int:
         raise AssertionError(
             f"{batches} batches scored but the kernel launched {launches}")
 
-    by_rows = {}
-    for n in TIMED_ROWS:
-        x = torch.tensor(make_inputs(rng, n, mu.cpu().numpy(),
-                                     var.cpu().numpy()), device="cuda")
-        k_ms = device_ms(lambda: fused_anomaly_scores(packed, x, cfg,
-                                                      mu, var))
-        p_ms = device_ms(lambda: fused_anomaly_scores_plain(params, x, cfg,
-                                                            mu, var))
-        b_ms, b_by = bound_ms(packed.params, n, cfg.in_dim)
-        by_rows[n] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                      "bound_by": b_by}
-        print(f"kernel n={n}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by})")
+    by_rows = time_rows(cfg, rng, packed, params, mu, var, plain=True)
+    for n, r in by_rows.items():
+        print(f"kernel n={n}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     h2d, d2h = copy_ms(1024, cfg.in_dim)
     print(f"copies of a 1024-row batch, each timed alone: h2d {h2d:.4f} "
           f"ms, d2h {d2h:.4f} ms")
@@ -540,7 +688,8 @@ def main() -> int:
     }]
     name, _, limit = card.partition(",")
     print(json.dumps({"kernels": kernels, "card": name.strip(),
-                      "power_limit": limit.strip(), "service": service}))
+                      "power_limit": limit.strip(), "sass": sass,
+                      "service": service}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

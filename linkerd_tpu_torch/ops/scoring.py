@@ -8,15 +8,17 @@ function in plain PyTorch. There is no probe that falls back: a kernel
 that does not build or launch is an error.
 
 ``pack_params`` checks a model against what the kernel takes and lays
-it out for launches once; a server packs each model when it places it
-and every launch then only passes pointers.
+it out for launches once (one buffer of zero-padded bf16 weights and
+biases, in the order the kernel streams them, and a table of where each
+layer sits); a server packs each model when it places it and every
+launch then only passes a pointer and the table.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Optional, Union
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -26,8 +28,11 @@ from linkerd_tpu_torch.models.anomaly import (
 from linkerd_tpu_torch.ops import _build
 
 _GROUPS = ("enc", "dec", "cls")
-MAX_WIDTH = 256   # MAXW in csrc/score_mlp.cu: widest layer and in_dim
-MAX_LAYERS = 16   # MAX_LAYERS in csrc/score_mlp.cu
+# mirrors of csrc/score_mlp.cu (tests/test_torch_ops.py holds them equal)
+MAX_WIDTH = 256   # MAXW: widest layer and in_dim
+MAX_LAYERS = 16   # MAX_LAYERS
+ROWS_PER_BLOCK = 16  # ROWS: rows a block owns
+RELU, LOGIT = 1, 2  # layer flags
 
 
 @functools.cache
@@ -35,41 +40,117 @@ def _kernel() -> Callable[..., int]:
     """``score_mlp_forward`` of ``csrc/score_mlp.cu``, built on first use."""
     fn = _build.load("score_mlp").score_mlp_forward
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, i, p, p, p, p, p, i, i, i, f, f, p, p]
+    fn.argtypes = [p, i, i, p, p, p, p, i, i, f, f, p, p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+class PackedLayer(NamedTuple):
+    """Where one layer sits in ``KernelParams.packed`` (offsets in
+    elements) and which activation buffers (0..2) it reads and writes."""
+    group: str
+    index: int
+    k: int          # the model's own (in, out) widths
+    n: int
+    kpad: int       # k padded to the mma depth, 16
+    npad: int       # n padded to the mma width, 8
+    wstride: int    # row stride of the padded [kpad, wstride] weights
+    w_off: int
+    b_off: int
+    in_buf: int
+    out_buf: int
+    flags: int
+
+    def row(self) -> Tuple[int, ...]:
+        """The layer's entry of the kernel's table."""
+        return (self.w_off, self.b_off, self.kpad, self.npad, self.wstride,
+                self.in_buf, self.out_buf, self.flags)
+
+
+def _weight_stride(npad: int) -> int:
+    """An odd number of 16-byte units, so that ldmatrix's eight rows of
+    a weight tile fall in eight distinct bank groups."""
+    return npad if (npad // 8) % 2 else npad + 8
+
+
+def _layout(params: Params) -> Tuple[List[PackedLayer], int, int]:
+    """The packed layout in execution order (encoder, classifier,
+    decoder): the biases first, each padded to ``npad``, then each
+    layer's weights as ``[kpad, wstride]``. The encoder ping-pongs
+    through buffers 1 and 2 from the input in 0; the classifier and
+    then the decoder read z and ping-pong through the two buffers z is
+    not in. Returns the layers, the bias length and the total length."""
+    layers: List[PackedLayer] = []
+    order = [("enc", params["enc"]), ("cls", params["cls"]),
+             ("dec", params["dec"])]
+    shapes = [(g, i, *layer["w"].shape) for g, group in order
+              for i, layer in enumerate(group)]
+    bias_len = sum(_round_up(n, 8) for *_, n in shapes)
+    b_off, w_off = 0, bias_len
+    n_enc = len(params["enc"])
+    z = 1 + (n_enc - 1) % 2
+    other = [b for b in (0, 1, 2) if b != z]
+    for g, i, k, n in shapes:
+        kpad, npad = _round_up(k, 16), _round_up(n, 8)
+        wstride = _weight_stride(npad)
+        if g == "enc":
+            in_buf = 0 if i == 0 else 1 + (i - 1) % 2
+            out_buf, flags = 1 + i % 2, RELU
+        else:
+            last = i == len(params[g]) - 1
+            in_buf = z if i == 0 else other[(i - 1) % 2]
+            out_buf = other[i % 2]
+            flags = (0 if last else RELU) | (LOGIT if g == "cls" and last
+                                             else 0)
+        layers.append(PackedLayer(g, i, k, n, kpad, npad, wstride, w_off,
+                                  b_off, in_buf, out_buf, flags))
+        b_off += npad
+        w_off += kpad * wstride
+    return layers, bias_len, w_off
+
+
 class KernelParams:
     """One model's layers, checked against what the kernel takes and
-    held in ``cfg.compute_dtype`` on one device, with the host tables
-    (weight and bias pointers, (in, out) widths) a launch passes. The
-    tables point into ``params``, which this object keeps alive."""
+    held in ``cfg.compute_dtype`` on one device (``params``, unpadded,
+    and ``dims``, their (in, out) widths in group order), and the
+    layout a launch passes: ``packed``, one bf16 buffer of the biases
+    and the zero-padded weights in execution order, with ``layers`` and
+    ``table`` saying where each layer sits."""
 
-    __slots__ = ("params", "device", "counts", "w_ptrs", "b_ptrs", "dims")
+    __slots__ = ("params", "device", "counts", "dims", "layers", "bias_len",
+                 "packed", "table")
 
     def __init__(self, params: Params, device: torch.device, counts):
         self.params = params
         self.device = device
         self.counts = counts  # layers per group: (enc, dec, cls)
-        layers = [layer for g in _GROUPS for layer in params[g]]
-        n = len(layers)
-        self.w_ptrs = (ctypes.c_void_p * n)(
-            *[layer["w"].data_ptr() for layer in layers])
-        self.b_ptrs = (ctypes.c_void_p * n)(
-            *[layer["b"].data_ptr() for layer in layers])
-        self.dims = (ctypes.c_int * (2 * n))(
-            *[d for layer in layers for d in layer["w"].shape])
+        self.dims = tuple(d for g in _GROUPS for layer in params[g]
+                          for d in layer["w"].shape)
+        self.layers, self.bias_len, total = _layout(params)
+        packed = torch.zeros(total, dtype=torch.bfloat16, device=device)
+        for pl in self.layers:
+            layer = params[pl.group][pl.index]
+            packed[pl.b_off:pl.b_off + pl.n] = layer["b"]
+            packed[pl.w_off:pl.w_off + pl.kpad * pl.wstride].view(
+                pl.kpad, pl.wstride)[:pl.k, :pl.n] = layer["w"]
+        self.packed = packed
+        self.table = (ctypes.c_int * (8 * len(self.layers)))(
+            *[v for pl in self.layers for v in pl.row()])
 
 
 def pack_params(params: Params,
                 cfg: AnomalyModelConfig = AnomalyModelConfig()
                 ) -> KernelParams:
-    """Check ``params`` against ``cfg`` and the kernel's limits and cast
+    """Check ``params`` against ``cfg`` and the kernel's limits, cast
     the layers to ``cfg.compute_dtype`` (a copy only where they are in
-    another dtype). Raises ``ValueError`` naming the first fault: a
-    missing group, a layer that does not chain onto the one before, a
-    width above ``MAX_WIDTH``, or tensors on more than one device."""
+    another dtype) and lay them out for the kernel. Raises
+    ``ValueError`` naming the first fault: a missing group, a layer
+    that does not chain onto the one before, a width above
+    ``MAX_WIDTH``, or tensors on more than one device."""
     if cfg.in_dim > MAX_WIDTH:
         raise ValueError(f"in_dim {cfg.in_dim} exceeds the kernel's "
                          f"{MAX_WIDTH}")
@@ -184,8 +265,8 @@ def fused_anomaly_scores(params: Union[Params, KernelParams],
         rc = fn(x.data_ptr(), n, cfg.in_dim,
                 mu.data_ptr() if mu is not None else None,
                 var.data_ptr() if var is not None else None,
-                kp.w_ptrs, kp.b_ptrs, kp.dims, *kp.counts,
-                cfg.recon_weight, 1.0 - cfg.recon_weight,
+                kp.packed.data_ptr(), kp.table, len(kp.layers),
+                kp.bias_len, cfg.recon_weight, 1.0 - cfg.recon_weight,
                 out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"score_mlp launch failed: cudaError {rc}")

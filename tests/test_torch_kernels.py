@@ -73,13 +73,16 @@ def assert_agrees(got, ref):
     assert (diff > ROW_TOL).sum() <= max(1, len(diff) // 100)
 
 
-@pytest.mark.parametrize("n", [1, 7, 8, 9, 37, 256, 1000, 1024, 4096])
-@pytest.mark.parametrize("folded", [False, True])
-def test_kernel_matches_plain(cuda, n, folded):
-    c = cfg()
-    params = params_from_numpy(random_params(0, c), cuda)
-    rng = np.random.default_rng(n)
+# the edges of the kernel's row tile: one row short of it, one whole,
+# one row over, and whole tiles with a ragged tail
+R = scoring.ROWS_PER_BLOCK
+TILE_EDGES = [R - 1, R, R + 1, 5 * R + 3]
+
+
+def check_against_plain(c, params, n, folded, seed):
+    rng = np.random.default_rng(seed)
     z = rng.standard_normal((n, c.in_dim))
+    cuda = params["enc"][0]["w"].device
     mu = var = None
     if folded:
         mu_h = rng.standard_normal(c.in_dim) * 0.5
@@ -94,6 +97,28 @@ def test_kernel_matches_plain(cuda, n, folded):
     torch.cuda.synchronize()
     assert scoring.fused_anomaly_scores.launches == before + 1
     assert_agrees(got, ref)
+
+
+@pytest.mark.parametrize(
+    "n", sorted({1, 7, 8, 9, 37, 256, 1000, 1024, 4096, *TILE_EDGES}))
+@pytest.mark.parametrize("folded", [False, True])
+def test_kernel_matches_plain(cuda, n, folded):
+    c = cfg()
+    params = params_from_numpy(random_params(0, c), cuda)
+    check_against_plain(c, params, n, folded, seed=n)
+
+
+@pytest.mark.parametrize("n", [1, R + 1, 300, 1024])
+@pytest.mark.parametrize("folded", [False, True])
+def test_odd_widths_match_plain(cuda, n, folded):
+    """Widths that are multiples of neither 16 nor 8 in every group, so
+    every kind of padding runs: K of the input (36 -> 48) and of z
+    (20 -> 32), N of each hidden layer, of z (20 -> 24), of the
+    reconstruction (36 -> 40) and of the logit (1 -> 8)."""
+    c = AnomalyModelConfig(enc_dims=(100, 50), bottleneck=20, cls_hidden=30,
+                           recon_weight=0.7)
+    params = params_from_numpy(random_params(5, c), cuda)
+    check_against_plain(c, params, n, folded, seed=1000 + n)
 
 
 def test_packed_params_launch_alike(cuda):

@@ -23,6 +23,8 @@ add into the product and rounds once, and with nonzero biases most rows
 then move by a few 1e-4 (``test_excess_precision_rounds_the_bias_once``).
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -212,3 +214,156 @@ class TestPackParams:
             params["cls"] = [dense(16, 16) for _ in range(10)] + [dense(16, 1)]
         with pytest.raises(ValueError, match=match):
             scoring.pack_params(params, cfg)
+
+
+class TestPackedLayout:
+    """The layout ``pack_params`` hands the CUDA kernel: one bf16
+    buffer of biases and zero-padded weights, and a table of where each
+    layer sits and which activation buffers it reads and writes. The
+    kernel runs only on the card; the layout is built on any device,
+    so it is held here."""
+
+    MODELS = {
+        "default": dict(),
+        "narrow": dict(enc_dims=(64, 32), bottleneck=16, cls_hidden=32),
+        # a width in every group that is a multiple of neither 16 nor 8
+        "odd": dict(enc_dims=(100, 50), bottleneck=20, cls_hidden=30),
+        "one_enc_layer": dict(enc_dims=(), bottleneck=20, cls_hidden=30),
+    }
+
+    @classmethod
+    def packed(cls, name, seed=0):
+        cfg = torch_model.AnomalyModelConfig(recon_weight=0.7,
+                                             **cls.MODELS[name])
+        params = torch_model.init_params(seed, cfg, "cpu")
+        rng = np.random.default_rng(seed)
+        for group in params.values():
+            for layer in group:
+                layer["b"] = torch.tensor(
+                    rng.standard_normal(tuple(layer["b"].shape)) * 0.1,
+                    dtype=torch.float32)
+        return cfg, params, scoring.pack_params(params, cfg)
+
+    def test_kernel_constants_are_mirrored(self):
+        src = (Path(scoring.__file__).parent / "csrc" /
+               "score_mlp.cu").read_text()
+        for name, value in (("MAXW", scoring.MAX_WIDTH),
+                            ("MAX_LAYERS", scoring.MAX_LAYERS),
+                            ("ROWS", scoring.ROWS_PER_BLOCK)):
+            assert f"constexpr int {name} = {value};" in src
+        assert "enum { RELU = %d, LOGIT = %d };" % (
+            scoring.RELU, scoring.LOGIT) in src
+
+    @pytest.mark.parametrize("name", list(MODELS))
+    def test_buffer_reads_back(self, name):
+        """Through its table, the buffer holds the cast weights and
+        biases in the live region and zeros everywhere else, and the
+        regions tile it with no gap or overlap."""
+        _, _, kp = self.packed(name)
+        buf = kp.packed.float()
+        assert kp.packed.dtype == torch.bfloat16
+        live = torch.zeros(buf.numel(), dtype=torch.bool)
+        covered = torch.zeros(buf.numel(), dtype=torch.int32)
+        for pl in kp.layers:
+            layer = kp.params[pl.group][pl.index]
+            w = buf[pl.w_off:pl.w_off + pl.kpad * pl.wstride].view(
+                pl.kpad, pl.wstride)
+            assert torch.equal(w[:pl.k, :pl.n], layer["w"].float())
+            assert torch.equal(buf[pl.b_off:pl.b_off + pl.n],
+                               layer["b"].float())
+            covered[pl.w_off:pl.w_off + pl.kpad * pl.wstride] += 1
+            covered[pl.b_off:pl.b_off + pl.npad] += 1
+            live[pl.b_off:pl.b_off + pl.n] = True
+            live[pl.w_off:pl.w_off + pl.kpad * pl.wstride].view(
+                pl.kpad, pl.wstride)[:pl.k, :pl.n] = True
+        assert torch.equal(covered, torch.ones_like(covered))
+        assert not buf[~live].any()
+        assert kp.bias_len == sum(pl.npad for pl in kp.layers)
+        assert list(kp.table) == [v for pl in kp.layers for v in pl.row()]
+
+    @pytest.mark.parametrize("width", [1, 8, 16, 20, 30, 36, 100, 255, 256])
+    def test_tile_shapes_take_every_width(self, width):
+        """Every width up to 256 pads to the mma shape (K to 16, N to
+        8), by less than one tile, into a row stride of an odd number
+        of 16-byte units, at offsets that keep 16-byte alignment."""
+        cfg = torch_model.AnomalyModelConfig(
+            in_dim=max(width, 2), enc_dims=(width,), bottleneck=width,
+            cls_hidden=width)
+        kp = scoring.pack_params(torch_model.init_params(0, cfg, "cpu"), cfg)
+        for pl in kp.layers:
+            assert pl.kpad % 16 == 0 and pl.k <= pl.kpad < pl.k + 16
+            assert pl.npad % 8 == 0 and pl.n <= pl.npad < pl.n + 8
+            assert pl.kpad <= scoring.MAX_WIDTH
+            assert pl.npad <= pl.wstride <= pl.npad + 8
+            assert (pl.wstride // 8) % 2 == 1
+            assert pl.w_off % 8 == 0 and pl.b_off % 8 == 0
+
+    @pytest.mark.parametrize("name", list(MODELS))
+    def test_execution_order_and_buffers(self, name):
+        """Encoder, classifier, decoder; each layer reads the buffer
+        the layer before it wrote; z stays put while the classifier and
+        the decoder run; the logit comes from the classifier's last."""
+        _, _, kp = self.packed(name)
+        groups = [pl.group for pl in kp.layers]
+        counts = dict(zip(("enc", "dec", "cls"), kp.counts))
+        assert groups == (["enc"] * counts["enc"] + ["cls"] * counts["cls"]
+                          + ["dec"] * counts["dec"])
+        enc = [pl for pl in kp.layers if pl.group == "enc"]
+        z = enc[-1].out_buf
+        assert enc[0].in_buf == 0
+        for chain in (enc, *[[pl for pl in kp.layers if pl.group == g]
+                             for g in ("cls", "dec")]):
+            for before, after in zip(chain, chain[1:]):
+                assert after.in_buf == before.out_buf != after.out_buf
+            if chain[0].group != "enc":
+                assert chain[0].in_buf == z
+                assert all(pl.out_buf != z for pl in chain)
+        flags = [pl.flags for pl in kp.layers]
+        last = {g: max(i for i, pl in enumerate(kp.layers) if pl.group == g)
+                for g in counts}
+        for i, f in enumerate(flags):
+            relu = not (i == last["cls"] or i == last["dec"])
+            assert bool(f & scoring.RELU) == relu
+            assert bool(f & scoring.LOGIT) == (i == last["cls"])
+
+    @staticmethod
+    def run_table(kp, x):
+        """The kernel's plan in plain PyTorch: layers in table order on
+        three activation buffers that start as NaN (shared memory is
+        not cleared), each layer reading its padded K from its input
+        buffer and zeroing its output up to the next 16 columns."""
+        n, in_dim = x.shape
+        act = torch.full((3, n, scoring.MAX_WIDTH + 8), float("nan"))
+        act[0, :, :kp.layers[0].kpad] = 0.0
+        act[0, :, :in_dim] = x.to(torch.bfloat16).float()
+        buf = kp.packed.float()
+        bf16 = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+        logit = None
+        for pl in kp.layers:
+            w = buf[pl.w_off:pl.w_off + pl.kpad * pl.wstride].view(
+                pl.kpad, pl.wstride)[:, :pl.npad]
+            b = buf[pl.b_off:pl.b_off + pl.npad]
+            h = bf16(bf16(act[pl.in_buf, :, :pl.kpad] @ w) + b)
+            if pl.flags & scoring.RELU:
+                h = torch.relu(h)
+            act[pl.out_buf, :, :-(-pl.npad // 16) * 16] = 0.0
+            act[pl.out_buf, :, :pl.npad] = h
+            if pl.flags & scoring.LOGIT:
+                logit = h[:, 0]
+        recon = act[kp.layers[-1].out_buf, :, :in_dim]
+        err = torch.mean(torch.square(recon - x), dim=-1)
+        return err, logit
+
+    @pytest.mark.parametrize("name", list(MODELS))
+    def test_table_forward_matches_plain(self, name):
+        """Run through its table, the padded buffer scores as the
+        unpadded model does, at the bf16 bound of this file."""
+        cfg, params, kp = self.packed(name, seed=3)
+        x = torch.tensor(np.random.default_rng(4).standard_normal(
+            (97, cfg.in_dim)), dtype=torch.float32)
+        err, logit = self.run_table(kp, x)
+        got = (cfg.recon_weight * torch.tanh(err)
+               + (1 - cfg.recon_weight) * torch.sigmoid(logit))
+        assert torch.isfinite(got).all()
+        assert_bf16_close(got.numpy(), scoring.fused_anomaly_scores_plain(
+            params, x, cfg).numpy())
