@@ -10,10 +10,17 @@ checkout, holds each against its plain PyTorch version on the card,
 drives the scorer sidecar's request handlers (Restore, Score with
 batches in flight, Snapshot) on the exact wire bytes, checks that every
 batch went through the kernel, and times the kernel and the service.
-Prints the card, a JSON line of kernel and service numbers, and as its
-last line ``{"ok": true, "device": {...}}``. Any failure raises and
-exits non-zero; with no CUDA device, or outside the repository, it
-exits non-zero before printing any result. Imports nothing of JAX.
+Then the train phase, through the same handlers: (a) Fit calls on the
+card held against the same calls on the CPU, and the fitted model's
+served scores against its plain version; (b) Score batches while fits
+run, each scored under one whole published model; (c) the lifecycle
+manager promoting a good fit and rolling a poisoned one back to the
+promoted scores, bit for bit; (d) fit, gated-cycle and Score-under-fit
+times. Prints the card, a JSON line of kernel and service numbers, one
+of the train phase's, and as its last line ``{"ok": true, "device":
+{...}}``. Any failure raises and exits non-zero; with no CUDA device, or
+outside the repository, it exits non-zero before printing any result.
+Imports nothing of JAX.
 
 ``--mutants`` builds deliberately broken copies of the kernel in a
 temporary copy of the port and runs the kernel and served checks
@@ -377,6 +384,571 @@ async def time_service(cfg, rng):
                                   else busy / (traced_wall * 1e3))}
 
 
+# -- train phase: online training and the model lifecycle -----------------
+# (a) the same fit calls on the card and on the CPU; (b) Score batches in
+# flight while fits run; (c) promotion, a poisoned fit and its rollback
+# through ModelLifecycleManager; (d) times. All through ScorerService's
+# wire bytes, as a router's Fit/Score/Snapshot/Restore calls arrive.
+FIT_ROWS = 1024
+FIT_CALLS = 3           # fit calls held against the same calls on the CPU
+FIT_LOSS_REL = 1e-3     # a fit call's loss, card against CPU
+MODEL_TOL = 3e-3        # card- against CPU-fitted model from one state
+PARITY_SEEDS = (2, 3, 4, 5)  # snapshots and fit streams of phase (a)
+DURING_FITS = 6         # fit calls while Score batches run
+REPLAY_ROWS = 4096      # the lifecycle's held-out window
+GOOD_FITS, POISON_FITS = 3, 12
+FIT_TIMINGS = 30        # timed fit calls (after three untimed)
+PROFILED_FITS = 10
+CYCLE_TIMINGS = 5       # timed gated cycles
+FIT_EVERY = 8           # batches per fit: the reference's trainEveryBatches
+LOAD_ROUNDS = 50        # rounds of IN_FLIGHT batches, per run of a mode
+
+
+def labeled_rows(rng: np.random.Generator, n: int, mu, var):
+    """Rows of the stream ``mu``/``var`` describe, a quarter anomalous
+    (six features shifted by three of the stream's sigmas), about half
+    of them labeled."""
+    labels = (rng.random(n) < 0.25).astype(np.float32)
+    x = make_inputs(rng, n, mu, var)
+    x[:, :6] += (3.0 * np.sqrt(var[:6]) * labels[:, None]).astype(np.float32)
+    mask = (rng.random(n) < 0.5).astype(np.float32)
+    return x, labels, mask
+
+
+async def counted(aw):
+    """Awaits ``aw`` with the kernel's launch count set to 0 just before;
+    returns its result and the count just after."""
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+
+    fused_anomaly_scores.launches = 0
+    out = await aw
+    return out, fused_anomaly_scores.launches
+
+
+def plain_scores(snap, x: np.ndarray, dev: str) -> np.ndarray:
+    """A snapshot's scores for raw rows by the plain version on ``dev``."""
+    import torch
+
+    from linkerd_tpu_torch.models.convert import params_from_numpy
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores_plain
+
+    return fused_anomaly_scores_plain(
+        params_from_numpy(snap.params, dev), torch.tensor(x, device=dev),
+        snap.cfg, torch.tensor(snap.mu, device=dev),
+        torch.tensor(snap.var, device=dev)).cpu().numpy()
+
+
+def max_param_diff(a, b) -> float:
+    return max(float(np.abs(la[k] - lb[k]).max())
+               for g in ("enc", "dec", "cls")
+               for la, lb in zip(a[g], b[g]) for k in ("w", "b"))
+
+
+def record_publications(scorer) -> list:
+    """Every serving tuple ``scorer`` publishes from now on, after the
+    current one: its class gains a ``__setattr__`` that notes each
+    assignment of ``_dev``."""
+    published = [scorer._dev]
+
+    class Recording(type(scorer)):
+        def __setattr__(self, name, value):
+            if name == "_dev":
+                published.append(value)
+            object.__setattr__(self, name, value)
+
+    scorer.__class__ = Recording
+    return published
+
+
+def f32(reply: bytes) -> float:
+    return float(np.frombuffer(reply, np.float32)[0])
+
+
+async def train_parity(cfg, seed: int, dev: str = "cuda"):
+    """(a) for one seed: a snapshot restored on the card, then FIT_CALLS
+    Fit payloads. Before each call a CPU scorer restores the card's
+    snapshot, so both fit the payload from one state: the losses agree
+    within FIT_LOSS_REL, and the fitted models' scores within MODEL_TOL
+    on every row. Then the card's served scores lie within the Agreement
+    bounds of its own plain version on its fitted weights.
+
+    Two more CPU scorers take the same calls from the snapshot and are
+    never resynced; their readings have no bound. After the last call,
+    the card's model against the first of them is the drift over all
+    FIT_CALLS x fit_steps steps, and the first against the second, which
+    fits the same rows in a permuted order, is the drift that summation
+    order alone makes on one device."""
+    from linkerd_tpu_torch.lifecycle.store import encode_snapshot
+    from linkerd_tpu_torch.telemetry.anomaly import InProcessScorer
+    from linkerd_tpu_torch.telemetry.sidecar import (
+        ScorerService, encode_fit, encode_matrix,
+    )
+
+    rng = np.random.default_rng(seed)
+    snap = make_snapshot(cfg, seed=seed)
+    scorers = [InProcessScorer(device=dev)] + [
+        InProcessScorer(device="cpu") for _ in range(3)]
+    card_svc, cpu_svc, free_svc, perm_svc = (ScorerService(s)
+                                              for s in scorers)
+    x = make_inputs(rng, FIT_ROWS, snap.mu, snap.var)
+    losses, model_diffs = [], []
+
+    async def fit_both(payload: bytes):
+        # the card's calls are this phase's main path, counted
+        state, n0 = await counted(card_svc.handle_snapshot(b""))
+        await cpu_svc.handle_restore(state)
+        card, n1 = await counted(card_svc.handle_fit(payload))
+        host = f32(await cpu_svc.handle_fit(payload))
+        card = f32(card)
+        if not abs(card - host) <= FIT_LOSS_REL * abs(host):
+            raise AssertionError(
+                f"seed {seed}: fit loss on the card {card} against {host} "
+                f"on the CPU, limit {FIT_LOSS_REL} relative")
+        fitted = [s.snapshot() for s in scorers[:2]]
+        diff = float(np.abs(plain_scores(fitted[0], x, dev)
+                            - plain_scores(fitted[1], x, dev)).max())
+        if diff > MODEL_TOL:
+            raise AssertionError(
+                f"seed {seed}: card-fitted model off the CPU-fitted one "
+                f"by {diff} > {MODEL_TOL} after one call from one state")
+        losses.append([card, host])
+        model_diffs.append(diff)
+        return n0 + n1
+
+    try:
+        launches = (await counted(
+            card_svc.handle_restore(encode_snapshot(snap))))[1]
+        for svc in (free_svc, perm_svc):
+            await svc.handle_restore(encode_snapshot(snap))
+        for _ in range(FIT_CALLS):
+            rows = labeled_rows(rng, FIT_ROWS, snap.mu, snap.var)
+            launches += await fit_both(encode_fit(*rows))
+            await free_svc.handle_fit(encode_fit(*rows))
+            order = rng.permutation(FIT_ROWS)
+            await perm_svc.handle_fit(encode_fit(*(r[order] for r in rows)))
+        reply, n = await counted(card_svc.handle_score(encode_matrix(x)))
+        launches += n
+        served = np.frombuffer(reply, np.float32)
+        card, free, perm = (s.snapshot() for s in (scorers[0], *scorers[2:]))
+    finally:
+        for s in scorers:
+            s.close()
+    agree = Agreement(f"fitted, seed {seed}: served vs plain")
+    plain = plain_scores(card, x, dev)
+    agree.add(served, plain, f"{FIT_ROWS} rows")
+    agree.close()
+    free_scores = plain_scores(free, x, dev)
+    drift = float(np.abs(plain - free_scores).max())
+    order_drift = float(np.abs(free_scores
+                               - plain_scores(perm, x, dev)).max())
+    print(f"fit parity, seed {seed}: losses card/CPU {losses}; card- vs "
+          f"CPU-fitted model from one state, max|diff| each call "
+          f"{[f'{d:.3e}' for d in model_diffs]}; fitted served vs plain "
+          f"max|diff| {agree.worst:.3e}; after "
+          f"{FIT_CALLS * scorers[0].fit_steps} steps apart, card vs CPU "
+          f"{drift:.3e}, CPU vs CPU on permuted rows {order_drift:.3e}")
+    return {"seed": seed, "launches": launches, "losses_card_cpu": losses,
+            "loss_rel_max": max(abs(c - h) / abs(h) for c, h in losses),
+            "served_vs_plain_max": agree.worst,
+            "card_vs_cpu_model_by_call": model_diffs,
+            "card_vs_cpu_model_max": max(model_diffs),
+            "apart_card_vs_cpu": drift,
+            "apart_cpu_vs_cpu_permuted": order_drift,
+            "apart_param_max": max_param_diff(card.params, free.params),
+            "step": card.step}
+
+
+async def fit_parity(cfg, dev: str = "cuda"):
+    """(a) over every seed of PARITY_SEEDS."""
+    runs = [await train_parity(cfg, seed, dev) for seed in PARITY_SEEDS]
+    return {"launches": sum(r["launches"] for r in runs),
+            "card_vs_cpu_model_max": max(r["card_vs_cpu_model_max"]
+                                         for r in runs),
+            "by_seed": runs}
+
+
+async def score_during_fit(cfg, rng, dev: str = "cuda"):
+    """(b) IN_FLIGHT 1024-row Score batches at a time while DURING_FITS
+    Fit calls run: each batch launches the kernel once, and each batch's
+    scores equal, bit for bit, the kernel's for those rows under one of
+    the serving tuples the scorer published."""
+    import torch
+
+    from linkerd_tpu_torch.lifecycle.store import encode_snapshot
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+    from linkerd_tpu_torch.telemetry.anomaly import InProcessScorer
+    from linkerd_tpu_torch.telemetry.sidecar import (
+        ScorerService, encode_fit, encode_matrix,
+    )
+
+    snap = make_snapshot(cfg, seed=3)
+    scorer = InProcessScorer(device=dev)
+    svc = ScorerService(scorer)
+    fits = [encode_fit(*labeled_rows(rng, FIT_ROWS, snap.mu, snap.var))
+            for _ in range(DURING_FITS)]
+    xs = [make_inputs(rng, FIT_ROWS, snap.mu, snap.var)
+          for _ in range(IN_FLIGHT)]
+    payloads = [encode_matrix(x) for x in xs]
+    served = []
+    try:
+        await svc.handle_restore(encode_snapshot(snap))
+        published = record_publications(scorer)
+        done = asyncio.Event()
+
+        async def fitting():
+            for p in fits:
+                await svc.handle_fit(p)
+            done.set()
+
+        async def load():
+            while not done.is_set():
+                replies = await asyncio.gather(
+                    *(svc.handle_score(p) for p in payloads))
+                served.extend(enumerate(replies))
+
+        _, launches = await counted(asyncio.gather(fitting(), load()))
+    finally:
+        scorer.close()
+    if launches != len(served):
+        raise AssertionError(f"{len(served)} batches during fits but the "
+                             f"kernel launched {launches}")
+    if len(published) != 1 + 2 * DURING_FITS:
+        raise AssertionError(f"{len(published)} tuples published for "
+                             f"{DURING_FITS} fits")
+    # every published tuple's scores for each batch's rows (launches made
+    # to compare, after the phase's count was read)
+    under = [[fused_anomaly_scores(kp, torch.tensor(x, device=dev),
+                                   scorer.cfg, mu, var).cpu().numpy()
+              .tobytes() for x in xs] for kp, mu, var in published]
+    seen = set()
+    for i, reply in served:
+        match = [t for t, by_x in enumerate(under) if by_x[i] == reply]
+        if not match:
+            raise AssertionError("a batch scored under no published "
+                                 "serving tuple (torn params/mu/var)")
+        seen.add(match[0])
+    print(f"score during fit: {len(served)} batches, {launches} launches, "
+          f"{len(published)} tuples published, batches scored under "
+          f"{len(seen)} of them, none torn")
+    return {"batches": len(served), "launches": launches,
+            "tuples_published": len(published), "tuples_seen": len(seen)}
+
+
+async def lifecycle_phase(cfg, rng, dev: str = "cuda"):
+    """(c) ModelLifecycleManager over a CheckpointStore in a temporary
+    directory: bootstrap promotion, a good fit promoted, a poisoned fit
+    (POISON_FITS calls on flipped labels) rolled back. After the
+    rollback Score returns the bytes it returned after the promotion,
+    and each gated cycle launches the kernel exactly twice (candidate
+    and serving evaluate_snapshot)."""
+    from linkerd_tpu_torch.lifecycle import LifecycleConfig
+    from linkerd_tpu_torch.lifecycle.store import encode_snapshot
+    from linkerd_tpu_torch.telemetry.anomaly import InProcessScorer
+    from linkerd_tpu_torch.telemetry.sidecar import (
+        ScorerService, encode_fit, encode_matrix,
+    )
+
+    snap = make_snapshot(cfg, seed=4)
+    scorer = InProcessScorer(device=dev)
+    svc = ScorerService(scorer)
+    x = encode_matrix(make_inputs(rng, FIT_ROWS, snap.mu, snap.var))
+    gated, launches = [], 0
+
+    async def step(aw):
+        # every call of the phase's main path is a counted window
+        nonlocal launches
+        out, n = await counted(aw)
+        launches += n
+        return out
+
+    async def cycle(mgr, want: str):
+        nonlocal launches
+        out, n = await counted(mgr.run_cycle(scorer))
+        launches += n
+        if out["action"] != want:
+            raise AssertionError(f"lifecycle: {want} expected, got {out}")
+        gated.append(n)
+        if n != 2:
+            raise AssertionError(f"a gated cycle launched the kernel {n} "
+                                 f"times, not 2")
+        return out
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = LifecycleConfig(directory=tmp, minReplayRows=REPLAY_ROWS
+                                  ).mk_manager(device=dev)
+            for _ in range(REPLAY_ROWS // FIT_ROWS):
+                mgr.replay.add_batch(*labeled_rows(rng, FIT_ROWS, snap.mu,
+                                                   snap.var))
+            await step(svc.handle_restore(encode_snapshot(snap)))
+            first = await step(mgr.run_cycle(scorer))
+            if first["action"] != "promoted":
+                raise AssertionError(f"bootstrap not promoted: {first}")
+            for _ in range(GOOD_FITS):
+                await step(svc.handle_fit(encode_fit(*labeled_rows(
+                    rng, FIT_ROWS, snap.mu, snap.var))))
+            good = await cycle(mgr, "promoted")
+            promoted = await step(svc.handle_score(x))
+            for _ in range(POISON_FITS):
+                xp, labels, mask = labeled_rows(rng, FIT_ROWS, snap.mu,
+                                                snap.var)
+                await step(svc.handle_fit(encode_fit(xp, 1.0 - labels,
+                                                     mask)))
+            if await step(svc.handle_score(x)) == promoted:
+                raise AssertionError("the poisoned fits left the scores")
+            bad = await cycle(mgr, "rolled_back")
+            if await step(svc.handle_score(x)) != promoted:
+                raise AssertionError("scores after the rollback differ from "
+                                     "those after the promotion")
+            status = mgr.status()
+    finally:
+        scorer.close()
+    reasons = [c["decision"]["reason"] for c in (good, bad)]
+    print(f"lifecycle: bootstrap promoted, good fit promoted "
+          f"({reasons[0]}), poisoned fit rolled back ({reasons[1]}); "
+          f"scores after the rollback equal those after the promotion; "
+          f"kernel launches per gated cycle {gated}")
+    return {"launches": launches,
+            "actions": ["promoted", good["action"], bad["action"]],
+            "reasons": reasons, "launches_per_gated_cycle": gated,
+            "versions": [(v["version"], v["status"])
+                         for v in status["store"]["versions"]]}
+
+
+def spread(ms) -> dict:
+    ms = np.asarray(ms)
+    return {"n": int(ms.size), "p50_ms": float(np.median(ms)),
+            "min_ms": float(ms.min()), "max_ms": float(ms.max()),
+            "p10_ms": float(np.percentile(ms, 10)),
+            "p90_ms": float(np.percentile(ms, 90))}
+
+
+def device_breakdown(trace_path: Path) -> dict:
+    """Device milliseconds by kind of work in a profiler trace: matrix
+    products, Adam's fused updates, copies each way, other kernels; and
+    the count of kernels."""
+    events = json.loads(trace_path.read_text()).get("traceEvents", [])
+    out = {"gemm": 0.0, "adam": 0.0, "h2d": 0.0, "d2h": 0.0, "other": 0.0,
+           "kernels": 0}
+    for e in events:
+        if "dur" not in e or e.get("cat") not in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            continue
+        name = e.get("name", "").lower()
+        out["kernels"] += e["cat"] == "kernel"
+        if e["cat"] == "gpu_memcpy":
+            key = "h2d" if "htod" in name else "d2h" if "dtoh" in name \
+                else "other"
+        elif "gemm" in name or "gemv" in name:
+            key = "gemm"
+        elif "multi_tensor" in name or "adam" in name:
+            key = "adam"
+        else:
+            key = "other"
+        out[key] += e["dur"] / 1e3
+    return out
+
+
+def fit_layers(scorer, x, labels, mask, dev: str, reps: int = 10):
+    """Host ms, each ended by a device sync, of the layers of one Fit
+    call, run one at a time as ``InProcessScorer._fit`` runs them: the
+    stats update, the batch's H2D copy and z-score, one step's forward
+    and backward, one Adam update, the pack of the fitted model for the
+    kernel, and the loss readback. Medians of ``reps``."""
+    import torch
+
+    from linkerd_tpu_torch.models.anomaly import loss_fn, normalize_features
+
+    def timed(fn):
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    def batch():
+        return (normalize_features(torch.tensor(x, device=dev),
+                                   torch.tensor(scorer._mu, device=dev),
+                                   torch.tensor(scorer._var, device=dev)),
+                torch.tensor(labels, device=dev),
+                torch.tensor(mask, device=dev))
+
+    loss = []
+
+    def forward_backward():
+        scorer._opt.zero_grad()
+        loss[:] = [loss_fn(scorer._masters, xn, y, m, scorer.cfg)]
+        loss[0].backward()
+
+    with scorer._lock, scorer._train_context():
+        out = {"stats_update": timed(
+            lambda: scorer._update_norm(x, labels, mask))}
+        out["h2d_zscore"] = timed(batch)
+        xn, y, m = batch()
+        out["forward_backward"] = timed(forward_backward)
+        out["adam"] = timed(scorer._opt.step)
+        out["pack"] = timed(scorer._pack)
+        out["loss_readback"] = timed(lambda: float(loss[0].detach()))
+    return out
+
+
+async def time_training(cfg, rng, dev: str = "cuda"):
+    """(d) One Fit call at FIT_ROWS rows x fit_steps (median of
+    FIT_TIMINGS, with the spread), the card's share of a fit under the
+    profiler, one gated cycle on a REPLAY_ROWS window, and the Score
+    p50/p99 at 1024 rows x IN_FLIGHT with a fit every FIT_EVERY batches
+    and with none (in turns: none, fit, fit, none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from linkerd_tpu_torch.lifecycle import LifecycleConfig
+    from linkerd_tpu_torch.lifecycle.store import encode_snapshot
+    from linkerd_tpu_torch.telemetry.anomaly import InProcessScorer
+    from linkerd_tpu_torch.telemetry.sidecar import (
+        ScorerService, encode_fit, encode_matrix,
+    )
+
+    snap = make_snapshot(cfg, seed=5)
+    scorer = InProcessScorer(device=dev)
+    svc = ScorerService(scorer)
+    fits = [encode_fit(*labeled_rows(rng, FIT_ROWS, snap.mu, snap.var))
+            for _ in range(4)]
+    payloads = [encode_matrix(make_inputs(rng, FIT_ROWS, snap.mu, snap.var))
+                for _ in range(IN_FLIGHT)]
+    out = {"fit_rows": FIT_ROWS, "fit_steps": scorer.fit_steps}
+
+    def sync():
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    try:
+        await svc.handle_restore(encode_snapshot(snap))
+        for p in fits[:3]:
+            await svc.handle_fit(p)
+        sync()
+        fit_ms = []
+        for i in range(FIT_TIMINGS):
+            t0 = time.perf_counter()
+            await svc.handle_fit(fits[i % len(fits)])
+            sync()
+            fit_ms.append((time.perf_counter() - t0) * 1e3)
+        out["fit"] = spread(fit_ms)
+        out["fit_layers_ms"] = fit_layers(
+            scorer, *labeled_rows(rng, FIT_ROWS, snap.mu, snap.var), dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "fit.json"
+            activity = (ProfilerActivity.CPU if dev == "cpu"
+                        else ProfilerActivity.CUDA)
+            with profile(activities=[activity]) as prof:
+                t0 = time.perf_counter()
+                for i in range(PROFILED_FITS):
+                    await svc.handle_fit(fits[i % len(fits)])
+                sync()
+                wall = (time.perf_counter() - t0) * 1e3
+            prof.export_chrome_trace(str(trace))
+            busy = device_busy_ms(trace)
+            kinds = device_breakdown(trace)
+        out["fit_profiled"] = {
+            "fits": PROFILED_FITS, "wall_ms_per_fit": wall / PROFILED_FITS,
+            "device_ms_per_fit": (None if busy is None
+                                  else busy / PROFILED_FITS),
+            "device_share": None if busy is None else busy / wall,
+            "kernels_per_fit": kinds.pop("kernels") / PROFILED_FITS,
+            "device_ms_per_fit_by_kind": {
+                k: v / PROFILED_FITS for k, v in kinds.items()}}
+
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = LifecycleConfig(directory=tmp, minReplayRows=REPLAY_ROWS
+                                  ).mk_manager(device=dev)
+            for _ in range(REPLAY_ROWS // FIT_ROWS):
+                mgr.replay.add_batch(*labeled_rows(rng, FIT_ROWS, snap.mu,
+                                                   snap.var))
+            await mgr.run_cycle(scorer)  # bootstrap
+            cycle_ms, actions = [], []
+            for i in range(CYCLE_TIMINGS):
+                await svc.handle_fit(fits[i % len(fits)])
+                sync()
+                t0 = time.perf_counter()
+                actions.append((await mgr.run_cycle(scorer))["action"])
+                cycle_ms.append((time.perf_counter() - t0) * 1e3)
+        out["gated_cycle"] = dict(spread(cycle_ms), replay_rows=REPLAY_ROWS,
+                                  actions=actions)
+
+        async def load(with_fits: bool):
+            lat, fit_task, batches = [], None, 0
+
+            async def one(p):
+                t0 = time.perf_counter()
+                await svc.handle_score(p)
+                lat.append((time.perf_counter() - t0) * 1e3)
+
+            for r in range(LOAD_ROUNDS):
+                if with_fits and batches % FIT_EVERY == 0 and (
+                        fit_task is None or fit_task.done()):
+                    if fit_task is not None:
+                        fit_task.result()
+                    fit_task = asyncio.ensure_future(
+                        svc.handle_fit(fits[r % len(fits)]))
+                await asyncio.gather(*(one(p) for p in payloads))
+                batches += len(payloads)
+            if fit_task is not None:
+                await fit_task
+            return lat
+
+        await load(False)  # warm
+        lat = {"none": [], "fit_every_8": []}
+        for mode in ("none", "fit_every_8", "fit_every_8", "none"):
+            lat[mode] += await load(mode != "none")
+        out["score_under_fit"] = {
+            mode: {"batches": len(v),
+                   "p50_ms": float(np.percentile(v, 50)),
+                   "p99_ms": float(np.percentile(v, 99))}
+            for mode, v in lat.items()}
+    finally:
+        scorer.close()
+    f, fp, c = out["fit"], out["fit_profiled"], out["gated_cycle"]
+    print(f"fit {FIT_ROWS} rows x {scorer.fit_steps} steps: p50 "
+          f"{f['p50_ms']:.3f} ms (min {f['min_ms']:.3f}, max "
+          f"{f['max_ms']:.3f}, n {f['n']})")
+    print("fit layers, host ms each (ended by a sync): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out["fit_layers_ms"].items()))
+    if fp["device_share"] is None:
+        print("fit under the profiler: not measured (no device event)")
+    else:
+        print(f"fit under the profiler: card busy "
+              f"{fp['device_ms_per_fit']:.4f} ms of "
+              f"{fp['wall_ms_per_fit']:.3f} ms a fit (share "
+              f"{fp['device_share']:.3f}), {fp['kernels_per_fit']:.0f} "
+              f"kernels a fit; by kind "
+              + ", ".join(f"{k} {v:.4f}" for k, v in
+                          fp["device_ms_per_fit_by_kind"].items()))
+    print(f"gated cycle on {REPLAY_ROWS} rows: p50 {c['p50_ms']:.3f} ms "
+          f"(min {c['min_ms']:.3f}, max {c['max_ms']:.3f}) {c['actions']}")
+    for mode, v in out["score_under_fit"].items():
+        print(f"score 1024 rows x{IN_FLIGHT}, {mode}: p50 "
+              f"{v['p50_ms']:.3f} ms, p99 {v['p99_ms']:.3f} ms "
+              f"({v['batches']} batches)")
+    return out
+
+
+async def train_phase(cfg, rng, dev: str = "cuda"):
+    """(a)-(d) in order; returns their results and the kernel's launches
+    on the path of each of (a)-(c), launches made only to compare left
+    out. Each must launch the kernel."""
+    res = {"fit_parity": await fit_parity(cfg, dev),
+           "score_during_fit": await score_during_fit(cfg, rng, dev),
+           "lifecycle": await lifecycle_phase(cfg, rng, dev)}
+    launches = {k: r["launches"] for k, r in res.items()}
+    for name, n in launches.items():
+        if dev != "cpu" and not n:
+            raise AssertionError(f"{name}: the kernel was never launched")
+    res["times"] = await time_training(cfg, rng, dev)
+    return res, launches
+
+
 # Broken kernels the checks must catch: (line in score_mlp.cu, its
 # replacement). A dropped bias, a neighbouring column's bias, one bf16
 # rounding of a layer instead of two, the error taken against the bf16
@@ -657,6 +1229,7 @@ def main() -> int:
     print(f"copies of a 1024-row batch, each timed alone: h2d {h2d:.4f} "
           f"ms, d2h {d2h:.4f} ms")
     service = asyncio.run(time_service(cfg, rng))
+    train, train_launches = asyncio.run(train_phase(cfg, rng))
     service["h2d_alone_ms"], service["d2h_alone_ms"] = h2d, d2h
     print(f"service: {service['rows_per_s']:.0f} rows/s at 1024-row "
           f"batches x{IN_FLIGHT} in flight, p50 "
@@ -677,6 +1250,7 @@ def main() -> int:
         "source": "linkerd_tpu_torch/ops/csrc/score_mlp.cu",
         "replaces": "linkerd_tpu/ops/scoring.py:39",
         "launches": launches,
+        "launches_by_phase": dict(serve=launches, **train_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -690,6 +1264,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "card": name.strip(),
                       "power_limit": limit.strip(), "sass": sass,
                       "service": service}))
+    print(json.dumps({"train": train, "card": name.strip(),
+                      "power_limit": limit.strip()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

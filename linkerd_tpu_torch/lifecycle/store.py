@@ -1,23 +1,32 @@
-"""Model snapshots and their checkpoint codec, without JAX.
+"""Model snapshots, their checkpoint codec and the versioned checkpoint
+store, without JAX.
 
 Byte-compatible with ``linkerd_tpu/lifecycle/store.py``: the same
-snapshot encodes to the same bytes in both packages, and either
-package decodes the other's. Wire format::
+snapshot encodes to the same bytes in both packages, either package
+decodes the other's, and a store directory written by either loads in
+the other. Wire format (one ``.ckpt`` file per version)::
 
     b"L5DCKPT1" | u32 header_len | header JSON | raw array payload | u32 crc
 
 The CRC32 covers everything before it. Arrays are host numpy: params
 in the reference layout (``w`` is ``[in, out]``), the optimizer state
-as optax's flattened leaves, and the normalization stats.
+as optax's flattened leaves, and the normalization stats. Files are
+written to a temporary name and moved into place, so a crash mid-write
+leaves no half checkpoint under a valid name; ``manifest.json``, also
+replaced atomically, holds each version's lineage (parent), status
+(candidate / promoted / rejected / rolled_back) and the retention.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import struct
+import time
 import zlib
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -26,6 +35,7 @@ from linkerd_tpu_torch.models.anomaly import (
 )
 
 MAGIC = b"L5DCKPT1"
+MANIFEST = "manifest.json"
 FORMAT = 1
 
 
@@ -188,3 +198,245 @@ def decode_snapshot(data: bytes) -> ModelSnapshot:
         step=header["step"],
         cfg=_cfg_from_dict(header["cfg"]),
     )
+
+
+# -- versioned on-disk store --------------------------------------------------
+
+
+@dataclass
+class CheckpointMeta:
+    version: int
+    file: str
+    crc: int
+    step: int
+    parent: Optional[int]
+    status: str            # candidate | promoted | rejected | rolled_back
+    created_at: float
+    bytes: int
+    # native weight-blob lineage, set when this version was exported to
+    # the routers' in-data-plane scorer ({crc, quant, bytes, ...})
+    native_blob: Optional[Dict[str, Any]] = None
+
+
+class CheckpointStore:
+    """Directory of versioned ``.ckpt`` files plus an atomic manifest.
+
+    Retention keeps the newest ``retain`` versions, but never prunes the
+    serving (last-promoted) version — the rollback target must survive
+    any churn of rejected candidates.
+    """
+
+    def __init__(self, directory: str, retain: int = 5):
+        if retain < 1:
+            raise ValueError("retain must be >= 1")
+        self.directory = directory
+        self.retain = retain
+        os.makedirs(directory, exist_ok=True)
+        self._manifest = self._load_manifest()
+
+    # -- manifest ---------------------------------------------------------
+    @property
+    def _manifest_path(self) -> str:
+        return os.path.join(self.directory, MANIFEST)
+
+    def _load_manifest(self) -> Dict[str, Any]:
+        try:
+            with open(self._manifest_path, "r", encoding="utf-8") as f:
+                m = json.load(f)
+        except FileNotFoundError:
+            return {"format": FORMAT, "next_version": 1, "serving": None,
+                    "pruned": [], "versions": []}
+        except (OSError, json.JSONDecodeError) as e:
+            raise CheckpointCorruptError(f"unreadable manifest: {e}") from e
+        if m.get("format") != FORMAT:
+            raise CheckpointError(
+                f"unsupported manifest format {m.get('format')!r}")
+        return m
+
+    def _write_manifest(self) -> None:
+        tmp = self._manifest_path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(self._manifest, f, indent=1)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self._manifest_path)
+
+    def _entries(self) -> List[CheckpointMeta]:
+        return [CheckpointMeta(**e) for e in self._manifest["versions"]]
+
+    def _entry(self, version: int) -> CheckpointMeta:
+        for e in self._entries():
+            if e.version == version:
+                return e
+        raise CheckpointError(f"unknown checkpoint version {version}")
+
+    # -- write path -------------------------------------------------------
+    def save(self, snap: ModelSnapshot, status: str = "candidate",
+             parent: Optional[int] = None) -> int:
+        version = self._manifest["next_version"]
+        data = encode_snapshot(snap)
+        crc = struct.unpack("<I", data[-4:])[0]
+        fname = f"v{version:06d}.ckpt"
+        path = os.path.join(self.directory, fname)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        self._manifest["versions"].append(dataclasses.asdict(CheckpointMeta(
+            version=version, file=fname, crc=crc, step=int(snap.step),
+            parent=parent, status=status, created_at=time.time(),
+            bytes=len(data))))
+        self._manifest["next_version"] = version + 1
+        if status == "promoted":
+            self._manifest["serving"] = version
+        self._apply_retention()
+        self._write_manifest()
+        return version
+
+    def record_native_blob(self, version: int,
+                           meta: Optional[Dict[str, Any]]) -> None:
+        """Annotate a checkpoint's manifest entry with the native
+        weight blob exported from it: the manifest then carries the
+        lineage from training state to the CRC'd bits the data-plane
+        engines serve."""
+        for e in self._manifest["versions"]:
+            if e["version"] == version:
+                e["native_blob"] = meta
+                self._write_manifest()
+                return
+        raise CheckpointError(f"unknown checkpoint version {version}")
+
+    def record_specialist(self, route_hash: int,
+                          meta: Optional[Dict[str, Any]]) -> None:
+        """Manifest lineage for one specialist head: ``meta`` records
+        the dst path, head version, bank generation, the base
+        checkpoint it was distilled from, and the published delta's
+        CRC — or None to drop the entry (a single-route rollback).
+        The manifest is then the full story of WHICH per-route bits
+        the engines serve and where each head came from."""
+        spec = self._manifest.setdefault("specialists", {})
+        key = str(int(route_hash))
+        if meta is None:
+            if key not in spec:
+                return
+            del spec[key]
+        else:
+            spec[key] = meta
+        self._write_manifest()
+
+    def specialists(self) -> Dict[str, Any]:
+        """{route_hash: head lineage meta} from the manifest."""
+        return dict(self._manifest.get("specialists", {}))
+
+    def mark(self, version: int, status: str) -> None:
+        for e in self._manifest["versions"]:
+            if e["version"] == version:
+                e["status"] = status
+                if status == "promoted":
+                    self._manifest["serving"] = version
+                self._write_manifest()
+                return
+        raise CheckpointError(f"unknown checkpoint version {version}")
+
+    def _apply_retention(self) -> None:
+        keep = self._manifest["serving"]
+        entries = self._manifest["versions"]
+        while len(entries) > self.retain:
+            victim = next((e for e in entries if e["version"] != keep), None)
+            if victim is None:
+                return
+            entries.remove(victim)
+            self._manifest["pruned"].append(victim["version"])
+            try:
+                os.unlink(os.path.join(self.directory, victim["file"]))
+            except FileNotFoundError:
+                pass
+
+    # -- read path --------------------------------------------------------
+    def versions(self) -> List[CheckpointMeta]:
+        return self._entries()
+
+    def latest(self) -> Optional[int]:
+        entries = self._entries()
+        return max((e.version for e in entries), default=None)
+
+    def latest_good(self) -> Optional[int]:
+        """The serving (last-promoted) version; falls back to the newest
+        checkpoint of any status when nothing was ever promoted."""
+        serving = self._manifest["serving"]
+        if serving is not None:
+            return serving
+        return self.latest()
+
+    def load(self, version: Optional[int] = None) -> Tuple[int, ModelSnapshot]:
+        if version is None:
+            version = self.latest_good()
+            if version is None:
+                raise CheckpointError("empty checkpoint store")
+        e = self._entry(version)
+        path = os.path.join(self.directory, e.file)
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except FileNotFoundError:
+            raise CheckpointCorruptError(
+                f"checkpoint v{version} file missing: {e.file}") from None
+        if len(data) >= 4 and struct.unpack("<I", data[-4:])[0] != e.crc:
+            raise CheckpointCorruptError(
+                f"checkpoint v{version}: file CRC does not match manifest")
+        return version, decode_snapshot(data)
+
+    # -- integrity --------------------------------------------------------
+    def verify(self) -> List[str]:
+        """Full-store integrity sweep: CRC of every file, manifest/file
+        agreement, lineage, and orphaned files. Returns human-readable
+        issues (empty = healthy)."""
+        issues: List[str] = []
+        known = {e.version for e in self._entries()}
+        pruned = set(self._manifest["pruned"])
+        listed_files = set()
+        for e in self._entries():
+            listed_files.add(e.file)
+            path = os.path.join(self.directory, e.file)
+            try:
+                with open(path, "rb") as f:
+                    data = f.read()
+            except FileNotFoundError:
+                issues.append(f"v{e.version}: file {e.file} missing")
+                continue
+            if len(data) < 4:
+                issues.append(f"v{e.version}: file {e.file} truncated")
+                continue
+            if struct.unpack("<I", data[-4:])[0] != e.crc:
+                issues.append(
+                    f"v{e.version}: manifest CRC {e.crc:#010x} does not "
+                    f"match file")
+                continue
+            try:
+                decode_snapshot(data)
+            except CheckpointError as exc:
+                issues.append(f"v{e.version}: {exc}")
+            if e.parent is not None and e.parent not in known \
+                    and e.parent not in pruned:
+                issues.append(
+                    f"v{e.version}: parent v{e.parent} unknown "
+                    f"(lineage break)")
+        serving = self._manifest["serving"]
+        if serving is not None and serving not in known:
+            issues.append(f"serving version v{serving} not in manifest")
+        for fname in os.listdir(self.directory):
+            if fname.endswith(".ckpt") and fname not in listed_files:
+                issues.append(f"orphaned checkpoint file: {fname}")
+        return issues
+
+    def status(self) -> Dict[str, Any]:
+        return {
+            "directory": self.directory,
+            "serving": self._manifest["serving"],
+            "retain": self.retain,
+            "versions": [dataclasses.asdict(e) for e in self._entries()],
+            "pruned": list(self._manifest["pruned"]),
+            "specialists": self.specialists(),
+        }

@@ -9,16 +9,19 @@ These functions are the plain versions the fused CUDA kernel
 (``ops/scoring.py``) is held against. They round where the reference
 rounds: each layer takes the float32 sum of ``compute_dtype`` products,
 rounds it to ``compute_dtype``, then adds the ``compute_dtype`` bias.
+``loss_fn`` is the training objective; autograd carries its gradients
+through the casts to the float32 parameters, as JAX's ``astype`` does.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from linkerd_tpu_torch import DeviceLike, resolve_device
 from linkerd_tpu_torch.models.features import FEATURE_DIM
@@ -127,3 +130,28 @@ def anomaly_scores(params: Params, x: torch.Tensor,
     err = torch.mean(torch.square(recon - x.float()), dim=-1)
     return (cfg.recon_weight * torch.tanh(err)
             + (1.0 - cfg.recon_weight) * torch.sigmoid(logits))
+
+
+def loss_fn(params: Params, x: torch.Tensor, labels: torch.Tensor,
+            label_mask: torch.Tensor,
+            cfg: AnomalyModelConfig = AnomalyModelConfig(),
+            row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Reconstruction MSE plus the masked BCE of the labeled rows.
+
+    ``labels`` in {0, 1}, ``label_mask`` 1.0 where a row is labeled.
+    ``row_mask`` (1.0 = real row) drops padding rows from both terms;
+    None means every row is real. The BCE is
+    ``optax.sigmoid_binary_cross_entropy``'s, and each denominator is at
+    least 1, as in the reference."""
+    recon, _, logits = apply_model(params, x, cfg)
+    sq = torch.mean(torch.square(recon - x.float()), dim=-1)
+    if row_mask is None:
+        recon_loss = torch.mean(sq)
+    else:
+        recon_loss = (torch.sum(sq * row_mask)
+                      / torch.clamp(torch.sum(row_mask), min=1.0))
+        label_mask = label_mask * row_mask
+    bce = F.binary_cross_entropy_with_logits(logits, labels,
+                                             reduction="none")
+    denom = torch.clamp(torch.sum(label_mask), min=1.0)
+    return recon_loss + torch.sum(bce * label_mask) / denom

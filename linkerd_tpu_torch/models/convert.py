@@ -33,9 +33,11 @@ def params_from_numpy(tree: Any, device: DeviceLike = None,
 
 
 def params_to_numpy(tree: Any) -> Any:
-    """The reverse: tensors -> float32 numpy arrays on the host."""
+    """The reverse: tensors -> float32 numpy copies on the host (copies
+    even of CPU tensors, so a later in-place update of a tensor does not
+    reach the arrays)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
-    return tree.detach().to("cpu", torch.float32).numpy()
+    return tree.detach().to("cpu", torch.float32, copy=True).numpy()

@@ -6,16 +6,18 @@ process. Service ``io.l5d.anomaly.Scorer``, raw-bytes methods:
 
 - ``Score``:    request  = u32 n | u32 d | f32[n*d] features
                 response = f32[n] scores
+- ``Fit``:      request  = u32 n | u32 d | f32[n*d] x | f32[n] labels |
+                           f32[n] mask
+                response = f32[1] loss
 - ``Snapshot``: request  = (empty)
                 response = serialized ModelSnapshot (``lifecycle.store``)
 - ``Restore``:  request  = serialized ModelSnapshot
                 response = u64 restored step counter
 
-``Fit`` is not registered yet (training is a later slice), so a caller
-gets gRPC ``UNIMPLEMENTED``. ``ScorerService`` holds the request
-handlers without any transport; ``ScorerSidecar`` binds them to a
-``grpc.aio`` server. ``grpc`` is imported only where a server or
-channel is made, so the package imports where it is not installed.
+``ScorerService`` holds the request handlers without any transport;
+``ScorerSidecar`` binds them to a ``grpc.aio`` server. ``grpc`` is
+imported only where a server or channel is made, so the package imports
+where it is not installed.
 """
 
 from __future__ import annotations
@@ -23,18 +25,21 @@ from __future__ import annotations
 import asyncio
 import logging
 import struct
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from linkerd_tpu_torch.lifecycle.store import decode_snapshot, encode_snapshot
 
+log = logging.getLogger(__name__)
+
 SERVICE = "io.l5d.anomaly.Scorer"
+METHODS = ("Score", "Fit", "Snapshot", "Restore")
 
 
 def bucket_rows(n: int) -> int:
     """Power-of-two batch bucket: the scorer's dispatch ring keeps one
-    slot pair per bucket, and the client keys its first-call deadline
+    slot pair per bucket, and the client keys its first-call deadlines
     by it."""
     return 1 << max(0, n - 1).bit_length()
 
@@ -107,6 +112,11 @@ class ScorerService:
         self.rows_scored += len(x)
         return np.ascontiguousarray(s, np.float32).tobytes()
 
+    async def handle_fit(self, request: bytes) -> bytes:
+        x, labels, mask = decode_fit(request)
+        loss = await self.scorer.fit(x, labels, mask)
+        return np.float32([loss]).tobytes()
+
     async def handle_snapshot(self, request: bytes) -> bytes:
         snap = await asyncio.to_thread(self.scorer.snapshot)
         return encode_snapshot(snap)
@@ -139,21 +149,15 @@ class ScorerSidecar:
 
         svc = self.service
 
-        async def score(request: bytes, context) -> bytes:
-            return await svc.handle_score(request)
-
-        async def snapshot(request: bytes, context) -> bytes:
-            return await svc.handle_snapshot(request)
-
-        async def restore(request: bytes, context) -> bytes:
-            return await svc.handle_restore(request)
+        def rpc(handle):
+            async def call(request: bytes, context) -> bytes:
+                return await handle(request)
+            return grpc.unary_unary_rpc_method_handler(
+                call, request_deserializer=None, response_serializer=None)
 
         handler = grpc.method_handlers_generic_handler(SERVICE, {
-            name: grpc.unary_unary_rpc_method_handler(
-                fn, request_deserializer=None, response_serializer=None)
-            for name, fn in (("Score", score), ("Snapshot", snapshot),
-                             ("Restore", restore))
-        })
+            name: rpc(getattr(svc, f"handle_{name.lower()}"))
+            for name in METHODS})
         self._server = grpc.aio.server()
         self._server.add_generic_rpc_handlers((handler,))
         self.port = self._server.add_insecure_port(f"{self.host}:{self.port}")
@@ -170,61 +174,107 @@ class ScorerSidecar:
 
 
 class GrpcScorerClient:
-    """Client for a scorer sidecar: score, snapshot, restore."""
+    """Client for a scorer sidecar: score, fit, snapshot, restore."""
 
     def __init__(self, address: str, timeout_s: float = 5.0,
                  first_timeout_s: float = 60.0):
-        # the first call into each batch bucket gets the long deadline,
-        # to absorb the sidecar's first-use kernel build
+        # the first call of each RPC into each batch bucket gets the long
+        # deadline, to absorb the sidecar's first-use kernel build and
+        # its first training step
         self.address = address
         self.timeout_s = timeout_s
         self.first_timeout_s = first_timeout_s
         self._warm: set = set()
         self._channel = None
-        self._score = None
-        self._snapshot = None
-        self._restore = None
+        self._calls: dict = {}
+        self._closing: Optional[asyncio.Task] = None
 
     def _ensure(self) -> None:
         if self._channel is None:
             import grpc
 
             self._channel = grpc.aio.insecure_channel(self.address)
-            self._score, self._snapshot, self._restore = (
-                self._channel.unary_unary(
+            self._calls = {
+                m: self._channel.unary_unary(
                     f"/{SERVICE}/{m}",
                     request_serializer=None, response_deserializer=None)
-                for m in ("Score", "Snapshot", "Restore"))
+                for m in METHODS}
+
+    async def _bucketed(self, method: str, rows: int,
+                        payload: bytes) -> bytes:
+        self._ensure()
+        key = (method, bucket_rows(rows))
+        timeout = self.timeout_s if key in self._warm else self.first_timeout_s
+        rsp = await self._calls[method](payload, timeout=timeout)
+        self._warm.add(key)
+        return rsp
 
     async def score(self, x: np.ndarray) -> np.ndarray:
-        self._ensure()
-        key = bucket_rows(len(x))
-        timeout = self.timeout_s if key in self._warm else self.first_timeout_s
-        rsp = await self._score(encode_matrix(x), timeout=timeout)
-        self._warm.add(key)
+        rsp = await self._bucketed("Score", len(x), encode_matrix(x))
         return np.frombuffer(rsp, np.float32)
+
+    async def fit(self, x: np.ndarray, labels: np.ndarray,
+                  mask: np.ndarray) -> float:
+        rsp = await self._bucketed("Fit", len(x),
+                                   encode_fit(x, labels, mask))
+        return float(np.frombuffer(rsp, np.float32)[0])
 
     async def snapshot(self):
         self._ensure()
-        rsp = await self._snapshot(b"", timeout=self.first_timeout_s)
+        rsp = await self._calls["Snapshot"](b"",
+                                            timeout=self.first_timeout_s)
         return decode_snapshot(rsp)
 
     async def restore(self, snap) -> int:
         """Hot-swap ``snap`` into the sidecar; returns the restored step."""
         self._ensure()
-        rsp = await self._restore(encode_snapshot(snap),
-                                  timeout=self.first_timeout_s)
+        rsp = await self._calls["Restore"](encode_snapshot(snap),
+                                           timeout=self.first_timeout_s)
         return struct.unpack("<Q", rsp)[0]
 
     async def aclose(self) -> None:
+        """Close the channel and wait for it (before the loop ends)."""
         if self._channel is not None:
             ch, self._channel = self._channel, None
             await ch.close()
 
+    def close(self) -> None:
+        """Close the channel without waiting: on the running loop as a
+        task this client keeps; with no loop running (interpreter
+        teardown) the socket goes with the process."""
+        if self._channel is None:
+            return
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            self._channel = None
+            return
+        ch, self._channel = self._channel, None
+        self._closing = loop.create_task(ch.close())
+        self._closing.add_done_callback(_log_close_failure)
+
+
+def _log_close_failure(task: asyncio.Task) -> None:
+    if not task.cancelled() and task.exception() is not None:
+        log.warning("scorer channel close failed: %r", task.exception())
+
+
+def announce_replica(announce_dir: str, name: str, host: str, port: int):
+    """Register a replica at ``host:port`` under ``/<name>`` in an fs
+    announcer's directory, as the reference's replicas register; the
+    returned handle's ``close`` withdraws it."""
+    from linkerd_tpu_torch.announcer import FsAnnouncer
+    from linkerd_tpu_torch.core import Path
+
+    return FsAnnouncer(announce_dir, Path.read("/io.l5d.fs")).announce(
+        host, port, Path.read(f"/{name}"))
+
 
 def main() -> None:
     """``python -m linkerd_tpu_torch.telemetry.sidecar``: serve a scorer
-    replica on the CUDA device until SIGINT/SIGTERM."""
+    replica on the CUDA device until SIGINT/SIGTERM, optionally
+    announced through the fs announcer, so that linkers resolve it as
+    any other service (``sidecarAddress: /#/io.l5d.fs/<name>``)."""
     import argparse
     import signal
 
@@ -233,18 +283,33 @@ def main() -> None:
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=0)
     parser.add_argument("--warmup-rows", type=int, default=0)
+    parser.add_argument(
+        "--announce-dir", default=None,
+        help="fs-announcer root dir (the fs namer's rootDir); when set "
+             "the replica registers itself under --announce-name and "
+             "withdraws on shutdown")
+    parser.add_argument("--announce-name", default="l5d-scorer")
     args = parser.parse_args()
 
     async def amain() -> None:
         sidecar = await ScorerSidecar(
             host=args.host, port=args.port,
             warmup_rows=args.warmup_rows).start()
+        announcement = None
+        if args.announce_dir:
+            announcement = announce_replica(
+                args.announce_dir, args.announce_name, args.host,
+                sidecar.port)
+            log.info("scorer replica announced as %s in %s",
+                     args.announce_name, args.announce_dir)
         print(f"SCORER_SIDECAR {args.host}:{sidecar.port}", flush=True)
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):
             loop.add_signal_handler(sig, stop.set)
         await stop.wait()
+        if announcement is not None:
+            announcement.close()
         await sidecar.close()
 
     logging.basicConfig(level=logging.INFO)

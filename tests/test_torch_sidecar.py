@@ -20,7 +20,6 @@ import subprocess
 import sys
 from pathlib import Path
 
-import grpc
 import jax
 import ml_dtypes
 import numpy as np
@@ -186,10 +185,19 @@ class TestScorer:
         assert "SCORER_SIDECAR" not in proc.stdout
 
     def test_fit_is_not_ported_yet(self):
+        """Named when fit raised; fit is ported now, so this checks that
+        it trains: a finite loss, the step counter advanced by
+        ``fit_steps`` and the served scores moved."""
         s = InProcessScorer(device="cpu")
-        with pytest.raises(NotImplementedError, match="later slice"):
-            run(s.fit(rows(4), np.zeros(4), np.zeros(4)))
-        s.close()
+        try:
+            x = rows(16)
+            before = run(s.score(x))
+            loss = run(s.fit(x, np.zeros(16), np.zeros(16)))
+            assert np.isfinite(loss) and loss > 0
+            assert s._step == s.fit_steps == 4
+            assert not (run(s.score(x)) == before).all()
+        finally:
+            s.close()
 
     def test_restore_rejects_other_configs_and_layouts(self):
         s = InProcessScorer(device="cpu")
@@ -282,9 +290,10 @@ class TestGrpcInterop:
                     await fresh.score(x), await client.score(x),
                     atol=SCORE_ATOL, rtol=0)
                 fresh.close()
-                with pytest.raises(grpc.aio.AioRpcError) as err:
-                    await client.fit(x, np.zeros(300), np.zeros(300))
-                assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
+                # Fit is served: the port trains on the JAX client's call
+                loss = await client.fit(x, np.zeros(300), np.zeros(300))
+                assert np.isfinite(loss)
+                assert (await client.snapshot()).step == snap.step + 4
             finally:
                 await client.aclose()
                 await port.close()
@@ -313,3 +322,43 @@ class TestGrpcInterop:
                 await port.close()
 
         run(go())
+
+    def test_port_client_fits_and_closes(self):
+        """The port's client trains over Fit, keys its first-call
+        deadlines by (rpc, bucket), and closes without waiting."""
+        async def go():
+            port = await sidecar.ScorerSidecar(
+                scorer=InProcessScorer(device="cpu")).start()
+            client = sidecar.GrpcScorerClient(f"127.0.0.1:{port.port}")
+            try:
+                x = rows(37)
+                before = await client.score(x)
+                loss = await client.fit(x, np.zeros(37), np.ones(37))
+                assert np.isfinite(loss) and port.scorer._step == 4
+                assert client._warm == {("Score", 64), ("Fit", 64)}
+                assert not (await client.score(x) == before).all()
+                client.close()
+                assert client._channel is None
+                await client._closing
+                await client.aclose()  # nothing left to close
+            finally:
+                await port.close()
+
+        run(go())
+
+
+def test_announced_replica_file_equals_the_reference(tmp_path):
+    """``main --announce-dir`` registers a replica as the reference's
+    sidecar does: the same file, the same bytes, withdrawn on close."""
+    from linkerd_tpu.announcer import FsAnnouncer as JaxFsAnnouncer
+    from linkerd_tpu.core import Path as JaxPath
+
+    ref = JaxFsAnnouncer(str(tmp_path / "jax"), JaxPath.read("/io.l5d.fs"))
+    want = ref.announce("127.0.0.1", 7070, JaxPath.read("/l5d-scorer"))
+    got = sidecar.announce_replica(str(tmp_path / "port"), "l5d-scorer",
+                                   "127.0.0.1", 7070)
+    path = tmp_path / "port" / "l5d-scorer"
+    assert path.read_bytes() == (tmp_path / "jax" / "l5d-scorer").read_bytes()
+    got.close()
+    want.close()
+    assert not path.exists()
