@@ -16,9 +16,16 @@ served scores against its plain version; (b) Score batches while fits
 run, each scored under one whole published model; (c) the lifecycle
 manager promoting a good fit and rolling a poisoned one back to the
 promoted scores, bit for bit; (d) fit, gated-cycle and Score-under-fit
+times. Then the distill phase at ``DistillConfig()`` defaults: 34
+drifted routes scored through a trained teacher fill a 32-head
+specialist bank, checking (a) two kernel launches a retrain cycle, (b)
+each head's kernel scores against plain, (c) ``distill_head`` on the
+card against the CPU, (d) the published blobs' fences and generations
+and (e) the lineage, with a NaN-poisoned candidate rejected, the last
+route skipped with the bank full and one head rolled back; and its
 times. Prints the card, a JSON line of kernel and service numbers, one
-of the train phase's, and as its last line ``{"ok": true, "device":
-{...}}``. Any failure raises and exits non-zero; with no CUDA device, or
+of the train phase's, one of the distill phase's, and as its last line
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; with no CUDA device, or
 outside the repository, it exits non-zero before printing any result.
 Imports nothing of JAX.
 
@@ -39,6 +46,7 @@ from __future__ import annotations
 import asyncio
 import json
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -404,11 +412,12 @@ FIT_EVERY = 8           # batches per fit: the reference's trainEveryBatches
 LOAD_ROUNDS = 50        # rounds of IN_FLIGHT batches, per run of a mode
 
 
-def labeled_rows(rng: np.random.Generator, n: int, mu, var):
-    """Rows of the stream ``mu``/``var`` describe, a quarter anomalous
-    (six features shifted by three of the stream's sigmas), about half
-    of them labeled."""
-    labels = (rng.random(n) < 0.25).astype(np.float32)
+def labeled_rows(rng: np.random.Generator, n: int, mu, var,
+                 share: float = 0.25):
+    """Rows of the stream ``mu``/``var`` describe, ``share`` of them
+    anomalous (six features shifted by three of the stream's sigmas),
+    about half of them labeled."""
+    labels = (rng.random(n) < share).astype(np.float32)
     x = make_inputs(rng, n, mu, var)
     x[:, :6] += (3.0 * np.sqrt(var[:6]) * labels[:, None]).astype(np.float32)
     mask = (rng.random(n) < 0.5).astype(np.float32)
@@ -949,6 +958,493 @@ async def train_phase(cfg, rng, dev: str = "cuda"):
     return res, launches
 
 
+# -- distill phase: drift-triggered specialist heads ----------------------
+# The reference's DistillConfig() defaults at full width: a teacher
+# InProcessScorer trained by TEACHER_FITS fits; N_ROUTES routes scored
+# through it in batches of N_ROUTES x ROUTE_ROWS rows; every route's rows
+# shift after its anchor; run_once until the bank holds maxHeads heads,
+# the POISON_CYCLE-th candidate poisoned with NaN; one rollback.
+N_ROUTES = 34
+ROUTE_ROWS = 30          # rows a route in each scored batch (1020 a batch)
+ANCHOR_BATCHES = 3       # unshifted: each route anchors at 90 rows
+SHIFTED_BATCHES = 30     # shifted after the anchor; replay keeps 512 rows
+TEACHER_FITS = 20
+ROUTE_ANOMALIES = 0.1    # share of a route's rows that are anomalous
+POISON_CYCLE = 16        # retrain cycle whose candidate is poisoned
+PARITY_STEPS = 4         # (c): card against CPU, bounded by MODEL_TOL
+DISTILL_LAYER_REPS = 10
+
+
+def route_names(n: int = N_ROUTES):
+    return [f"/svc/route-{i:02d}" for i in range(n)]
+
+
+async def distill_inputs(cfg, seed: int, dev: str):
+    """The teacher, trained by TEACHER_FITS fit calls on labeled rows of
+    a seeded stream, and the scored batches' inputs: per batch the rows
+    of every route (ROUTE_ROWS each, in route order), labels and mask
+    (every row labeled, ROUTE_ANOMALIES of them anomalous, so that each
+    held-out window has enough of both for a steady AUC). After
+    ANCHOR_BATCHES each route's rows move by its own shift, at
+    least two of the stream's sigmas on 12 of the 30 features the
+    anomalies leave alone, growing with the route's index."""
+    from linkerd_tpu_torch.telemetry.anomaly import InProcessScorer
+
+    rng = np.random.default_rng(seed)
+    mu, var = make_stats(rng, cfg.in_dim)
+    teacher = InProcessScorer(seed=seed, learning_rate=5e-3,
+                              recon_weight=cfg.recon_weight, device=dev)
+    try:
+        for _ in range(TEACHER_FITS):
+            await teacher.fit(*labeled_rows(rng, FIT_ROWS, mu, var))
+    except BaseException:
+        teacher.close()
+        raise
+    shifts = np.zeros((N_ROUTES, cfg.in_dim), np.float32)
+    for r in range(N_ROUTES):
+        cols = 6 + rng.choice(cfg.in_dim - 6, 12, replace=False)
+        size = 2.0 + 2.0 * r / N_ROUTES
+        shifts[r, cols] = size * np.sqrt(var[cols]) * rng.choice([-1, 1], 12)
+    batches = []
+    for b in range(ANCHOR_BATCHES + SHIFTED_BATCHES):
+        x, labels, mask = labeled_rows(rng, N_ROUTES * ROUTE_ROWS, mu, var,
+                                       ROUTE_ANOMALIES)
+        mask[:] = 1.0
+        if b >= ANCHOR_BATCHES:
+            x += np.repeat(shifts, ROUTE_ROWS, axis=0)
+        batches.append((x, labels, mask))
+    return teacher, batches
+
+
+class Stopwatch:
+    """Wall ms of named calls, each wrapped in place (a module's
+    function or an object's method) for the life of the stopwatch."""
+
+    def __init__(self):
+        self.ms, self._undo = {}, []
+
+    def wrap(self, owner, attr: str, name: str) -> None:
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.ms[name] = (self.ms.get(name, 0.0)
+                                 + (time.perf_counter() - t0) * 1e3)
+
+        in_dict = attr in vars(owner)
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn if in_dict else None))
+
+    def take(self) -> dict:
+        out, self.ms = self.ms, {}
+        return out
+
+    def close(self) -> None:
+        for owner, attr, fn in reversed(self._undo):
+            if fn is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, fn)
+        self._undo.clear()
+
+
+def poison(real):
+    """``distill_head`` whose fitted candidate has NaN in its first
+    encoder weights, as the reference's poisoned-candidate test makes
+    it."""
+    def poisoned(*args, **kwargs):
+        bad = real(*args, **kwargs)
+        bad.params["enc"][0]["w"] = np.full_like(bad.params["enc"][0]["w"],
+                                                 np.nan)
+        return bad
+    return poisoned
+
+
+def gate_margins(decision: dict, tol_loss: float, tol_auc: float) -> dict:
+    """How far a decision sat from the gate's two edges: the loss room
+    (serving x (1 + tol) - candidate, relative to serving) and the AUC
+    room (candidate - serving + tol)."""
+    c, s = decision["candidate"], decision["serving"]
+    out = {"loss": (s["loss"] * (1 + tol_loss) - c["loss"]) / s["loss"]}
+    if c["auc"] is not None and s["auc"] is not None:
+        out["auc"] = c["auc"] - s["auc"] + tol_auc
+    return out
+
+
+async def distill_scenario(cfg, seed: int, dev: str = "cuda"):
+    """The distill phase's main path and checks (a), (b), (d), (e), the
+    poisoned rejection, the full-bank skip and the rollback; returns the
+    results, with each cycle's wall ms split by part."""
+    import torch
+
+    from linkerd_tpu_torch.distill import DistillConfig
+    from linkerd_tpu_torch.distill import pipeline as pipeline_mod
+    from linkerd_tpu_torch.lifecycle.export import blob_meta, route_hash
+    from linkerd_tpu_torch.lifecycle.store import CheckpointStore
+    from linkerd_tpu_torch.models.convert import params_from_numpy
+    from linkerd_tpu_torch.ops.scoring import (
+        fused_anomaly_scores, fused_anomaly_scores_plain,
+    )
+
+    teacher, batches = await distill_inputs(cfg, seed, dev)
+    routes = route_names()
+    dsts = [d for d in routes for _ in range(ROUTE_ROWS)]
+    dcfg = DistillConfig()
+    launches, cycles, published = 0, [], []
+    watch = Stopwatch()
+
+    async def step(aw):
+        nonlocal launches
+        out, n = await counted(aw)
+        launches += n
+        return out
+
+    def publisher(full, delta):
+        t0 = time.perf_counter()
+        published.append((full, delta))
+        watch.ms["publish"] = (time.perf_counter() - t0) * 1e3
+        return True
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            store = CheckpointStore(tmp)
+            pipe = dcfg.mk(None, store=store, device=dev)
+            pipe.set_publisher(publisher)
+            for x, labels, mask in batches:
+                scores = await step(teacher.score(x))
+                pipe.observe_batch(dsts, x, scores, labels, mask)
+            triggered = pipe.monitor.triggered()
+            if sorted(triggered) != routes:
+                raise AssertionError(
+                    f"distill: {len(triggered)} of {N_ROUTES} routes "
+                    f"triggered: {pipe.monitor.snapshot()}")
+            watch.wrap(teacher, "snapshot", "snapshot")
+            watch.wrap(pipeline_mod, "distill_head", "distill_head")
+            watch.wrap(pipeline_mod, "evaluate_snapshot", "evaluations")
+            watch.wrap(pipeline_mod, "export_delta_blob", "delta_export")
+            watch.wrap(pipe.bank, "export_full", "full_export")
+            watch.wrap(store, "record_specialist", "lineage")
+            poisoned_route = None
+            while len(pipe.bank) < dcfg.maxHeads:
+                if len(cycles) > N_ROUTES:
+                    raise AssertionError("distill: the bank did not fill")
+                before = (len(published), pipe.bank.generation,
+                          store.specialists())
+                real = pipeline_mod.distill_head
+                if len(cycles) == POISON_CYCLE:
+                    pipeline_mod.distill_head = poison(real)
+                try:
+                    t0 = time.perf_counter()
+                    out, n = await counted(pipe.run_once(teacher))
+                    wall = (time.perf_counter() - t0) * 1e3
+                finally:
+                    pipeline_mod.distill_head = real
+                launches += n
+                if out is None:
+                    raise AssertionError(
+                        f"distill: nothing pending with {len(pipe.bank)} "
+                        f"heads")
+                if n != (0 if dev == "cpu" else 2):  # (a)
+                    raise AssertionError(f"distill: a retrain cycle "
+                                         f"launched the kernel {n} times")
+                parts = watch.take()
+                cycles.append(dict(
+                    action=out["action"], route=out["route"], ms=wall,
+                    launches=n,
+                    parts=parts, margins=gate_margins(
+                        out["decision"], dcfg.lossTolerance,
+                        dcfg.aucTolerance)))
+                if len(cycles) - 1 == POISON_CYCLE:
+                    poisoned_route = out["route"]
+                    if out["action"] != "rejected" or "not finite" not in \
+                            out["decision"]["reason"]:
+                        raise AssertionError(
+                            f"distill: poisoned candidate not rejected: "
+                            f"{out['decision']['reason']}")
+                    if (len(published), pipe.bank.generation,
+                            store.specialists()) != before:
+                        raise AssertionError("distill: something was "
+                                             "published for the poison")
+                elif out["action"] != "promoted":
+                    raise AssertionError(
+                        f"distill: {out['route']} {out['action']}: "
+                        f"{out['decision']['reason']}")
+            left = [d for d in pipe.monitor.triggered()
+                    if pipe.bank.head_for(d) is None and d != poisoned_route]
+            if len(left) != 1 or pipe.pending_route() is not None \
+                    or pipe.replay.rows(left[0]) < dcfg.minRouteRows:
+                raise AssertionError(
+                    f"distill: with the bank full, {left} left and "
+                    f"pending {pipe.pending_route()}")
+            watch.close()
+
+            # (b) every head's kernel scores on its held-out rows against
+            # plain, with the head's own mu/var (launches to compare)
+            agree = Agreement("distill heads: kernel vs plain")
+            for info in pipe.bank.heads.values():
+                x, _, _ = pipe.replay.sample(info.dst)
+                x_ho = torch.tensor(x[np.arange(len(x)) % 4 == 0],
+                                    device=dev)
+                head = info.snapshot
+                params = params_from_numpy(head.params, dev)
+                m = torch.tensor(head.mu, device=dev)
+                v = torch.tensor(head.var, device=dev)
+                got = fused_anomaly_scores(params, x_ho, head.cfg, m, v)
+                ref = fused_anomaly_scores_plain(params, x_ho, head.cfg, m, v)
+                agree.add(got.cpu().numpy(), ref.cpu().numpy(), info.dst)
+            agree.close()
+
+            sizes, export_ms = {}, {}
+            base = pipe._base_snap
+            for quant in ("f32", "int8", "int4"):
+                t0 = time.perf_counter()
+                blob = pipe.bank.export_full(base, pipe.bank.base_version,
+                                             pipe.bank.generation, quant)
+                export_ms[quant] = (time.perf_counter() - t0) * 1e3
+                sizes[quant] = len(blob)
+            heads_full = len(pipe.bank)
+            victim = cycles[0]["route"]
+            if not await step(pipe.rollback_route(victim)):
+                raise AssertionError("distill: rollback found no head")
+
+            # (d) fences and generations, publish by publish
+            heads = 0
+            for i, (full, delta) in enumerate(published):
+                dm, fm = blob_meta(delta), blob_meta(full)
+                op, rh = struct.unpack_from("<II", delta, 20)
+                heads += 1 if op == 0 else -1
+                if (dm["format"], dm["base_generation"], dm["new_generation"],
+                        dm["ops"]) != ("delta", i, i + 1, 1):
+                    raise AssertionError(f"distill: delta {i} meta {dm}")
+                if (fm["format"], fm["generation"], fm["heads"]) != (
+                        "bank", i + 1, heads):
+                    raise AssertionError(f"distill: bank {i} meta {fm}")
+            if (blob_meta(published[-2][0])["heads"],
+                    blob_meta(published[-1][0])["heads"]) != (
+                    dcfg.maxHeads, dcfg.maxHeads - 1) \
+                    or rh != route_hash(victim) or op != 1:
+                raise AssertionError("distill: the last publishes are not "
+                                     "the full bank and its rollback")
+            # (e) lineage lists exactly the bank's heads
+            if set(store.specialists()) != {str(h) for h in pipe.bank.heads}:
+                raise AssertionError("distill: lineage differs from the bank")
+    finally:
+        watch.close()
+        teacher.close()
+    promoted = [c for c in cycles if c["action"] == "promoted"]
+    split = {k: spread([c["parts"].get(k, 0.0) for c in promoted])
+             for k in ("snapshot", "distill_head", "evaluations",
+                       "delta_export", "full_export", "publish", "lineage")}
+    split["cycle"] = spread([c["ms"] for c in promoted])
+    margins = {k: min(c["margins"][k] for c in promoted
+                      if k in c["margins"]) for k in ("loss", "auc")}
+    print(f"distill, seed {seed}: {len(promoted)} heads promoted over "
+          f"{len(cycles)} cycles, poisoned {poisoned_route} rejected, "
+          f"{left[0]} skipped (bank full), {victim} rolled back; "
+          f"{cycles[0]['launches']} launches a cycle; heads vs plain max|diff| {agree.worst:.3e}; "
+          f"least gate room: loss {margins['loss']:.4f} relative, AUC "
+          f"{margins['auc']:.4f}; cycle p50 {split['cycle']['p50_ms']:.3f} "
+          f"ms; full bank of {heads_full} heads: " + ", ".join(
+              f"{q} {b} B" for q, b in sizes.items()))
+    return {"seed": seed, "launches": launches, "cycles": len(cycles),
+            "promoted": len(promoted), "poisoned_route": poisoned_route,
+            "skipped_route": left[0], "rolled_back": victim,
+            "launches_per_cycle": [c["launches"] for c in cycles],
+            "heads_vs_plain_max": agree.worst, "gate_room_min": margins,
+            "generation": pipe.bank.generation, "publishes": len(published),
+            "cycle_ms": split, "bank_bytes": sizes,
+            "bank_heads": heads_full, "bank_export_ms": export_ms}
+
+
+async def distill_parity(cfg, seed: int, dev: str = "cuda"):
+    """(c) From one teacher snapshot and one route's training rows (the
+    rows a retrain cycle trains on: the route's replay window less its
+    held-out rows): a PARITY_STEPS-step ``distill_head`` on ``dev``
+    against the same call on the CPU, scores within MODEL_TOL on every
+    row of the window. Read with no bound beside it: the CPU against
+    itself on the rows permuted, after PARITY_STEPS and after
+    retrainSteps, and the card against the CPU after retrainSteps."""
+    from linkerd_tpu_torch.distill import DistillConfig
+    from linkerd_tpu_torch.distill.pipeline import distill_head
+
+    teacher, batches = await distill_inputs(cfg, seed, dev)
+    try:
+        base = teacher.snapshot()
+    finally:
+        teacher.close()
+    route = seed % N_ROUTES
+    sel = slice(route * ROUTE_ROWS, (route + 1) * ROUTE_ROWS)
+    dcfg = DistillConfig()
+    x, labels, mask = (np.concatenate([b[k][sel] for b in batches])[
+        -dcfg.perRouteReplayRows:] for k in range(3))
+    train = np.arange(len(x)) % 4 != 0
+    rows = (x[train], labels[train], mask[train])
+    lr, steps = dcfg.learningRate, dcfg.retrainSteps
+
+    def gap(a, b):
+        return float(np.abs(plain_scores(a, x, dev)
+                            - plain_scores(b, x, dev)).max())
+
+    card = distill_head(base, *rows, PARITY_STEPS, lr, dev)
+    host = distill_head(base, *rows, PARITY_STEPS, lr, "cpu")
+    if not (card.mu == host.mu).all() or not (card.var == host.var).all():
+        raise AssertionError("distill: head stats differ card/CPU")
+    short = gap(card, host)
+    if short > MODEL_TOL:
+        raise AssertionError(
+            f"seed {seed}: {PARITY_STEPS}-step head on the card off the "
+            f"CPU's by {short} > {MODEL_TOL}")
+    order = np.random.default_rng(seed).permutation(len(rows[0]))
+    permuted = tuple(r[order] for r in rows)
+    short_order = gap(host, distill_head(base, *permuted, PARITY_STEPS, lr,
+                                         "cpu"))
+    host_long = distill_head(base, *rows, steps, lr, "cpu")
+    long_gap = gap(distill_head(base, *rows, steps, lr, dev), host_long)
+    long_order = gap(host_long, distill_head(base, *permuted, steps, lr,
+                                             "cpu"))
+    print(f"distill parity, seed {seed}: {PARITY_STEPS}-step head card vs "
+          f"CPU max|diff| {short:.3e} (CPU vs CPU on permuted rows "
+          f"{short_order:.3e}); {steps} steps card vs CPU {long_gap:.3e}, "
+          f"CPU vs CPU on permuted rows {long_order:.3e}")
+    return {"seed": seed, "route": route, "rows": int(train.sum()),
+            "card_vs_cpu": short, "cpu_vs_cpu_permuted": short_order,
+            "long_card_vs_cpu": long_gap,
+            "long_cpu_vs_cpu_permuted": long_order}
+
+
+def distill_layers(base, x, labels, mask, dev: str,
+                   reps: int = DISTILL_LAYER_REPS):
+    """Host ms, each ended by a device sync, of the parts of one
+    ``distill_head`` as it runs them: the stats blend, the copy of the
+    base params to the device and a fresh Adam, the rows' H2D copy and
+    z-score, one step's forward and backward, one Adam update, and the
+    fitted params' readback. Medians of ``reps``."""
+    import torch
+
+    from linkerd_tpu_torch.models.anomaly import loss_fn, normalize_features
+    from linkerd_tpu_torch.models.convert import (
+        params_from_numpy, params_to_numpy,
+    )
+    from linkerd_tpu_torch.telemetry.anomaly import (
+        adam_from_leaves, zero_adam_leaves,
+    )
+
+    def timed(fn):
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms)), out
+
+    def blend():
+        mu = (0.5 * base.mu + 0.5 * x.mean(axis=0)).astype(np.float32)
+        var = (0.5 * base.var + 0.5 * (x.var(axis=0) + 1e-6)).astype(
+            np.float32)
+        return mu, var
+
+    def setup():
+        params = params_from_numpy(base.params, dev)
+        return params, adam_from_leaves(params, zero_adam_leaves(base.cfg),
+                                        1e-3)
+
+    out = {}
+    out["blend"], (mu, var) = timed(blend)
+    out["params_to_device_and_adam"], (params, opt) = timed(setup)
+    out["h2d_zscore"], (xn, y, m) = timed(lambda: (
+        normalize_features(torch.tensor(x, device=dev),
+                           torch.tensor(mu, device=dev),
+                           torch.tensor(var, device=dev)),
+        torch.tensor(labels, device=dev), torch.tensor(mask, device=dev)))
+
+    def forward_backward():
+        opt.zero_grad()
+        loss_fn(params, xn, y, m, base.cfg).backward()
+
+    out["forward_backward"], _ = timed(forward_backward)
+    out["adam"], _ = timed(opt.step)
+    out["readback"], _ = timed(lambda: params_to_numpy(params))
+    return out
+
+
+async def time_distill(cfg, seed: int, dev: str = "cuda"):
+    """The parts of one ``distill_head``, and Score p50/p99 at 1024 rows
+    x IN_FLIGHT with a retrain cycle always in flight and with none (in
+    turns: none, retrain, retrain, none), on a fresh pipeline at the
+    defaults fed the same batches."""
+    from linkerd_tpu_torch.distill import DistillConfig
+
+    teacher, batches = await distill_inputs(cfg, seed, dev)
+    routes = route_names()
+    dsts = [d for d in routes for _ in range(ROUTE_ROWS)]
+    rng = np.random.default_rng(seed)
+    try:
+        pipe = DistillConfig().mk(None, device=dev)
+        for x, labels, mask in batches:
+            pipe.observe_batch(dsts, x, await teacher.score(x), labels, mask)
+        base = teacher.snapshot()
+        x, labels, mask = pipe.replay.sample(routes[0])
+        layers = distill_layers(base, x, labels, mask, dev)
+        payloads = [make_inputs(rng, 1024, base.mu, base.var)
+                    for _ in range(IN_FLIGHT)]
+        retrains = []
+
+        async def load(with_retrain: bool):
+            lat, task = [], None
+
+            async def one(p):
+                t0 = time.perf_counter()
+                await teacher.score(p)
+                lat.append((time.perf_counter() - t0) * 1e3)
+
+            for _ in range(LOAD_ROUNDS):
+                if with_retrain and (task is None or task.done()):
+                    if task is not None:
+                        retrains.append(task.result())
+                    task = asyncio.ensure_future(pipe.run_once(teacher))
+                await asyncio.gather(*(one(p) for p in payloads))
+            if task is not None:
+                retrains.append(await task)
+            return lat
+
+        await load(False)  # warm
+        lat = {"none": [], "retrain": []}
+        for mode in ("none", "retrain", "retrain", "none"):
+            lat[mode] += await load(mode == "retrain")
+    finally:
+        teacher.close()
+    if any(r is None for r in retrains):
+        raise AssertionError("distill: a load window found nothing pending")
+    out = {"distill_head_layers_ms": layers,
+           "retrains_under_load": len(retrains),
+           "score_under_retrain": {
+               mode: {"batches": len(v),
+                      "p50_ms": float(np.percentile(v, 50)),
+                      "p99_ms": float(np.percentile(v, 99))}
+               for mode, v in lat.items()}}
+    print("distill_head parts, host ms each (ended by a sync): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in layers.items()))
+    for mode, v in out["score_under_retrain"].items():
+        print(f"score 1024 rows x{IN_FLIGHT}, {mode}: p50 "
+              f"{v['p50_ms']:.3f} ms, p99 {v['p99_ms']:.3f} ms "
+              f"({v['batches']} batches)")
+    return out
+
+
+async def distill_phase(cfg, seed: int = 6, dev: str = "cuda"):
+    """The scenario, then (c) and the times; returns the results and the
+    kernel's launches on the scenario's path."""
+    res = {"scenario": await distill_scenario(cfg, seed, dev),
+           "parity": await distill_parity(cfg, seed, dev)}
+    res["times"] = await time_distill(cfg, seed + 1, dev)
+    return res, res["scenario"]["launches"]
+
+
 # Broken kernels the checks must catch: (line in score_mlp.cu, its
 # replacement). A dropped bias, a neighbouring column's bias, one bf16
 # rounding of a layer instead of two, the error taken against the bf16
@@ -1230,6 +1726,7 @@ def main() -> int:
           f"ms, d2h {d2h:.4f} ms")
     service = asyncio.run(time_service(cfg, rng))
     train, train_launches = asyncio.run(train_phase(cfg, rng))
+    distill, distill_launches = asyncio.run(distill_phase(cfg))
     service["h2d_alone_ms"], service["d2h_alone_ms"] = h2d, d2h
     print(f"service: {service['rows_per_s']:.0f} rows/s at 1024-row "
           f"batches x{IN_FLIGHT} in flight, p50 "
@@ -1250,7 +1747,8 @@ def main() -> int:
         "source": "linkerd_tpu_torch/ops/csrc/score_mlp.cu",
         "replaces": "linkerd_tpu/ops/scoring.py:39",
         "launches": launches,
-        "launches_by_phase": dict(serve=launches, **train_launches),
+        "launches_by_phase": dict(serve=launches, **train_launches,
+                                  distill=distill_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -1265,6 +1763,8 @@ def main() -> int:
                       "power_limit": limit.strip(), "sass": sass,
                       "service": service}))
     print(json.dumps({"train": train, "card": name.strip(),
+                      "power_limit": limit.strip()}))
+    print(json.dumps({"distill": distill, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,6 +11,7 @@
   device, promotion gate, and the ``ModelLifecycleManager`` that runs
   the loop.
 - ``drift``   — population-stats shift against the serving checkpoint.
+- ``export``  — the native engines' weight, bank and delta blobs.
 
 The scorers' ``snapshot()``/``restore()``/``swap()`` do the hot swaps.
 """
@@ -21,6 +22,10 @@ from dataclasses import dataclass
 
 from linkerd_tpu_torch import DeviceLike
 from linkerd_tpu_torch.lifecycle.drift import DriftMonitor
+from linkerd_tpu_torch.lifecycle.export import (
+    BANK_MAGIC, DELTA_MAGIC, WEIGHT_MAGIC, blob_meta, export_bank_blob,
+    export_delta_blob, export_weight_blob, route_hash,
+)
 from linkerd_tpu_torch.lifecycle.promote import (
     Decision, EvalReport, GatePolicy, ModelLifecycleManager, PromotionGate,
     ReplayWindow, evaluate_snapshot,
@@ -61,9 +66,11 @@ class LifecycleConfig:
 
 
 __all__ = [
-    "CheckpointCorruptError", "CheckpointError", "CheckpointStore",
-    "Decision", "DriftMonitor", "EvalReport", "GatePolicy",
-    "LifecycleConfig", "ModelLifecycleManager", "ModelSnapshot",
-    "PromotionGate", "ReplayWindow", "decode_snapshot", "encode_snapshot",
-    "evaluate_snapshot",
+    "BANK_MAGIC", "CheckpointCorruptError", "CheckpointError",
+    "CheckpointStore", "DELTA_MAGIC", "Decision", "DriftMonitor",
+    "EvalReport", "GatePolicy", "LifecycleConfig", "ModelLifecycleManager",
+    "ModelSnapshot", "PromotionGate", "ReplayWindow", "WEIGHT_MAGIC",
+    "blob_meta", "decode_snapshot", "encode_snapshot", "evaluate_snapshot",
+    "export_bank_blob", "export_delta_blob", "export_weight_blob",
+    "route_hash",
 ]

@@ -102,7 +102,12 @@ class EvalReport:
 
 def auc(labels, scores) -> float:
     """Area under the ROC curve by the rank-sum formulation, ties at
-    their average rank: a copy of ``linkerd_tpu/testing/faults.py``'s."""
+    their average rank: a copy of ``linkerd_tpu/testing/faults.py``'s,
+    except that a NaN score makes the AUC NaN. (The reference's tie scan
+    never advances past a NaN, which equals nothing, itself included, so
+    it loops forever on the scores of a model with NaN weights.)"""
+    if any(s != s for s in scores):
+        return float("nan")
     pairs = sorted(zip(scores, labels))
     n_pos = sum(1 for _, l in pairs if l > 0.5)
     n_neg = len(pairs) - n_pos

@@ -10,6 +10,7 @@ gauges, the rank-sum AUC and the announcement files are held equal.
 
 import asyncio
 import dataclasses
+import threading
 
 import jax
 import numpy as np
@@ -166,6 +167,19 @@ class TestEvaluation:
             scores = np.round(rng.random(n), 1).tolist()  # with ties
             a, b = promote.auc(labels, scores), jax_auc(labels, scores)
             assert (np.isnan(a) and np.isnan(b)) or a == b
+
+    def test_auc_of_nan_scores_ends(self):
+        """A model with NaN weights scores NaN; the reference's tie scan
+        never moves past a NaN (it equals nothing), so the port's AUC
+        must end, NaN, where the reference's would not."""
+        done = []
+        worker = threading.Thread(target=lambda: done.append(
+            promote.auc([0.0, 1.0, 0.0, 1.0],
+                        [0.2, float("nan"), 0.1, 0.7])), daemon=True)
+        worker.start()
+        worker.join(timeout=10)
+        assert not worker.is_alive(), "auc did not end on a NaN score"
+        assert np.isnan(done[0])
 
     @pytest.mark.parametrize("labeled", [True, False])
     def test_evaluate_snapshot_matches_jax(self, labeled):
