@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --mutants  # self-test of its agreement checks
     python3 chip_smoke.py --sweep    # the kernel's row tiles and breakdown
+    python3 chip_smoke.py --check telemeter  # the telemeter phase alone
+    python3 chip_smoke.py --mutant one_rounding telemeter  # one mutant, one check
 
 Builds every CUDA kernel of the scoring path from the sources in this
 checkout, holds each against its plain PyTorch version on the card,
@@ -20,11 +22,22 @@ times. Then the distill phase at ``DistillConfig()`` defaults: 34
 drifted routes scored through a trained teacher fill a 32-head
 specialist bank, checking (a) two kernel launches a retrain cycle, (b)
 each head's kernel scores against plain, (c) ``distill_head`` on the
-card against the CPU, (d) the published blobs' fences and generations
-and (e) the lineage, with a NaN-poisoned candidate rejected, the last
+card against the CPU (the heads read through the float32 forward),
+(d) the published blobs' fences and generations and (e) the lineage, with a NaN-poisoned candidate rejected, the last
 route skipped with the bank full and one head rolled back; and its
-times. Prints the card, a JSON line of kernel and service numbers, one
-of the train phase's, one of the distill phase's, and as its last line
+times. Then the telemeter phase: the in-process ``io.l5d.jaxAnomaly``
+telemeter's main path (recorder and ring appends -> the line-rate
+micro-batcher in ``run()`` -> the scorer's ring -> the kernel ->
+``ScoreBoard`` -> ``AnomalyFailureAccrualPolicy``) at the reference's
+defaults: part A without training (kernel scores against plain, the
+board against a plain fold, one launch a batch, every row scored, the
+accrual policy tightening on the faulted routes), part B at the
+reference's cadence (fits, a lifecycle with cycles by hand, a distill
+block, spans, a weight sink; launches per batch, gate and retrain, the
+republished blob's CRC in the manifest, hold-out batches kept from
+fits); and its times. Prints the card, a JSON line of kernel and
+service numbers, one of the train phase's, one of the distill
+phase's, one of the telemeter phase's, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; with no CUDA device, or
 outside the repository, it exits non-zero before printing any result.
 Imports nothing of JAX.
@@ -1259,16 +1272,22 @@ async def distill_scenario(cfg, seed: int, dev: str = "cuda"):
             "bank_heads": heads_full, "bank_export_ms": export_ms}
 
 
-async def distill_parity(cfg, seed: int, dev: str = "cuda"):
-    """(c) From one teacher snapshot and one route's training rows (the
-    rows a retrain cycle trains on: the route's replay window less its
-    held-out rows): a PARITY_STEPS-step ``distill_head`` on ``dev``
-    against the same call on the CPU, scores within MODEL_TOL on every
-    row of the window. Read with no bound beside it: the CPU against
-    itself on the rows permuted, after PARITY_STEPS and after
-    retrainSteps, and the card against the CPU after retrainSteps."""
+def in_float32(snap):
+    """``snap`` with a float32 compute dtype: the plain forward then
+    rounds no activation to bfloat16."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(snap, cfg=dataclasses.replace(
+        snap.cfg, compute_dtype=torch.float32))
+
+
+async def parity_rows(cfg, seed: int, dev: str):
+    """(c)'s inputs: the teacher's snapshot, one route's replay window
+    (its last perRouteReplayRows rows), the rows a retrain cycle trains
+    on (the window less its held-out rows) and the route."""
     from linkerd_tpu_torch.distill import DistillConfig
-    from linkerd_tpu_torch.distill.pipeline import distill_head
 
     teacher, batches = await distill_inputs(cfg, seed, dev)
     try:
@@ -1277,26 +1296,82 @@ async def distill_parity(cfg, seed: int, dev: str = "cuda"):
         teacher.close()
     route = seed % N_ROUTES
     sel = slice(route * ROUTE_ROWS, (route + 1) * ROUTE_ROWS)
-    dcfg = DistillConfig()
     x, labels, mask = (np.concatenate([b[k][sel] for b in batches])[
-        -dcfg.perRouteReplayRows:] for k in range(3))
+        -DistillConfig().perRouteReplayRows:] for k in range(3))
     train = np.arange(len(x)) % 4 != 0
-    rows = (x[train], labels[train], mask[train])
+    return base, x, (x[train], labels[train], mask[train]), route
+
+
+def head_gap(a, b, x: np.ndarray, dev: str):
+    """(float32 reading, bf16 reading) of two heads' largest score gap
+    over ``x``."""
+    return tuple(float(np.abs(plain_scores(f(a), x, dev)
+                              - plain_scores(f(b), x, dev)).max())
+                 for f in (in_float32, lambda s: s))
+
+
+def distill_witness(cfg, seeds=(6, 10, 11, 12), perms: int = 30) -> dict:
+    """(c)'s CPU witness: per seed, the 4-step head on the CPU against
+    the same call on the rows permuted (``perms`` orders), read in
+    float32 and in bf16; the largest of each. Runs on the CPU, with no
+    card: ``PYTHONPATH=. python tests/test_torch_distill_cuda.py``."""
+    from linkerd_tpu_torch.distill import DistillConfig
+    from linkerd_tpu_torch.distill.pipeline import distill_head
+
+    lr, out = DistillConfig().learningRate, {}
+    for seed in seeds:
+        base, x, rows, _ = asyncio.run(parity_rows(cfg, seed, "cpu"))
+        host = distill_head(base, *rows, PARITY_STEPS, lr, "cpu")
+        gaps = []
+        for k in range(perms):
+            order = np.random.default_rng(
+                seed if k == 0 else 1000 * seed + k).permutation(len(rows[0]))
+            gaps.append(head_gap(host, distill_head(
+                base, *(r[order] for r in rows), PARITY_STEPS, lr, "cpu"),
+                x, "cpu"))
+        out[seed] = {"float32": max(g[0] for g in gaps),
+                     "bf16": max(g[1] for g in gaps), "orders": perms}
+        print(f"distill witness, seed {seed}: {PARITY_STEPS}-step head, CPU "
+              f"vs CPU over {perms} row orders, max|diff| "
+              f"{out[seed]['float32']:.3e} in float32, "
+              f"{out[seed]['bf16']:.3e} in bf16")
+    return out
+
+
+async def distill_parity(cfg, seed: int, dev: str = "cuda"):
+    """(c) From one teacher snapshot and one route's training rows (the
+    rows a retrain cycle trains on: the route's replay window less its
+    held-out rows): a PARITY_STEPS-step ``distill_head`` on ``dev``
+    against the same call on the CPU, the two fitted heads' scores
+    within MODEL_TOL on every row of the window, both read through the
+    plain forward in float32 (``in_float32``). Read through the bf16
+    forward instead, a parameter that two summation orders leave a
+    rounding apart can tip one bf16 activation of a row, which moves
+    that row's score a whole bf16 step (~1e-3-4e-3): the CPU against
+    itself on permuted rows reads up to 3.5e-3 that way, and within
+    1.3e-3 in float32 (``distill_witness``). Read with
+    no bound beside it: the bf16 reading, the CPU against itself on the
+    rows permuted (both readings), after PARITY_STEPS and after
+    retrainSteps, and the card against the CPU after retrainSteps."""
+    from linkerd_tpu_torch.distill import DistillConfig
+    from linkerd_tpu_torch.distill.pipeline import distill_head
+
+    base, x, rows, route = await parity_rows(cfg, seed, dev)
+    dcfg = DistillConfig()
     lr, steps = dcfg.learningRate, dcfg.retrainSteps
 
     def gap(a, b):
-        return float(np.abs(plain_scores(a, x, dev)
-                            - plain_scores(b, x, dev)).max())
+        return head_gap(a, b, x, dev)
 
     card = distill_head(base, *rows, PARITY_STEPS, lr, dev)
     host = distill_head(base, *rows, PARITY_STEPS, lr, "cpu")
     if not (card.mu == host.mu).all() or not (card.var == host.var).all():
         raise AssertionError("distill: head stats differ card/CPU")
-    short = gap(card, host)
+    short, short_bf16 = gap(card, host)
     if short > MODEL_TOL:
         raise AssertionError(
             f"seed {seed}: {PARITY_STEPS}-step head on the card off the "
-            f"CPU's by {short} > {MODEL_TOL}")
+            f"CPU's by {short} > {MODEL_TOL} (float32 forward)")
     order = np.random.default_rng(seed).permutation(len(rows[0]))
     permuted = tuple(r[order] for r in rows)
     short_order = gap(host, distill_head(base, *permuted, PARITY_STEPS, lr,
@@ -1306,11 +1381,14 @@ async def distill_parity(cfg, seed: int, dev: str = "cuda"):
     long_order = gap(host_long, distill_head(base, *permuted, steps, lr,
                                              "cpu"))
     print(f"distill parity, seed {seed}: {PARITY_STEPS}-step head card vs "
-          f"CPU max|diff| {short:.3e} (CPU vs CPU on permuted rows "
-          f"{short_order:.3e}); {steps} steps card vs CPU {long_gap:.3e}, "
-          f"CPU vs CPU on permuted rows {long_order:.3e}")
-    return {"seed": seed, "route": route, "rows": int(train.sum()),
-            "card_vs_cpu": short, "cpu_vs_cpu_permuted": short_order,
+          f"CPU max|diff| {short:.3e} in float32, {short_bf16:.3e} in bf16 "
+          f"(CPU vs CPU on permuted rows {short_order[0]:.3e} / "
+          f"{short_order[1]:.3e}); {steps} steps card vs CPU "
+          f"{long_gap[0]:.3e} / {long_gap[1]:.3e}, CPU vs CPU on permuted "
+          f"rows {long_order[0]:.3e} / {long_order[1]:.3e}")
+    return {"seed": seed, "route": route, "rows": len(rows[0]),
+            "card_vs_cpu": short, "card_vs_cpu_bf16": short_bf16,
+            "cpu_vs_cpu_permuted": short_order,
             "long_card_vs_cpu": long_gap,
             "long_cpu_vs_cpu_permuted": long_order}
 
@@ -1445,6 +1523,601 @@ async def distill_phase(cfg, seed: int = 6, dev: str = "cuda"):
     return res, res["scenario"]["launches"]
 
 
+# -- telemeter phase: the in-process io.l5d.jaxAnomaly main path ----------
+# A request's feature row -> FeatureRecorder or a ring append -> the
+# line-rate micro-batcher (run()) -> InProcessScorer.score -> the ring ->
+# the kernel -> ScoreBoard -> AnomalyFailureAccrualPolicy, at the
+# reference's defaults (maxBatch 1024, lineRate, maxLingerMs 2,
+# scoreConcurrency 2) and full width. Part A: no training; part B: the
+# reference's cadence (a fit every 8 batches, a lifecycle with cycles run
+# by hand, a distill block, a span sink, a recording weight sink).
+TELE_ROUTES = 40         # a tenth of them faulted
+TELE_FAULTED = 4
+TELE_BATCH = 1024        # the reference's maxBatch
+TELE_BATCHES = 64        # full batches in each part
+TELE_TEACHER_FITS = 20
+TELE_SHIFTED = 4         # part B: routes shifted after TELE_ANCHOR batches
+TELE_ANCHOR = 8
+RECORDER_TIMINGS = 20000
+
+
+def tele_routes():
+    return [f"/svc/tele-{i:02d}" for i in range(TELE_ROUTES)]
+
+
+def tele_traffic(rng, n: int, shift=None, faulted: int = TELE_FAULTED):
+    """``n`` requests over ``tele_routes()``: about half through the
+    recorder filter ("rec"), the rest appended to the ring ("ring"); the
+    first ``faulted`` routes are faulted, their requests slow and 5xx
+    and labeled 1. ``shift`` maps a route to a factor on the fields the
+    faults leave alone (bytes, concurrency, rate)."""
+    routes = tele_routes()
+    out = []
+    for i in range(n):
+        r = int(rng.integers(TELE_ROUTES))
+        bad = r < faulted
+        k = 1.0 if shift is None else shift.get(routes[r], 1.0)
+        out.append(("rec" if rng.random() < 0.5 else "ring", dict(
+            dst_path=routes[r], label=1.0 if bad else 0.0,
+            latency_ms=float(rng.gamma(2.0, 150.0 if bad else 4.0)),
+            status=int(rng.choice([500, 503]) if bad
+                       else rng.choice([200, 200, 200, 204, 404])),
+            retries=int(rng.integers(2)),
+            request_bytes=int(rng.integers(50, 2000) * k),
+            response_bytes=int(rng.integers(100, 8000) * k),
+            concurrency=int(rng.integers(1, 16) * k),
+            dst_rps=float(rng.uniform(5, 50) * k),
+            endpoint=f"10.1.{r}.{i % 3}:8080")))
+    return out
+
+
+def tele_items(rows):
+    """Requests (recorder path) and ring tuples (ring path), in order:
+    built before a timed window, as a router has them in hand, each
+    request's ``dst`` bound as a router's identifier binds it."""
+    import types
+
+    from linkerd_tpu_torch.core.path import Path as NamePath
+    from linkerd_tpu_torch.models.features import FeatureVector
+    from linkerd_tpu_torch.protocol.http.message import Request
+
+    items = []
+    for kind, f in rows:
+        if kind == "rec":
+            req = Request()
+            req.ctx.update(dst=types.SimpleNamespace(
+                path=NamePath.read(f["dst_path"])), status=f["status"],
+                           label=f["label"], retries=f["retries"],
+                           endpoint=f["endpoint"])
+            req.body = b"x" * (f["request_bytes"] % 4096)
+            items.append(("rec", req))
+        else:
+            fv = FeatureVector(**{k: f[k] for k in (
+                "dst_path", "latency_ms", "status", "retries",
+                "request_bytes", "response_bytes", "concurrency",
+                "dst_rps")})
+            items.append(("ring", (fv, f["label"], None, None,
+                                   f["endpoint"])))
+    return items
+
+
+async def tele_downstream(req):
+    """The service behind the recorder: answers the request's status,
+    with the fault label a fault-injection harness stamps."""
+    from linkerd_tpu_torch.protocol.http.message import Response
+
+    rsp = Response(req.ctx["status"], body=b"y" * 64)
+    rsp.headers.set("l5d-fault-label", str(req.ctx["label"]))
+    return rsp
+
+
+async def push(ring, svc, items) -> None:
+    """``items`` in without yielding to the loop: through ``svc`` (the
+    recorder filter before a downstream that never suspends) or
+    appended to ``ring``."""
+    for kind, it in items:
+        if kind == "rec":
+            await svc(it)
+        else:
+            ring.append(it)
+
+
+async def tele_teacher(cfg, seed: int, dev: str):
+    """A snapshot of random weights from a seed (``make_snapshot``),
+    trained by TELE_TEACHER_FITS fits at lr 5e-3 on labeled rows of the
+    phase's traffic before any route faults, recorded and featurized as
+    the telemeter does: a model of the calm mesh, to which the faults of
+    the phase are new."""
+    import collections
+
+    from linkerd_tpu_torch.models.features import featurize_batch
+    from linkerd_tpu_torch.router.service import FnService
+    from linkerd_tpu_torch.telemetry.anomaly import (
+        FeatureRecorder, InProcessScorer,
+    )
+
+    rng = np.random.default_rng(seed)
+    ring = collections.deque()
+    svc = FeatureRecorder(ring).and_then(FnService(tele_downstream))
+    teacher = InProcessScorer(learning_rate=5e-3, device=dev)
+    try:
+        teacher.restore(make_snapshot(cfg, seed))
+        for _ in range(TELE_TEACHER_FITS):
+            await push(ring, svc, tele_items(
+                tele_traffic(rng, FIT_ROWS, faulted=0)))
+            items = [ring.popleft() for _ in range(len(ring))]
+            x = featurize_batch([it[0] for it in items])
+            labels = np.array([it[1] for it in items], np.float32)
+            await teacher.fit(x, labels, np.ones(len(x), np.float32))
+        return teacher.snapshot()
+    finally:
+        teacher.close()
+
+
+class TeleRecorder:
+    """Wraps, on one telemeter and its scorer, the calls the phase
+    reads: every score call's rows and scores, every board fold (in
+    fold order), and the host ms of ``_take_batch`` and of
+    ``_score_and_publish``."""
+
+    def __init__(self, tele):
+        self.scored, self.folds = [], []
+        self.take_ms, self.publish_ms, self.calls = [], [], 0
+        scorer, board = tele._scorer, tele.board
+        score, fold = scorer.score, board.update_batch
+        take, publish = tele._take_batch, tele._score_and_publish
+
+        async def scoring(x):
+            self.calls += 1
+            s = await score(x)
+            self.scored.append((x, s))  # a fresh array each batch
+            return s
+
+        def folding(dsts, scores, endpoints=None):
+            self.folds.append((list(dsts), scores, endpoints))
+            return fold(dsts, scores, endpoints=endpoints)
+
+        def taking():
+            t0 = time.perf_counter()
+            try:
+                return take()
+            finally:
+                self.take_ms.append((time.perf_counter() - t0) * 1e3)
+
+        async def publishing(s, b):
+            t0 = time.perf_counter()
+            try:
+                return await publish(s, b)
+            finally:
+                self.publish_ms.append((time.perf_counter() - t0) * 1e3)
+
+        scorer.score, board.update_batch = scoring, folding
+        tele._take_batch, tele._score_and_publish = taking, publishing
+
+
+async def tele_drive(tele, batches, hooks=None):
+    """The main path: ``run()`` as a task, each batch's items pushed in
+    one go (the batcher then finds a full batch) with at most two
+    batches waiting in the ring, until every row is scored. Before batch
+    ``i`` (``len(batches)``: after the last), once every row pushed so
+    far is scored, ``hooks[i]()`` is awaited. Returns the wall seconds
+    from the first push to the last row scored, the hooks' time left
+    out."""
+    from linkerd_tpu_torch.router.service import FnService
+
+    svc = tele.recorder().and_then(FnService(tele_downstream))
+    hooks = hooks or {}
+    scored = tele._scored
+    task = asyncio.ensure_future(tele.run())
+
+    async def settle(rows: int) -> None:
+        while scored.value < rows:
+            if task.done():
+                task.result()
+                raise AssertionError("telemeter: run() ended early")
+            await asyncio.sleep(2e-4)
+
+    try:
+        await asyncio.sleep(0.05)  # run()'s start: bootstrap, first publish
+        t0, hook_s, pushed = time.perf_counter(), 0.0, 0
+        for i in range(len(batches) + 1):
+            if i in hooks:
+                await settle(pushed)
+                h0 = time.perf_counter()
+                await hooks[i]()
+                hook_s += time.perf_counter() - h0
+            if i == len(batches):
+                break
+            while len(tele.ring) >= 2 * TELE_BATCH:
+                await asyncio.sleep(2e-4)
+            await push(tele.ring, svc, batches[i])
+            pushed += len(batches[i])
+            await asyncio.sleep(0)
+        await settle(pushed)
+        wall = time.perf_counter() - t0 - hook_s
+    finally:
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+    return wall
+
+
+async def tele_layers(tele, dev: str, reps: int = 20) -> dict:
+    """Host ms of each layer of one TELE_BATCH-row batch, each run
+    alone after the part (medians of ``reps``): the feature encoder, the
+    score call through the ring (wait included), the board fold, the
+    ``dst/*`` gauges, the lifecycle's drift monitor and the distill
+    feed. Their launches fall outside the counted window."""
+    from linkerd_tpu_torch.distill import DistillConfig
+    from linkerd_tpu_torch.lifecycle.drift import DriftMonitor
+    from linkerd_tpu_torch.models.features import featurize_batch
+    from linkerd_tpu_torch.telemetry.anomaly import ScoreBoard
+
+    rows = [("ring", f) for _, f in tele_traffic(
+        np.random.default_rng(1), TELE_BATCH)]
+    tuples = [it for _, it in tele_items(rows)]
+    fvs, eps = [it[0] for it in tuples], [it[4] for it in tuples]
+    dsts = [fv.dst_path for fv in fvs]
+    x = featurize_batch(fvs)
+    labels = np.array([it[1] for it in tuples], np.float32)
+    mask = np.ones(len(x), np.float32)
+    scorer = tele._scorer
+    score = type(scorer).score  # the class's: past TeleRecorder's wrapper
+
+    def med(fn) -> float:
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    s = await score(scorer, x)
+    wait = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        await score(scorer, x)
+        wait.append((time.perf_counter() - t0) * 1e3)
+    drift = DriftMonitor()
+    pipe = DistillConfig().mk(None, device=dev)
+    return {"featurize": med(lambda: featurize_batch(fvs)),
+            "score_ring_round_trip": float(np.median(wait)),
+            "board_fold": med(lambda: ScoreBoard().update_batch(
+                dsts, s, endpoints=eps)),
+            "dst_gauges": med(tele._publish_gauges),
+            "drift_observe": med(lambda: drift.observe(x, s)),
+            "distill_observe": med(lambda: pipe.observe_batch(
+                dsts, x, s, labels, mask))}
+
+
+def tele_plain(snap, rec, dev: str):
+    """The plain version's scores of every scored batch, on ``dev``."""
+    return [plain_scores(snap, x, dev) for x, _ in rec.scored]
+
+
+def tele_common_checks(tele, rec, rows: int, launches: int, extra: int,
+                       part: str, dev: str):
+    """Counters of a part: every row scored, nothing failed, dropped or
+    degraded, and on the card one kernel launch a dispatched batch (plus
+    ``extra`` for gates and retrains)."""
+    flat = tele.metrics.flatten()
+    bad = {k: flat[f"anomaly/{k}"] for k in ("score_failures",
+                                             "dropped_batches", "degraded")
+           if flat[f"anomaly/{k}"]}
+    if bad:
+        raise AssertionError(f"telemeter {part}: {bad}")
+    if flat["anomaly/scored_total"] != rows or \
+            flat["anomaly/scored_fraction"] != 1.0:
+        raise AssertionError(
+            f"telemeter {part}: scored {flat['anomaly/scored_total']} of "
+            f"{rows} rows, fraction {flat['anomaly/scored_fraction']}")
+    batches = flat["anomaly/batches"]
+    if batches != rec.calls or len(rec.scored) != rec.calls:
+        raise AssertionError(f"telemeter {part}: {batches} batches, "
+                             f"{rec.calls} score calls")
+    full = sum(len(x) == TELE_BATCH for x, _ in rec.scored)
+    if full < TELE_BATCHES:
+        raise AssertionError(f"telemeter {part}: {full} full batches")
+    if launches != (0 if dev == "cpu" else batches + extra):
+        raise AssertionError(
+            f"telemeter {part}: {launches} kernel launches for {batches} "
+            f"batches + {extra}")
+    return flat, batches, full
+
+
+def tele_times(rec, rows: int, wall: float) -> dict:
+    pub = np.asarray(rec.publish_ms)
+    return {"rows_per_s": rows / wall, "wall_s": wall,
+            "take_batch_p50_ms": float(np.median(rec.take_ms)),
+            "score_and_publish_p50_ms": float(np.percentile(pub, 50)),
+            "score_and_publish_p99_ms": float(np.percentile(pub, 99))}
+
+
+async def telemeter_part_a(cfg, snap, seed: int, dev: str = "cuda"):
+    """Part A, no training: TELE_BATCHES full batches through run();
+    kernel scores against plain (Agreement), the board against a fresh
+    ScoreBoard folded with the plain scores in the same order, launches
+    against batches, counters, and the accrual policy on the board."""
+    from linkerd_tpu_torch.telemetry.anomaly import (
+        AnomalyFailureAccrualConfig, InProcessScorer, JaxAnomalyConfig,
+        JaxAnomalyTelemeter, ScoreBoard,
+    )
+    from linkerd_tpu_torch.telemetry.metrics import MetricsTree
+
+    rng = np.random.default_rng(seed)
+    batches = [tele_items(tele_traffic(rng, TELE_BATCH))
+               for _ in range(TELE_BATCHES)]
+    rows = TELE_BATCHES * TELE_BATCH
+    recorded = sum(k == "rec" for b in batches for k, _ in b)
+    scorer = InProcessScorer(device=dev)
+    scorer.restore(snap)
+    await scorer.warmup(TELE_BATCH)  # the kernel, its ring slots, a fit
+    tele = JaxAnomalyTelemeter(JaxAnomalyConfig(trainEveryBatches=0),
+                               MetricsTree(), scorer=scorer, device=dev)
+    rec = TeleRecorder(tele)
+    try:
+        wall, launches = await counted(tele_drive(tele, batches))
+        layers = await tele_layers(tele, dev)
+    finally:
+        tele.close()
+    flat, n_batches, full = tele_common_checks(tele, rec, rows, launches, 0,
+                                               "part A", dev)
+    if flat["anomaly/requests_total"] != recorded:
+        raise AssertionError("telemeter part A: requests_total "
+                             f"{flat['anomaly/requests_total']} != "
+                             f"{recorded} recorded")
+    plain = tele_plain(snap, rec, dev)
+    agree = Agreement("telemeter A: kernel vs plain")
+    for (x, got), ref in zip(rec.scored, plain):
+        agree.add(got, ref, f"batch of {len(x)}")
+    agree.close()
+    # a fresh board folded with the plain scores in the fold order
+    by_id = {id(s): p for (_, s), p in zip(rec.scored, plain)}
+    fresh = ScoreBoard(ttl_s=tele.cfg.scoreTtlSecs)
+    for dsts, s, eps in rec.folds:
+        fresh.update_batch(dsts, by_id[id(s)], endpoints=eps)
+    got, want = tele.board.scores.sample(), fresh.scores.sample()
+    got_ep, want_ep = (tele.board.effective_endpoint_scores(),
+                       fresh.effective_endpoint_scores())
+    if sorted(got) != sorted(want) or sorted(got_ep) != sorted(want_ep):
+        raise AssertionError("telemeter A: board keys differ from the fold")
+    board_gap = max(max(abs(got[k] - want[k]) for k in got),
+                    max(abs(got_ep[k] - want_ep[k]) for k in got_ep))
+    if board_gap > TOL:
+        raise AssertionError(f"telemeter A: board off the plain fold by "
+                             f"{board_gap} > {TOL}")
+    # accrual: the mesh level with the faulted routes tightens the
+    # policy to anomalousFailures; a board of the calm routes alone
+    # keeps it at failures
+    faulted = set(tele_routes()[:TELE_FAULTED])
+    calm = ScoreBoard(ttl_s=tele.cfg.scoreTtlSecs)
+    calm.update_batch([d for d in got if d not in faulted],
+                      np.array([got[d] for d in got if d not in faulted]))
+    acfg = AnomalyFailureAccrualConfig()
+
+    def failures_to_dead(board) -> int:
+        policy = type(acfg.mk(board))(board, acfg.failures,
+                                      acfg.anomalousFailures,
+                                      acfg.threshold, backoffs=iter([1.0]))
+        for k in range(1, acfg.failures + 1):
+            if policy.record_failure() is not None:
+                return k
+        return -1
+
+    dead = {"mesh": failures_to_dead(tele.board),
+            "calm_only": failures_to_dead(calm)}
+    if dead != {"mesh": acfg.anomalousFailures, "calm_only": acfg.failures}:
+        raise AssertionError(f"telemeter A: accrual {dead}, level "
+                             f"{tele.board.anomaly_level()} / "
+                             f"{calm.anomaly_level()}")
+    levels = {"faulted_min": min(got[d] for d in faulted),
+              "calm_max": max(v for d, v in got.items()
+                              if d not in faulted)}
+    out = dict(tele_times(rec, rows, wall), rows=rows, batches=n_batches,
+               full_batches=full, launches=launches,
+               kernel_vs_plain_max=agree.worst,
+               rows_off=agree.off, board_vs_plain_fold_max=board_gap,
+               failures_to_dead=dead, board_levels=levels,
+               recorded_requests=recorded, layers_ms=layers)
+    print(f"telemeter A, seed {seed}: {rows} rows in {n_batches} batches "
+          f"({full} full), {launches} launches; kernel vs plain max|diff| "
+          f"{agree.worst:.3e}, board vs plain fold {board_gap:.3e}; "
+          f"accrual dead after {dead}; faulted routes >= "
+          f"{levels['faulted_min']:.3f}, calm <= {levels['calm_max']:.3f}; "
+          f"{out['rows_per_s']:.0f} rows/s, _take_batch p50 "
+          f"{out['take_batch_p50_ms']:.3f} ms, _score_and_publish p50 "
+          f"{out['score_and_publish_p50_ms']:.3f} p99 "
+          f"{out['score_and_publish_p99_ms']:.3f} ms; a batch's layers "
+          f"alone, host ms: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in layers.items()))
+    return out
+
+
+class SpanSink:
+    def __init__(self):
+        self.spans = []
+
+    def record(self, span: dict) -> None:
+        self.spans.append(span)
+
+
+async def telemeter_part_b(cfg, snap, seed: int, dev: str = "cuda"):
+    """Part B, the reference's cadence: a fit every 8 batches, a
+    ``lifecycle:`` block (cycles by hand), a small ``distill:`` block
+    with TELE_SHIFTED routes shifted after TELE_ANCHOR batches, a span
+    sink and a recording weight sink. Launches: one a batch, two a
+    gated cycle, two a retrain cycle; a promotion republishes to the
+    sink a blob whose CRC the manifest records; hold-out batches never
+    reach a fit."""
+    from linkerd_tpu_torch.distill import DistillConfig
+    from linkerd_tpu_torch.lifecycle import LifecycleConfig
+    from linkerd_tpu_torch.lifecycle.export import blob_meta
+    from linkerd_tpu_torch.lifecycle.store import MANIFEST
+    from linkerd_tpu_torch.telemetry.anomaly import (
+        InProcessScorer, JaxAnomalyConfig, JaxAnomalyTelemeter,
+    )
+    from linkerd_tpu_torch.telemetry.metrics import MetricsTree
+
+    rng = np.random.default_rng(seed)
+    shift = {r: 20.0 * (1 + i) for i, r in
+             enumerate(tele_routes()[-TELE_SHIFTED:])}
+    batches = [tele_items(tele_traffic(
+        rng, TELE_BATCH, shift=shift if b >= TELE_ANCHOR else None))
+        for b in range(TELE_BATCHES)]
+    rows = TELE_BATCHES * TELE_BATCH
+    scorer = InProcessScorer(device=dev)
+    scorer.restore(snap)
+    await scorer.warmup(TELE_BATCH)  # the kernel, its ring slots, a fit
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = JaxAnomalyConfig(
+            lifecycle=LifecycleConfig(directory=tmp, checkpointEveryS=0,
+                                      minReplayRows=TELE_BATCH),
+            distill=DistillConfig(maxHeads=4, cooldownS=0.0, retrainSteps=2,
+                                  minRouteRows=64))
+        tele = JaxAnomalyTelemeter(tcfg, MetricsTree(), scorer=scorer,
+                                   device=dev)
+        rec = TeleRecorder(tele)
+        blobs, spans = [], SpanSink()
+        tele.register_weight_sink(lambda b: blobs.append(("full", b)),
+                                  lambda b: blobs.append(("delta", b)))
+        tele.set_tracer(spans)
+        fits, holdouts, retrains, cycles = [], [], [], []
+        fit, add, run_once = (scorer.fit, tele.lifecycle.replay.add_batch,
+                              tele.distill.run_once)
+
+        async def fitting(x, labels, mask):
+            fits.append(x.tobytes())
+            return await fit(x, labels, mask)
+
+        def holding(x, labels, mask):
+            holdouts.append(x.tobytes())
+            return add(x, labels, mask)
+
+        async def retraining(*a, **kw):
+            out = await run_once(*a, **kw)
+            if out is not None:
+                retrains.append(out)
+            return out
+
+        scorer.fit, tele.lifecycle.replay.add_batch = fitting, holding
+        tele.distill.run_once = retraining
+
+        async def cycle():
+            before = len(blobs)
+            out = await tele.lifecycle_cycle()
+            manifest = json.loads((Path(tmp) / MANIFEST).read_text())
+            entry = {e["version"]: e for e in manifest["versions"]}[
+                tele.lifecycle.serving_version]
+            full = [b for k, b in blobs[before:] if k == "full"]
+            if out["action"] in ("promoted", "rolled_back"):
+                if len(full) != 1 or blob_meta(full[0])["crc"] != \
+                        entry.get("native_blob", {}).get("crc"):
+                    raise AssertionError(
+                        f"telemeter B: {out['action']} republished "
+                        f"{len(full)} blobs, manifest {entry}")
+            cycles.append(dict(action=out["action"],
+                               gated="decision" in out,
+                               version=tele.lifecycle.serving_version,
+                               crc=blob_meta(full[0])["crc"] if full
+                               else None))
+            return out
+
+        async def main_path():
+            # cycles by hand: after the first quarter of the traffic (the
+            # bootstrap promotion) and after the last batch (gated)
+            wall = await tele_drive(tele, batches, {
+                TELE_BATCHES // 4: cycle, TELE_BATCHES: cycle})
+            while tele.distill.busy:
+                await asyncio.sleep(0.01)
+            return wall
+
+        try:
+            wall, launches = await counted(main_path())
+        finally:
+            tele.close()
+        gated = sum(c["gated"] for c in cycles)
+        flat, n_batches, full_batches = tele_common_checks(
+            tele, rec, rows, launches, 2 * gated + 2 * len(retrains),
+            "part B", dev)
+    # batch b (from 0) is held out when b % 4 == 0 and fits when
+    # (b + 1) % 8 == 0 and it is not held out
+    want = (sum((b + 1) % 8 == 0 and b % 4 != 0 for b in range(n_batches)),
+            len(range(0, n_batches, 4)))
+    if (len(fits), len(holdouts)) != want or set(fits) & set(holdouts):
+        raise AssertionError(
+            f"telemeter B: {len(fits)} fits and {len(holdouts)} hold-outs "
+            f"(want {want}), {len(set(fits) & set(holdouts))} shared")
+    if not retrains or not any(c["gated"] for c in cycles) or \
+            cycles[0]["action"] != "promoted":
+        raise AssertionError(f"telemeter B: retrains {len(retrains)}, "
+                             f"cycles {cycles}")
+    timing = scorer.timing_totals
+    timed = -(-n_batches // tele.TIMING_SAMPLE_EVERY)
+    if timing["calls"] != timed or sorted(scorer.last_timing) != [
+            "bytes", "device_ms", "queue_ms", "transfer_ms"]:
+        raise AssertionError(f"telemeter B: {timing['calls']} timed batches "
+                             f"of {n_batches}")
+    batch_spans = [s for s in spans.spans if s["name"] == "scorer.batch"]
+    if len(batch_spans) != n_batches:
+        raise AssertionError("telemeter B: a batch without its span")
+    split = {k: timing[k] / timing["calls"]
+             for k in ("queue_ms", "transfer_ms", "device_ms")}
+    split["bytes"] = timing["bytes"] / timing["calls"]
+    out = dict(tele_times(rec, rows, wall), rows=rows, batches=n_batches,
+               full_batches=full_batches, launches=launches,
+               gated_cycles=gated, retrain_cycles=len(retrains),
+               retrains=[(r["route"], r["action"]) for r in retrains],
+               cycles=cycles, fits=len(fits), holdouts=len(holdouts),
+               train_loss=flat["anomaly/train_loss"],
+               timed_batches=timing["calls"], last_timing_split=split,
+               publishes=[k for k, _ in blobs], spans=len(spans.spans))
+    print(f"telemeter B, seed {seed}: {rows} rows in {n_batches} batches "
+          f"({full_batches} full), {launches} launches = batches + 2 x "
+          f"{gated} gated + 2 x {len(retrains)} retrains; {len(fits)} "
+          f"fits, {len(holdouts)} hold-outs, none shared; cycles "
+          f"{[c['action'] for c in cycles]}; retrains {out['retrains']}; "
+          f"{out['rows_per_s']:.0f} rows/s, _take_batch p50 "
+          f"{out['take_batch_p50_ms']:.3f} ms, _score_and_publish p50 "
+          f"{out['score_and_publish_p50_ms']:.3f} p99 "
+          f"{out['score_and_publish_p99_ms']:.3f} ms; timed batches "
+          f"{timing['calls']}: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in split.items()))
+    return out
+
+
+def recorder_us(n: int = RECORDER_TIMINGS) -> dict:
+    """Host µs a request of the recorder filter in front of a downstream
+    that answers at once, and of that downstream alone."""
+    import collections
+
+    from linkerd_tpu_torch.router.service import FnService
+    from linkerd_tpu_torch.telemetry.anomaly import FeatureRecorder
+
+    items = [it for _, it in tele_items(
+        [("rec", f) for _, f in tele_traffic(np.random.default_rng(0), n)])]
+    bare = FnService(tele_downstream)
+    # a ring of one batch, as the batcher keeps it drained: an unbounded
+    # one would time the collector's passes over the rows it holds
+    svc = FeatureRecorder(collections.deque(maxlen=TELE_BATCH)).and_then(bare)
+
+    async def go(s):
+        t0 = time.perf_counter()
+        for req in items:
+            await s(req)
+        return (time.perf_counter() - t0) / n * 1e6
+
+    return {"recorder_us": asyncio.run(go(svc)),
+            "downstream_alone_us": asyncio.run(go(bare))}
+
+
+async def telemeter_phase(cfg, seed: int = 8, dev: str = "cuda"):
+    """The teacher, part A and part B; returns the results and the
+    kernel's launches on the two parts' main path."""
+    snap = await tele_teacher(cfg, seed, dev)
+    res = {"part_a": await telemeter_part_a(cfg, snap, seed, dev),
+           "part_b": await telemeter_part_b(cfg, snap, seed + 1, dev)}
+    return res, res["part_a"]["launches"] + res["part_b"]["launches"]
+
+
 # Broken kernels the checks must catch: (line in score_mlp.cu, its
 # replacement). A dropped bias, a neighbouring column's bias, one bf16
 # rounding of a layer instead of two, the error taken against the bf16
@@ -1477,20 +2150,23 @@ BREAKDOWN = {
         "  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;"),
     "no_products": ("    if (TILES > 0) {", "    if (false) {"),
 }
-CHECKS = ("kernel", "served")
+CHECKS = ("kernel", "served")  # what --mutants runs on every mutant
 
 
 def run_check(which: str) -> int:
-    """One agreement check alone, against the kernel this checkout
-    builds: exits non-zero with an AssertionError if it disagrees."""
+    """One agreement check alone (or the telemeter phase), against the
+    kernel this checkout builds: exits non-zero with an AssertionError
+    if it disagrees."""
     from linkerd_tpu_torch.models.anomaly import AnomalyModelConfig
 
     cfg = AnomalyModelConfig(recon_weight=0.7)
     rng = np.random.default_rng(0)
     if which == "kernel":
         check_kernel(cfg, rng)
-    else:
+    elif which == "served":
         asyncio.run(drive_service(cfg, rng))
+    else:
+        asyncio.run(telemeter_phase(cfg))
     return 0
 
 
@@ -1507,16 +2183,39 @@ def copy_with(tmp: Path, name: str, line: str, replacement: str) -> Path:
     return tmp / name
 
 
+def run_mutant(name: str, which: str, tmp: Path):
+    """``--check which`` in the copy of this checkout at ``tmp/name``;
+    returns (name, which, exit code, last line of its errors)."""
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py", "--check", which],
+        cwd=tmp / name, capture_output=True, text=True, timeout=900)
+    last = (proc.stderr.strip().splitlines() or [""])[-1]
+    return name, which, proc.returncode, last
+
+
+def caught(rc: int, last: str) -> bool:
+    """A check catches a mutant by its own assertion: a build failure or
+    a crash is not a catch."""
+    return rc != 0 and last.startswith("AssertionError")
+
+
+def check_mutant(name: str, which: str) -> int:
+    """One mutant through one check (``--check`` names it), which must
+    fail by its own assertion."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        copy_with(tmp, name, *MUTANTS[name])
+        _, _, rc, last = run_mutant(name, which, tmp)
+    print(f"mutant {name}, {which} check: "
+          f"{'caught' if caught(rc, last) else 'MISSED'}: {last}")
+    if not caught(rc, last):
+        raise AssertionError(f"the {which} check missed mutant {name}")
+    return 0
+
+
 def check_mutants() -> int:
     """Every check must fail on every mutant, by its own assertion (a
     build failure or a crash is not a catch)."""
-    def one(name: str, which: str, tmp: Path):
-        proc = subprocess.run(
-            [sys.executable, "chip_smoke.py", "--check", which],
-            cwd=tmp / name, capture_output=True, text=True, timeout=600)
-        last = (proc.stderr.strip().splitlines() or [""])[-1]
-        return name, which, proc.returncode, last
-
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for name, (line, broken) in MUTANTS.items():
@@ -1524,14 +2223,14 @@ def check_mutants() -> int:
         # kernel checks in parallel (each builds its mutant), then the
         # served checks on the built libraries
         with ThreadPoolExecutor(len(MUTANTS)) as pool:
-            results = list(pool.map(lambda n: one(n, "kernel", tmp), MUTANTS))
-        results += [one(n, "served", tmp) for n in MUTANTS]
+            results = list(pool.map(lambda n: run_mutant(n, "kernel", tmp),
+                                    MUTANTS))
+        results += [run_mutant(n, "served", tmp) for n in MUTANTS]
     missed = []
     for name, which, rc, last in results:
-        caught = rc != 0 and last.startswith("AssertionError")
         print(f"mutant {name}, {which} check: "
-              f"{'caught' if caught else 'MISSED'}: {last}")
-        if not caught:
+              f"{'caught' if caught(rc, last) else 'MISSED'}: {last}")
+        if not caught(rc, last):
             missed.append(f"{name}/{which}")
     if missed:
         raise AssertionError(f"checks missed mutants: {missed}")
@@ -1674,8 +2373,12 @@ def main() -> int:
         return sweep()
     if args in (["--time"], ["--time-only"]):
         return run_timing(check=args == ["--time"])
-    if len(args) == 2 and args[0] == "--check" and args[1] in CHECKS:
+    if len(args) == 2 and args[0] == "--check" and \
+            args[1] in CHECKS + ("telemeter",):
         return run_check(args[1])
+    if len(args) == 3 and args[0] == "--mutant" and args[1] in MUTANTS \
+            and args[2] in CHECKS + ("telemeter",):
+        return check_mutant(args[1], args[2])
     if args:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
         return 2
@@ -1727,6 +2430,11 @@ def main() -> int:
     service = asyncio.run(time_service(cfg, rng))
     train, train_launches = asyncio.run(train_phase(cfg, rng))
     distill, distill_launches = asyncio.run(distill_phase(cfg))
+    telemeter, telemeter_launches = asyncio.run(telemeter_phase(cfg))
+    telemeter["recorder"] = recorder_us()
+    print(f"recorder filter: {telemeter['recorder']['recorder_us']:.2f} us "
+          f"a request, the downstream alone "
+          f"{telemeter['recorder']['downstream_alone_us']:.2f} us")
     service["h2d_alone_ms"], service["d2h_alone_ms"] = h2d, d2h
     print(f"service: {service['rows_per_s']:.0f} rows/s at 1024-row "
           f"batches x{IN_FLIGHT} in flight, p50 "
@@ -1748,7 +2456,8 @@ def main() -> int:
         "replaces": "linkerd_tpu/ops/scoring.py:39",
         "launches": launches,
         "launches_by_phase": dict(serve=launches, **train_launches,
-                                  distill=distill_launches),
+                                  distill=distill_launches,
+                                  telemeter=telemeter_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -1765,6 +2474,8 @@ def main() -> int:
     print(json.dumps({"train": train, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"distill": distill, "card": name.strip(),
+                      "power_limit": limit.strip()}))
+    print(json.dumps({"telemeter": telemeter, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

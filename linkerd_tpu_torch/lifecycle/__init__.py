@@ -38,18 +38,25 @@ from linkerd_tpu_torch.lifecycle.store import (
 
 @dataclass
 class LifecycleConfig:
-    """The keys of the reference's ``lifecycle:`` block that build the
-    manager, with the reference's defaults. The cadence, hold-out and
-    restore-on-start keys are read by the reference's telemeter, which
-    the port does not have yet, so it does not accept them."""
+    """The reference's ``lifecycle:`` block of the ``io.l5d.jaxAnomaly``
+    telemeter, with its defaults. ``mk_manager`` reads the store, gate
+    and replay keys; the telemeter reads the cadence, hold-out and
+    restore-on-start keys."""
 
     directory: str                   # checkpoint store root (required)
+    checkpointEveryS: float = 300.0  # gating-cycle cadence; 0 = manual only
     retain: int = 5                  # versions kept (serving never pruned)
     aucTolerance: float = 0.02
     lossTolerance: float = 0.10
     minLabeled: int = 8
     replayCapacity: int = 4096       # held-out window, rows
     minReplayRows: int = 256         # gate only once the window is warm
+    # every Nth drained batch is diverted to the replay window and
+    # EXCLUDED from training — the shadow-eval set must be held out from
+    # the candidate, or a poisoned training stream would evaluate best
+    # on its own poison and sail through the gate
+    holdoutEveryBatches: int = 4
+    restoreOnStart: bool = True      # survive restarts from last-good
 
     def mk_manager(self, metrics_node=None,
                    device: DeviceLike = None) -> ModelLifecycleManager:

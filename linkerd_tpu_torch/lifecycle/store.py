@@ -308,6 +308,19 @@ class CheckpointStore:
                 return
         raise CheckpointError(f"unknown checkpoint version {version}")
 
+    def record_native_blob(self, version: int,
+                           meta: Optional[Dict[str, Any]]) -> None:
+        """Annotate a checkpoint's manifest entry with the native
+        weight blob exported from it (lifecycle.export.blob_meta): the
+        manifest then carries the full lineage from training state to
+        the exact CRC'd bits the data-plane engines serve."""
+        for e in self._manifest["versions"]:
+            if e["version"] == version:
+                e["native_blob"] = meta
+                self._write_manifest()
+                return
+        raise CheckpointError(f"unknown checkpoint version {version}")
+
     def record_specialist(self, route_hash: int,
                           meta: Optional[Dict[str, Any]]) -> None:
         """Manifest lineage for one specialist head: ``meta`` records

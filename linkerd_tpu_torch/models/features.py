@@ -1,7 +1,290 @@
-"""Feature layout constants (copy of ``linkerd_tpu/models/features.py``).
+"""Per-request feature extraction for the anomaly telemeter: a copy of
+``linkerd_tpu/models/features.py``, row for row.
 
-Only the width is needed by the scoring path: a request's feature row
-is ``FEATURE_DIM`` float32 values, built by the router side.
+The feature schema is the seam between the host data plane (router filters
+observing requests — ref: the stats the reference's StatsFilter/
+StatusCodeStatsFilter/StreamStatsFilter record, SURVEY.md §2.1) and the
+scorer on the device. Host side produces fixed-width float32 vectors; everything after the
+ring buffer is batched ndarray work, so no Python-per-request cost on the
+device path.
+
+Layout (FEATURE_DIM = 36):
+
+    [0]      log1p(latency_ms)
+    [1:6]    status-class one-hot (1xx..5xx)
+    [6]      retryable-failure flag
+    [7]      retry count
+    [8]      log1p(request bytes)
+    [9]      log1p(response bytes)
+    [10]     in-flight concurrency at dispatch (log1p)
+    [11]     balancer EWMA latency of chosen endpoint (log1p ms)
+    [12]     queue wait ms (log1p)
+    [13]     1.0 if response was an exception (no status)
+    [14:30]  dst service path, feature-hashed (16 buckets, signed)
+    [30]     requests-per-second to this dst (log1p)
+    [31]     bias (1.0)
+
+Temporal context (round 4 — the per-request snapshot alone cannot
+separate latency-only degradation from load noise; these are deltas
+against each dst's own recent history, VERDICT r3 item 3):
+
+    [32]     latency drift vs this dst's robust EWMA (signed log1p ms) —
+             the one temporal signal that survived ablation on BOTH
+             fault benchmarks (config4 k8s restarts 0.995, config5 istio
+             cascades 0.979/0.975 with it; 0.94/0.92 without)
+    [33]     reserved (zero). A trailing per-dst error-rate window was
+             tried here and cost ~0.2 AUC: the window outlives the fault
+             and taints co-temporal normal rows to the same dst (only
+             ~15% of in-window rows are the injected errors), so it
+             separates fault windows from quiet time, not anomalous
+             requests from normal ones. Ablation (config 5, n=150):
+             with it 0.75-0.80, without it 0.97+.
+    [34]     reserved (zero). A per-dst request-rate delta
+             (log inst/EWMA) was neutral on config 5 but cost ~0.06 on
+             config 4, whose labeled fault windows and unlabeled
+             recovery phases drive IDENTICAL burst shapes — the rate
+             spike correlates with load phase, not with anomaly labels.
+             DstTemporal still computes it for consumers that want it.
+    [35]     reserved (zero). A mesh-wide error rate regressed AUC to
+             ~0.5 for the same reason as [33], one scope wider.
 """
 
+from __future__ import annotations
+
+import collections
+import zlib
+from dataclasses import dataclass, field
+from typing import Deque, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
 FEATURE_DIM = 36
+STATUS_ONEHOT_OFF = 1   # [1:6] status-class one-hot
+_PATH_HASH_OFF = 14
+_PATH_HASH_DIM = 16
+
+# path -> (hash column, sign) cache shared by every encoder (per-row,
+# batch, and the native block featurizer): paths repeat heavily (one
+# per dst), so the crc is paid once per distinct path
+_PATH_HASH_CACHE: Dict[str, Tuple[int, float]] = {}
+
+
+def path_hash_cols(path: str) -> Tuple[int, float]:
+    """The ONE definition of the signed dst-path feature hash:
+    -> (feature column, ±1.0 sign)."""
+    got = _PATH_HASH_CACHE.get(path)
+    if got is None:
+        h = zlib.crc32(path.encode())
+        got = (_PATH_HASH_OFF + h % _PATH_HASH_DIM,
+               1.0 if (h >> 16) & 1 else -1.0)
+        if len(_PATH_HASH_CACHE) < 65536:
+            _PATH_HASH_CACHE[path] = got
+    return got
+
+# Debug/ablation knob: comma-separated dim indices to zero after
+# encoding (e.g. L5D_FEATURE_ABLATE="32,34"). Parsed once at import;
+# used to attribute AUC deltas to individual features when tuning the
+# schema against the fault benchmarks.
+import os as _os
+
+_ABLATE = tuple(int(d) for d in
+                (_os.environ.get("L5D_FEATURE_ABLATE") or "").split(",")
+                if d.strip())
+
+
+@dataclass
+class FeatureVector:
+    """Raw per-request observation recorded by the router filter."""
+
+    latency_ms: float = 0.0
+    status: int = 200
+    retries: int = 0
+    request_bytes: int = 0
+    response_bytes: int = 0
+    concurrency: int = 0
+    ewma_ms: float = 0.0
+    queue_ms: float = 0.0
+    exception: bool = False
+    retryable: bool = False
+    dst_path: str = "/"
+    dst_rps: float = 0.0
+    # temporal context (filled by DstTemporal.observe at record time)
+    lat_drift_ms: float = 0.0
+    dst_err_rate: float = 0.0
+    rate_delta: float = 0.0
+    mesh_err_rate: float = 0.0
+
+
+def _hash_path(path: str, out: np.ndarray) -> None:
+    """Signed feature hashing of the dst path into 16 buckets."""
+    col, sign = path_hash_cols(path)
+    out[col] += sign
+
+
+def featurize(fv: FeatureVector, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Encode one observation into a float32[FEATURE_DIM] vector."""
+    x = out if out is not None else np.zeros(FEATURE_DIM, dtype=np.float32)
+    x[0] = np.log1p(max(fv.latency_ms, 0.0))
+    sc = fv.status // 100
+    if 1 <= sc <= 5:
+        x[STATUS_ONEHOT_OFF + sc - 1] = 1.0
+    x[6] = 1.0 if fv.retryable else 0.0
+    x[7] = float(fv.retries)
+    x[8] = np.log1p(max(fv.request_bytes, 0))
+    x[9] = np.log1p(max(fv.response_bytes, 0))
+    x[10] = np.log1p(max(fv.concurrency, 0))
+    x[11] = np.log1p(max(fv.ewma_ms, 0.0))
+    x[12] = np.log1p(max(fv.queue_ms, 0.0))
+    x[13] = 1.0 if fv.exception else 0.0
+    _hash_path(fv.dst_path, x)
+    x[30] = np.log1p(max(fv.dst_rps, 0.0))
+    x[31] = 1.0
+    d = fv.lat_drift_ms
+    x[32] = np.sign(d) * np.log1p(abs(d))
+    # x[33]/x[34]/x[35] intentionally zero — see layout note above
+    for dim in _ABLATE:
+        x[dim] = 0.0
+    return x
+
+
+class DstTemporal:
+    """Per-dst temporal context consulted at record time.
+
+    Tracks, per dst path: a ROBUST EWMA of latency (drift = this
+    request's latency minus the EWMA *before* this sample updates it;
+    the update increment is clipped to a few deviation-scales, so a
+    sustained anomaly barely drags the baseline toward itself — drift
+    stays visible for the whole fault window and the baseline doesn't
+    overshoot negative when the fault ends), a bounded window of recent
+    error outcomes, and an EWMA of the instantaneous request rate; plus
+    one mesh-wide error window shared across dsts. All O(1) per request
+    — this runs on the data path's record hook.
+    """
+
+    def __init__(self, lat_alpha: float = 0.05, rate_alpha: float = 0.05,
+                 err_window: int = 16, mesh_err_window: int = 256,
+                 max_dsts: int = 4096, dev_clip: float = 3.0,
+                 dev_alpha: float = 0.05):
+        self._lat_alpha = lat_alpha
+        self._rate_alpha = rate_alpha
+        self._err_window = err_window
+        self._max_dsts = max_dsts
+        self._dev_clip = dev_clip
+        self._dev_alpha = dev_alpha
+        self._lat_ewma: Dict[str, float] = {}
+        self._lat_dev: Dict[str, float] = {}  # EWMA of |drift| (scale)
+        self._rate_ewma: Dict[str, float] = {}
+        self._last_ts: Dict[str, float] = {}
+        # error windows keep running sums so observe() stays O(1)
+        self._errs: Dict[str, Deque[float]] = {}
+        self._err_sums: Dict[str, float] = {}
+        self._mesh_errs: Deque[float] = collections.deque(
+            maxlen=mesh_err_window)
+        self._mesh_sum = 0.0
+
+    def observe(self, dst: str, latency_ms: float, error: bool,
+                now: float) -> Tuple[float, float, float, float]:
+        """-> (lat_drift_ms, dst_err_rate, rate_delta, mesh_err_rate),
+        each computed against state BEFORE this sample, then updates."""
+        if len(self._lat_ewma) >= self._max_dsts and \
+                dst not in self._lat_ewma:
+            # bounded cardinality: unseen dsts beyond the cap get zeros
+            mesh = (self._mesh_sum / len(self._mesh_errs)
+                    if self._mesh_errs else 0.0)
+            self._push_mesh(1.0 if error else 0.0)
+            return 0.0, 0.0, 0.0, mesh
+
+        prev_ewma = self._lat_ewma.get(dst)
+        drift = 0.0 if prev_ewma is None else latency_ms - prev_ewma
+        errs = self._errs.get(dst)
+        err_rate = (self._err_sums.get(dst, 0.0) / len(errs)
+                    if errs else 0.0)
+        mesh = (self._mesh_sum / len(self._mesh_errs)
+                if self._mesh_errs else 0.0)
+
+        last = self._last_ts.get(dst)
+        rate_delta = 0.0
+        if last is not None and now > last:
+            inst = 1.0 / (now - last)
+            prev_rate = self._rate_ewma.get(dst)
+            if prev_rate is not None and prev_rate > 0:
+                rate_delta = float(np.log((inst + 1e-6)
+                                          / (prev_rate + 1e-6)))
+                self._rate_ewma[dst] = prev_rate + self._rate_alpha * (
+                    inst - prev_rate)
+            else:
+                self._rate_ewma[dst] = inst
+
+        # robust update: the increment is winsorized at dev_clip
+        # deviation-scales so outliers (the anomalies we want to keep
+        # detecting) barely move the baseline
+        if prev_ewma is None:
+            self._lat_ewma[dst] = latency_ms
+            self._lat_dev[dst] = max(abs(latency_ms) * 0.1, 0.25)
+        else:
+            dev = self._lat_dev.get(dst, 0.25)
+            lim = self._dev_clip * max(dev, 0.25)
+            inc = min(max(drift, -lim), lim)
+            self._lat_ewma[dst] = prev_ewma + self._lat_alpha * inc
+            self._lat_dev[dst] = dev + self._dev_alpha * (
+                min(abs(drift), lim) - dev)
+        self._last_ts[dst] = now
+        if errs is None:
+            errs = collections.deque(maxlen=self._err_window)
+            self._errs[dst] = errs
+        e = 1.0 if error else 0.0
+        if len(errs) == errs.maxlen:
+            self._err_sums[dst] = self._err_sums.get(dst, 0.0) - errs[0]
+        errs.append(e)
+        self._err_sums[dst] = self._err_sums.get(dst, 0.0) + e
+        self._push_mesh(e)
+        return drift, err_rate, rate_delta, mesh
+
+    def _push_mesh(self, e: float) -> None:
+        if len(self._mesh_errs) == self._mesh_errs.maxlen:
+            self._mesh_sum -= self._mesh_errs[0]
+        self._mesh_errs.append(e)
+        self._mesh_sum += e
+
+
+def featurize_batch(fvs: Sequence[FeatureVector]) -> np.ndarray:
+    """Encode a micro-batch: float32[len(fvs), FEATURE_DIM].
+
+    Vectorized column-wise (one numpy pass per feature, not one Python
+    ``featurize`` per row): the drain path encodes thousands of rows
+    per wake, and per-row encoding was the line-rate batcher's
+    bottleneck. Bit-identical to stacking ``featurize`` per row
+    (pinned by tests/test_models.py)."""
+    n = len(fvs)
+    out = np.zeros((n, FEATURE_DIM), dtype=np.float32)
+    if n == 0:
+        return out
+    out[:, 0] = np.log1p(np.maximum(
+        [fv.latency_ms for fv in fvs], 0.0))
+    sc = np.array([fv.status for fv in fvs], np.int64) // 100
+    ok = (sc >= 1) & (sc <= 5)
+    out[np.flatnonzero(ok), STATUS_ONEHOT_OFF + sc[ok] - 1] = 1.0
+    out[:, 6] = [1.0 if fv.retryable else 0.0 for fv in fvs]
+    out[:, 7] = [float(fv.retries) for fv in fvs]
+    out[:, 8] = np.log1p(np.maximum(
+        [fv.request_bytes for fv in fvs], 0))
+    out[:, 9] = np.log1p(np.maximum(
+        [fv.response_bytes for fv in fvs], 0))
+    out[:, 10] = np.log1p(np.maximum(
+        [fv.concurrency for fv in fvs], 0))
+    out[:, 11] = np.log1p(np.maximum(
+        [fv.ewma_ms for fv in fvs], 0.0))
+    out[:, 12] = np.log1p(np.maximum(
+        [fv.queue_ms for fv in fvs], 0.0))
+    out[:, 13] = [1.0 if fv.exception else 0.0 for fv in fvs]
+    for i, fv in enumerate(fvs):
+        col, sign = path_hash_cols(fv.dst_path)
+        out[i, col] += sign
+    out[:, 30] = np.log1p(np.maximum(
+        [fv.dst_rps for fv in fvs], 0.0))
+    out[:, 31] = 1.0
+    d = np.array([fv.lat_drift_ms for fv in fvs], np.float64)
+    out[:, 32] = np.sign(d) * np.log1p(np.abs(d))
+    for dim in _ABLATE:
+        out[:, dim] = 0.0
+    return out

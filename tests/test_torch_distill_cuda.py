@@ -16,7 +16,12 @@ version, a NaN-poisoned candidate rejected with nothing published, the
 last route skipped with the bank full, fenced generations and lineage
 checked publish by publish (checks (a), (b), (d), (e)); and a 4-step
 ``distill_head`` on the card within 3e-3 of the same call on the CPU
-on every row of the route (check (c)).
+on every row of the route, both heads read through the plain forward in
+float32 (check (c); ``chip_smoke.distill_parity`` says why).
+
+Run as a script, it prints check (c)'s CPU witness, with no card::
+
+    PYTHONPATH=. python tests/test_torch_distill_cuda.py
 """
 
 import asyncio
@@ -94,3 +99,10 @@ def test_distill_head_steps_on_a_stream_of_its_own(cuda, monkeypatch):
     assert seen[0] != torch.cuda.default_stream() and seen[0] != ring
     assert np.isfinite(head.params["enc"][0]["w"]).all()
     assert DistillConfig().mk(None).device.type == "cuda"
+
+
+if __name__ == "__main__":
+    # check (c)'s CPU witness, which needs no card:
+    #   PYTHONPATH=. python tests/test_torch_distill_cuda.py
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chip_smoke.distill_witness(cfg())

@@ -311,18 +311,15 @@ class TestManager:
         run(go())
 
     def test_config_matches_the_reference(self):
-        # the manager's keys, as the reference names and defaults them;
-        # the telemeter's keys stay out until the port has a telemeter
-        telemeter = {"checkpointEveryS", "holdoutEveryBatches",
-                     "restoreOnStart"}
+        # every key, as the reference names, orders and defaults them:
+        # the manager's and the telemeter's (cadence, hold-out, restore)
         want = [(f.name, f.default) for f in
-                dataclasses.fields(jax_lifecycle.LifecycleConfig)
-                if f.name not in telemeter]
+                dataclasses.fields(jax_lifecycle.LifecycleConfig)]
         got = [(f.name, f.default) for f in
                dataclasses.fields(lifecycle.LifecycleConfig)]
         assert got == want
         with pytest.raises(TypeError):
-            lifecycle.LifecycleConfig(directory="d", restoreOnStart=False)
+            lifecycle.LifecycleConfig(directory="d", sidecarTier="primary")
 
 
 class FakeGauge:
