@@ -5,6 +5,7 @@
     python3 chip_smoke.py --mutants  # self-test of its agreement checks
     python3 chip_smoke.py --sweep    # the kernel's row tiles and breakdown
     python3 chip_smoke.py --check telemeter  # the telemeter phase alone
+    python3 chip_smoke.py --check linker     # the linker phase alone
     python3 chip_smoke.py --mutant one_rounding telemeter  # one mutant, one check
 
 Builds every CUDA kernel of the scoring path from the sources in this
@@ -35,17 +36,29 @@ accrual policy tightening on the faulted routes), part B at the
 reference's cadence (fits, a lifecycle with cycles by hand, a distill
 block, spans, a weight sink; launches per batch, gate and retrain, the
 republished blob's CRC in the manifest, hold-out batches kept from
-fits); and its times. Prints the card, a JSON line of kernel and
+fits); and its times. Then the linker phase: the port's HTTP linker
+(``load_linker`` from JSON text: an ``io.l5d.fs`` namer over 40
+destinations of 2 replicas, the ``io.l5d.jaxAnomaly`` telemeter at the
+reference's defaults, its ``run()`` task on the router's event loop)
+proxying 64 keep-alive connections from load processes to backend
+processes, 4 destinations faulted in a labeled window: part A without
+failure accrual (every calm request routed right, every recorded row
+scored with no drop, one launch a batch, the board against a plain fold,
+AUC, faulted destinations above calm ones), part B with the
+``io.l5d.jaxAnomaly`` accrual (faulted endpoints removed, calm ones
+not), part C with no telemetry block (the router's own cost); and its
+times. Prints the card, a JSON line of kernel and
 service numbers, one of the train phase's, one of the distill
-phase's, one of the telemeter phase's, and as its last line
+phase's, one of the telemeter phase's, one of the linker phase's, and
+as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; with no CUDA device, or
 outside the repository, it exits non-zero before printing any result.
 Imports nothing of JAX.
 
 ``--mutants`` builds deliberately broken copies of the kernel in a
 temporary copy of the port and runs the kernel and served checks
-against each in a fresh interpreter; it fails unless every check fails
-on every mutant.
+against each, and the linker phase against ``LINKER_MUTANT``, in a fresh
+interpreter; it fails unless every check fails on its mutant.
 
 ``--sweep`` builds variants of the kernel in temporary copies and times
 each at ``TIMED_ROWS``, one after another on this card: the row tiles
@@ -2118,6 +2131,571 @@ async def telemeter_phase(cfg, seed: int = 8, dev: str = "cuda"):
     return res, res["part_a"]["launches"] + res["part_b"]["launches"]
 
 
+# -- linker phase: a request through the port's HTTP router ---------------
+# The port's main path behind real sockets: a load client's request ->
+# HttpServer -> the io.l5d.header.token identifier -> the Dtab and the
+# io.l5d.fs namer -> the path stack (classifier, deadline, retries) -> the
+# client stack (balancer, failure accrual a replica) -> a backend; on the
+# way out the telemeter's recorder filter takes the request's row, which
+# the line-rate micro-batcher scores through the kernel into the
+# ScoreBoard that the io.l5d.jaxAnomaly accrual reads. Backends and the
+# load client run in child processes; only the router and the telemeter
+# share this process's event loop, as in a deployment.
+LINKER_REPLICAS = 2        # replicas a destination, TELE_ROUTES of them
+LINKER_CONNS = 64          # keep-alive client connections
+LINKER_LOAD_PROCS = 2      # load client processes sharing the connections
+LINKER_BACKEND_PROCS = 2   # backend processes sharing the destinations
+LINKER_WARMUP = 8192       # calm requests, training on every batch in part A
+LINKER_WINDOW = 16384      # labeled mixed requests, training off in part A
+LINKER_ERROR_RATE = 0.9    # the reference test's FaultSpec
+LINKER_FAULT_MS = 40.0
+LINKER_BODY = 200          # response bytes, as the reference test's backend
+LINKER_AUC_MIN = 0.9
+LINKER_SETTLE_S = 60.0
+
+
+def linker_backends(conn, dsts, flag, seed: int) -> None:
+    """Child process: one HTTP server a replica of each destination index
+    in ``dsts``; each answers ``tele-DD/R`` padded to LINKER_BODY bytes.
+    While ``flag`` is set, the first TELE_FAULTED destinations inject the
+    reference test's faults (LINKER_FAULT_MS, then 503 at
+    LINKER_ERROR_RATE), and every response carries the fault label."""
+    import random
+
+    from linkerd_tpu_torch.protocol.http.message import Response
+    from linkerd_tpu_torch.protocol.http.server import serve
+    from linkerd_tpu_torch.router.service import FnService
+
+    rng = random.Random(seed)
+
+    def backend(name: str, faulted: bool):
+        body = name.encode().ljust(LINKER_BODY, b"x")
+
+        async def handle(req):
+            if faulted and flag.value:
+                await asyncio.sleep(LINKER_FAULT_MS / 1e3)
+                rsp = (Response(503, body=b"injected fault")
+                       if rng.random() < LINKER_ERROR_RATE
+                       else Response(200, body=body))
+                rsp.headers.set("l5d-fault-label", "1")
+                return rsp
+            rsp = Response(200, body=body)
+            rsp.headers.set("l5d-fault-label", "0")
+            return rsp
+
+        return FnService(handle)
+
+    async def main():
+        servers = [await serve(backend(f"tele-{d:02d}/{r}", d < TELE_FAULTED))
+                   for d in dsts for r in range(LINKER_REPLICAS)]
+        conn.send([s.bound_port for s in servers])
+        await asyncio.get_running_loop().run_in_executor(None, conn.recv)
+        for s in servers:
+            await s.close()
+
+    asyncio.run(main())
+
+
+async def linker_connection(port: int, plan, out: dict, off: int) -> None:
+    """One keep-alive connection sending ``plan``'s destinations in turn,
+    each by its Host header; stores status, right replica and ms."""
+    from linkerd_tpu_torch.protocol.http.client import HttpClient
+    from linkerd_tpu_torch.protocol.http.message import Request
+
+    client = HttpClient("127.0.0.1", port, max_connections=1)
+    try:
+        for i, d in enumerate(plan):
+            req = Request(uri="/")
+            req.headers.set("Host", f"tele-{d:02d}")
+            t0 = time.perf_counter()
+            try:
+                rsp = await client(req)
+            except Exception:  # noqa: BLE001 — counted as status -1
+                status, body = -1, b""
+            else:
+                status, body = rsp.status, rsp.body
+            out["ms"][off + i] = (time.perf_counter() - t0) * 1e3
+            out["status"][off + i] = status
+            out["right"][off + i] = body.startswith(f"tele-{d:02d}/".encode())
+    finally:
+        await client.close()
+
+
+def linker_load(conn) -> None:
+    """Child process: on each ``(port, plans)`` from ``conn``, one
+    connection a plan, all at once; sends back every request's
+    destination, status, whether a replica of its destination answered,
+    its ms, and the wall seconds. ``None`` ends it."""
+    while True:
+        msg = conn.recv()
+        if msg is None:
+            return
+        port, plans = msg
+        n = sum(len(p) for p in plans)
+        out = {"dst": np.concatenate(plans).astype(np.int16),
+               "status": np.zeros(n, np.int16), "right": np.zeros(n, bool),
+               "ms": np.zeros(n)}
+        offs = np.cumsum([0] + [len(p) for p in plans])
+
+        async def run():
+            t0 = time.perf_counter()
+            await asyncio.gather(*(linker_connection(port, p, out, int(o))
+                                   for p, o in zip(plans, offs)))
+            return time.perf_counter() - t0
+
+        out["wall"] = asyncio.run(run())
+        conn.send(out)
+
+
+def linker_plans(rng, n: int):
+    """``n`` requests over the destinations, uniform, split over the
+    LINKER_CONNS connections."""
+    return np.array_split(rng.integers(TELE_ROUTES, size=n), LINKER_CONNS)
+
+
+async def linker_traffic(loads, port: int, plans) -> dict:
+    """The load processes' share of ``plans`` at once; waits for every
+    answer off the event loop, so the router keeps serving."""
+    loop = asyncio.get_running_loop()
+    shares = np.array_split(np.arange(len(plans)), len(loads))
+    for (conn, _), idx in zip(loads, shares):
+        conn.send((port, [plans[i] for i in idx]))
+    outs = await asyncio.gather(*(loop.run_in_executor(None, conn.recv)
+                                  for conn, _ in loads))
+    res = {k: np.concatenate([o[k] for o in outs])
+           for k in ("dst", "status", "right", "ms")}
+    res["wall"] = max(o["wall"] for o in outs)
+    return res
+
+
+def linker_traffic_checks(res: dict, what: str, faults_on: bool) -> dict:
+    """Every calm request answered 200 by a replica of its destination;
+    returns requests/s and ms percentiles."""
+    calm = res["dst"] >= (TELE_FAULTED if faults_on else 0)
+    wrong = calm & ~((res["status"] == 200) & res["right"])
+    if wrong.any():
+        i = int(np.flatnonzero(wrong)[0])
+        raise AssertionError(
+            f"linker {what}: {int(wrong.sum())} calm requests misrouted "
+            f"or failed, e.g. tele-{res['dst'][i]:02d} -> status "
+            f"{res['status'][i]}")
+    ms = res["ms"]
+    return {"requests": len(ms), "requests_per_s": len(ms) / res["wall"],
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "calm_p50_ms": float(np.percentile(ms[calm], 50)),
+            "calm_p99_ms": float(np.percentile(ms[calm], 99))}
+
+
+class LinkerTap:
+    """Wraps, on the linker's telemeter, what the phase reads: each batch
+    taken (its rows' labels), each score call's rows and scores, each
+    board fold in order, the host ms of ``_score_and_publish`` and the
+    batches in flight."""
+
+    def __init__(self, tele):
+        self.batches, self.scored, self.folds = [], [], []
+        self.publish_ms, self.inflight = [], 0
+        scorer, board = tele._ensure_scorer(), tele.board
+        score, fold = scorer.score, board.update_batch
+        take, publish = tele._take_batch, tele._score_and_publish
+
+        def taking():
+            b = take()
+            if b is not None:
+                self.batches.append(b)
+            return b
+
+        async def scoring(x):
+            s = await score(x)
+            self.scored.append((x, s))
+            return s
+
+        def folding(dsts, scores, endpoints=None):
+            self.folds.append((list(dsts), scores, endpoints))
+            return fold(dsts, scores, endpoints=endpoints)
+
+        async def publishing(s, b):
+            self.inflight += 1
+            t0 = time.perf_counter()
+            try:
+                return await publish(s, b)
+            finally:
+                self.publish_ms.append((time.perf_counter() - t0) * 1e3)
+                self.inflight -= 1
+
+        scorer.score, board.update_batch = scoring, folding
+        tele._take_batch, tele._score_and_publish = taking, publishing
+
+    async def settle(self, tele, task, what: str) -> None:
+        """Until every recorded row is scored and published."""
+        t0 = time.monotonic()
+        while (tele.ring or self.inflight
+               or tele._scored.value != tele._requests.value):
+            if task.done():
+                task.result()
+                raise AssertionError(f"linker {what}: run() ended early")
+            if time.monotonic() - t0 > LINKER_SETTLE_S:
+                raise AssertionError(
+                    f"linker {what}: {tele._scored.value} of "
+                    f"{tele._requests.value} rows scored after "
+                    f"{LINKER_SETTLE_S} s")
+            await asyncio.sleep(1e-3)
+
+
+class AccrualTap:
+    """Counts, per endpoint port, the failures failure accrual records and
+    the failures before each removal (an endpoint marked dead); undone by
+    ``close``."""
+
+    def __init__(self):
+        from linkerd_tpu_torch.router.failure_accrual import (
+            FailureAccrualService,
+        )
+
+        self.cls, self.orig = FailureAccrualService, \
+            FailureAccrualService._on_failure
+        self.failures, self.removals = {}, {}
+        tap = self
+
+        def on_failure(svc, probing):
+            port = svc._svc.port
+            tap.failures[port] = tap.failures.get(port, 0) + 1
+            alive = svc._dead_until is None
+            tap.orig(svc, probing)
+            if alive and svc._dead_until is not None:
+                tap.removals.setdefault(port, []).append(tap.failures[port])
+
+        FailureAccrualService._on_failure = on_failure
+
+    def close(self) -> None:
+        self.cls._on_failure = self.orig
+
+
+def linker_config(disco: Path, telemetry: bool, accrual: str,
+                  train_every: int) -> str:
+    """The linker's config as JSON text: one HTTP router over the fs
+    namer, and with ``telemetry`` the io.l5d.jaxAnomaly telemeter at the
+    reference's defaults (the reference test's reconWeight)."""
+    cfg = {"routers": [{
+        "protocol": "http", "label": "tele",
+        "identifier": {"kind": "io.l5d.header.token"},
+        "dtab": "/svc => /#/io.l5d.fs ;",
+        "servers": [{"port": 0}],
+        "client": {"failureAccrual": {"kind": accrual}}}],
+        "namers": [{"kind": "io.l5d.fs", "rootDir": str(disco)}]}
+    if telemetry:
+        cfg["telemetry"] = [{"kind": "io.l5d.jaxAnomaly",
+                             "trainEveryBatches": train_every,
+                             "reconWeight": 1.0}]
+    return json.dumps(cfg)
+
+
+def batch_sizes(tap) -> dict:
+    n = np.array([len(b["x"]) for b in tap.batches])
+    return {"batches": len(n), "mean": float(n.mean()),
+            **{f"p{q}": float(np.percentile(n, q)) for q in (10, 50, 90, 99)},
+            "max": int(n.max())}
+
+
+def linker_gap_report(got, plain, x, snap, labels, dev: str) -> dict:
+    """How kernel and plain scores of the window's rows part: the largest
+    gap, the rows past ROW_TOL and 1e-3, and the five widest gaps with
+    each row's scores, label and largest z-score; beside it, a witness
+    of the same model's plain version on the CPU against the card's
+    (another summation order). Fails if more than ROW_SHARE of the rows
+    are past ROW_TOL."""
+    gap = np.abs(got - plain)
+    cpu = plain_scores(snap, x, "cpu") if dev != "cpu" else plain
+    wit = np.abs(cpu - plain)
+    z = np.abs((x - snap.mu) / np.sqrt(snap.var + 1e-2)).max(axis=1)
+    top = np.argsort(gap)[::-1][:5]
+    out = {"kernel_vs_plain_max": float(gap.max()),
+           "rows_past_row_tol": int((gap > ROW_TOL).sum()),
+           "rows_past_1e-3": int((gap > 1e-3).sum()),
+           "cpu_plain_vs_card_plain_max": float(wit.max()),
+           "cpu_rows_past_row_tol": int((wit > ROW_TOL).sum()),
+           "widest": [{"gap": float(gap[i]), "kernel": float(got[i]),
+                       "plain": float(plain[i]), "cpu_plain": float(cpu[i]),
+                       "label": float(labels[i]), "max_abs_z": float(z[i])}
+                      for i in top]}
+    print(f"linker A: kernel vs plain max|diff| {out['kernel_vs_plain_max']:.3e}, "
+          f"{out['rows_past_row_tol']} of {len(gap)} rows past {ROW_TOL}, "
+          f"{out['rows_past_1e-3']} past 1e-3; the plain version on the CPU "
+          f"vs the card's: max {out['cpu_plain_vs_card_plain_max']:.3e}, "
+          f"{out['cpu_rows_past_row_tol']} rows past {ROW_TOL}; widest: "
+          + "; ".join(f"{w['gap']:.3e} (kernel {w['kernel']:.6f}, plain "
+                      f"{w['plain']:.6f}, CPU plain {w['cpu_plain']:.6f}, "
+                      f"label {w['label']:.0f}, max|z| {w['max_abs_z']:.1f})"
+                      for w in out["widest"]))
+    if out["rows_past_row_tol"] > ROW_SHARE * len(gap):
+        raise AssertionError(
+            f"linker A: kernel vs plain: {out['rows_past_row_tol']} of "
+            f"{len(gap)} rows past {ROW_TOL} > {ROW_SHARE:.0%}")
+    return out
+
+
+def linker_board_check(tele, tap, start: int, plain_by_id: dict) -> float:
+    """The board against a fresh ScoreBoard folded in the same order: with
+    the kernel's scores before fold ``start`` and the plain version's
+    from it on. Returns the largest gap."""
+    from linkerd_tpu_torch.telemetry.anomaly import ScoreBoard
+
+    fresh = ScoreBoard(ttl_s=tele.cfg.scoreTtlSecs)
+    for i, (dsts, s, eps) in enumerate(tap.folds):
+        fresh.update_batch(dsts, s if i < start else plain_by_id[id(s)],
+                           endpoints=eps)
+    got, want = tele.board.scores.sample(), fresh.scores.sample()
+    got_ep, want_ep = (tele.board.effective_endpoint_scores(),
+                       fresh.effective_endpoint_scores())
+    if sorted(got) != sorted(want) or sorted(got_ep) != sorted(want_ep):
+        raise AssertionError("linker A: board keys differ from the fold")
+    return max(max(abs(got[k] - want[k]) for k in got),
+               max(abs(got_ep[k] - want_ep[k]) for k in got_ep))
+
+
+async def linker_part(part: str, text: str, loads, flag, plans, dev: str):
+    """One linker from ``text`` driven with the warm-up, then the labeled
+    window with faults on. Part A turns training off for the window and
+    holds its scores, board and AUC against the plain version; part B
+    reads failure accrual; part C has no telemeter."""
+    from linkerd_tpu_torch.core.tasks import monitor
+    from linkerd_tpu_torch.lifecycle.promote import auc
+    from linkerd_tpu_torch.linker import load_linker
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+
+    linker = load_linker(text, device=dev)
+    await linker.start()
+    port = linker.routers[0].server_ports[0]
+    tele = linker.telemeters[0] if linker.telemeters else None
+    tap = accrual = task = None
+    out = {}
+    try:
+        if tele is not None:
+            tap = LinkerTap(tele)
+            task = monitor(asyncio.create_task(tele.run()),
+                           what=f"telemeter-{type(tele).__name__}")
+        if part == "B":
+            accrual = AccrualTap()
+        fused_anomaly_scores.launches = 0
+        flag.value = 0
+        warm = await linker_traffic(loads, port, plans[0])
+        if tele is not None:
+            await tap.settle(tele, task, f"{part} warm-up")
+        snap = start = None
+        if part == "A":
+            tele.cfg.trainEveryBatches = 0
+            snap, start, first = tele._scorer.snapshot(), len(tap.folds), \
+                len(tap.batches)
+        flag.value = 1
+        window = await linker_traffic(loads, port, plans[1])
+        if tele is not None:
+            await tap.settle(tele, task, f"{part} window")
+        flag.value = 0
+        launches = fused_anomaly_scores.launches
+        out["warmup"] = linker_traffic_checks(warm, f"{part} warm-up", False)
+        out["window"] = linker_traffic_checks(window, f"{part} window", True)
+        out["router_ms"] = linker_stages(linker)
+        if tele is None:
+            return out, launches
+        flat = tele.metrics.flatten()
+        bad = {k: flat[f"anomaly/{k}"] for k in (
+            "score_failures", "dropped_batches", "degraded")
+            if flat[f"anomaly/{k}"]}
+        recorded, scored = flat["anomaly/requests_total"], \
+            flat["anomaly/scored_total"]
+        drops = recorded - scored - len(tele.ring)
+        sent = len(warm["ms"]) + len(window["ms"])
+        print(f"linker {part}: {sent} requests, {recorded} recorded, "
+              f"{scored} scored, ring drops {drops}")
+        if bad or drops or scored != recorded or recorded != sent:
+            raise AssertionError(
+                f"linker {part}: {sent} sent, {recorded} recorded, {scored} "
+                f"scored, {drops} dropped, {bad}")
+        batches = flat["anomaly/batches"]
+        expect = 0 if dev == "cpu" else batches
+        if launches != expect or len(tap.scored) != batches:
+            raise AssertionError(
+                f"linker {part}: {launches} kernel launches, {batches} "
+                f"batches, {len(tap.scored)} score calls")
+        pub = np.asarray(tap.publish_ms)
+        out.update(launches=launches, batches=batches,
+                   batch_sizes=batch_sizes(tap),
+                   score_and_publish_p50_ms=float(np.percentile(pub, 50)),
+                   score_and_publish_p99_ms=float(np.percentile(pub, 99)))
+        routes = tele_routes()
+        board = {d: tele.board.score_of(d) for d in routes}
+        faulted = routes[:TELE_FAULTED]
+        out["board_levels"] = {
+            "faulted_min": min(board[d] for d in faulted),
+            "calm_max": max(board[d] for d in routes[TELE_FAULTED:])}
+        if part == "A":
+            xs = [x for x, _ in tap.scored[start:]]
+            got = np.concatenate([s for _, s in tap.scored[start:]])
+            plain = plain_scores(snap, np.concatenate(xs), dev)
+            cuts = np.cumsum([len(x) for x in xs])[:-1]
+            plain_by_id = {id(s): p for (_, s), p in zip(
+                tap.scored[start:], np.split(plain, cuts))}
+            gap = linker_board_check(tele, tap, start, plain_by_id)
+            print(f"linker A: board vs plain fold {gap:.3e}")
+            if gap > TOL:
+                raise AssertionError(f"linker A: board off the plain fold "
+                                     f"by {gap} > {TOL}")
+            wb = tap.batches[first:]
+            rows = linker_gap_report(
+                got, plain, np.concatenate(xs), snap,
+                np.concatenate([b["labels"] for b in wb]), dev)
+            labels = np.concatenate([b["labels"] for b in wb])
+            mask = np.concatenate([b["mask"] for b in wb])
+            if len(labels) != len(got) or mask.min() < 1:
+                raise AssertionError("linker A: window rows unlabeled")
+            got_auc = auc(labels.tolist(), got.tolist())
+            if not got_auc >= LINKER_AUC_MIN:
+                raise AssertionError(f"linker A: AUC {got_auc} < "
+                                     f"{LINKER_AUC_MIN}")
+            lv = out["board_levels"]
+            if not lv["faulted_min"] > lv["calm_max"]:
+                raise AssertionError(f"linker A: board {board}")
+            out.update(board_vs_plain_fold_max=gap, kernel_vs_plain=rows,
+                       kernel_vs_plain_max=rows["kernel_vs_plain_max"],
+                       window_rows=len(got), positives=int(labels.sum()),
+                       auc=got_auc)
+        if part == "B":
+            ports = linker_endpoints(linker)
+            removed = {f"{d}/{r}": accrual.removals.get(p, [])
+                       for (d, r), p in ports.items()}
+            bad_calm = {k: v for k, v in removed.items()
+                        if v and k.rsplit("/", 1)[0] not in faulted}
+            kept = [k for k, v in removed.items()
+                    if not v and k.rsplit("/", 1)[0] in faulted]
+            if bad_calm or kept:
+                raise AssertionError(f"linker B: calm endpoints removed "
+                                     f"{bad_calm}; faulted kept {kept}")
+            out["failures_before_first_removal"] = {
+                k: v[0] for k, v in removed.items() if v}
+            out["removals"] = {k: len(v) for k, v in removed.items() if v}
+        return out, launches
+    finally:
+        if accrual is not None:
+            accrual.close()
+        if task is not None:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        await linker.close()
+
+
+def linker_stages(linker) -> dict:
+    """The router's own ms over the part (warm-up and window), from its
+    metrics: the server's request latency and the stage timer's
+    identification, binding, service and total, p50 and p99 each."""
+    flat = linker.metrics.flatten()
+    out = {}
+    for name, key in (("server", "rt/tele/server/request_latency_ms"),
+                      *((s, f"rt/tele/stage/{s}_ms") for s in (
+                          "identification", "binding", "service",
+                          "total"))):
+        if f"{key}/p50" in flat:
+            out[name] = {q: flat[f"{key}/{q}"] for q in ("p50", "p99")}
+    return out
+
+
+def linker_endpoints(linker) -> dict:
+    """(destination, replica) -> backend port, from the fs namer's
+    directory."""
+    root = Path(linker.spec.namers[0]["rootDir"])
+    out = {}
+    for d in tele_routes():
+        name = d.rsplit("/", 1)[1]
+        for r, line in enumerate((root / name).read_text().splitlines()):
+            out[(d, r)] = int(line.split()[1])
+    return out
+
+
+async def linker_phase(seed: int = 12, dev: str = "cuda"):
+    """Backends and load clients in child processes (spawn), then parts A
+    (failure accrual none, training during the warm-up only), B
+    (io.l5d.jaxAnomaly accrual at the reference's cadence) and C (no
+    telemetry block: the router's own cost) on the same traffic. Returns
+    the results and the kernel's launches on parts A and B."""
+    import multiprocessing
+
+    mp = multiprocessing.get_context("spawn")
+    flag = mp.RawValue("b", 0)
+    rng = np.random.default_rng(seed)
+    plans = (linker_plans(rng, LINKER_WARMUP), linker_plans(rng, LINKER_WINDOW))
+    loop = asyncio.get_running_loop()
+    procs, backs, loads = [], [], []
+    try:
+        for i, dsts in enumerate(np.array_split(np.arange(TELE_ROUTES),
+                                                LINKER_BACKEND_PROCS)):
+            ours, theirs = mp.Pipe()
+            p = mp.Process(target=linker_backends, daemon=True,
+                           args=(theirs, dsts.tolist(), flag, seed + i))
+            p.start()
+            procs.append(p)
+            backs.append((ours, dsts))
+        for _ in range(LINKER_LOAD_PROCS):
+            ours, theirs = mp.Pipe()
+            p = mp.Process(target=linker_load, args=(theirs,), daemon=True)
+            p.start()
+            procs.append(p)
+            loads.append((ours, p))
+        ports = await asyncio.gather(*(loop.run_in_executor(None, c.recv)
+                                       for c, _ in backs))
+        with tempfile.TemporaryDirectory() as disco:
+            disco = Path(disco)
+            for (_, dsts), pp in zip(backs, ports):
+                for j, d in enumerate(dsts):
+                    (disco / f"tele-{d:02d}").write_text("".join(
+                        f"127.0.0.1 {pp[j * LINKER_REPLICAS + r]}\n"
+                        for r in range(LINKER_REPLICAS)))
+            res = {}
+            res["part_a"], la = await linker_part(
+                "A", linker_config(disco, True, "none", 1), loads, flag,
+                plans, dev)
+            res["part_b"], lb = await linker_part(
+                "B", linker_config(disco, True, "io.l5d.jaxAnomaly", 8),
+                loads, flag, plans, dev)
+            res["no_telemetry"], _ = await linker_part(
+                "C", linker_config(disco, False, "none", 0), loads, flag,
+                plans, dev)
+    finally:
+        for conn, _ in backs + loads:
+            try:
+                conn.send(None)
+            except OSError:
+                pass
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    a, b, c = res["part_a"], res["part_b"], res["no_telemetry"]
+    print(f"linker, seed {seed}: {TELE_ROUTES} destinations x "
+          f"{LINKER_REPLICAS} replicas, {LINKER_CONNS} connections; part A "
+          f"{a['launches']} launches for {a['batches']} batches, kernel vs "
+          f"plain max|diff| {a['kernel_vs_plain_max']:.3e}, board vs plain "
+          f"fold {a['board_vs_plain_fold_max']:.3e}, AUC {a['auc']:.4f}; "
+          f"part B {b['launches']} launches, failures before first removal "
+          f"{b['failures_before_first_removal']}")
+    for name, r in (("A", a), ("B", b), ("C no telemetry", c)):
+        for w in ("warmup", "window"):
+            t = r[w]
+            print(f"linker {name} {w}: {t['requests_per_s']:.0f} requests/s, "
+                  f"p50 {t['p50_ms']:.3f} ms, p99 {t['p99_ms']:.3f} ms "
+                  f"(calm p50 {t['calm_p50_ms']:.3f}, p99 "
+                  f"{t['calm_p99_ms']:.3f})")
+        print(f"linker {name}: the router's own ms (p50/p99): " + ", ".join(
+            f"{k} {v['p50']:.3f}/{v['p99']:.3f}"
+            for k, v in r["router_ms"].items()))
+        if "batch_sizes" in r:
+            print(f"linker {name}: batch sizes {r['batch_sizes']}, "
+                  f"_score_and_publish p50 "
+                  f"{r['score_and_publish_p50_ms']:.3f} ms p99 "
+                  f"{r['score_and_publish_p99_ms']:.3f} ms")
+    return res, a["launches"] + b["launches"]
+
+
 # Broken kernels the checks must catch: (line in score_mlp.cu, its
 # replacement). A dropped bias, a neighbouring column's bias, one bf16
 # rounding of a layer instead of two, the error taken against the bf16
@@ -2151,10 +2729,12 @@ BREAKDOWN = {
     "no_products": ("    if (TILES > 0) {", "    if (false) {"),
 }
 CHECKS = ("kernel", "served")  # what --mutants runs on every mutant
+LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker phase
+PHASES = ("telemeter", "linker")  # phases --check and --mutant also take
 
 
 def run_check(which: str) -> int:
-    """One agreement check alone (or the telemeter phase), against the
+    """One agreement check alone (or the telemeter or linker phase), against the
     kernel this checkout builds: exits non-zero with an AssertionError
     if it disagrees."""
     from linkerd_tpu_torch.models.anomaly import AnomalyModelConfig
@@ -2165,6 +2745,14 @@ def run_check(which: str) -> int:
         check_kernel(cfg, rng)
     elif which == "served":
         asyncio.run(drive_service(cfg, rng))
+    elif which == "linker":
+        from linkerd_tpu_torch.ops import _build
+
+        _build.build("score_mlp")  # before the event loop serves
+        linker, _ = asyncio.run(linker_phase())
+        name, _, limit = card_line().partition(",")
+        print(json.dumps({"linker": linker, "card": name.strip(),
+                          "power_limit": limit.strip()}))
     else:
         asyncio.run(telemeter_phase(cfg))
     return 0
@@ -2214,8 +2802,9 @@ def check_mutant(name: str, which: str) -> int:
 
 
 def check_mutants() -> int:
-    """Every check must fail on every mutant, by its own assertion (a
-    build failure or a crash is not a catch)."""
+    """Every check must fail on every mutant, and the linker phase on
+    LINKER_MUTANT, by its own assertion (a build failure or a crash is
+    not a catch)."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for name, (line, broken) in MUTANTS.items():
@@ -2226,6 +2815,7 @@ def check_mutants() -> int:
             results = list(pool.map(lambda n: run_mutant(n, "kernel", tmp),
                                     MUTANTS))
         results += [run_mutant(n, "served", tmp) for n in MUTANTS]
+        results.append(run_mutant(LINKER_MUTANT, "linker", tmp))
     missed = []
     for name, which, rc, last in results:
         print(f"mutant {name}, {which} check: "
@@ -2374,10 +2964,10 @@ def main() -> int:
     if args in (["--time"], ["--time-only"]):
         return run_timing(check=args == ["--time"])
     if len(args) == 2 and args[0] == "--check" and \
-            args[1] in CHECKS + ("telemeter",):
+            args[1] in CHECKS + PHASES:
         return run_check(args[1])
     if len(args) == 3 and args[0] == "--mutant" and args[1] in MUTANTS \
-            and args[2] in CHECKS + ("telemeter",):
+            and args[2] in CHECKS + PHASES:
         return check_mutant(args[1], args[2])
     if args:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
@@ -2431,6 +3021,7 @@ def main() -> int:
     train, train_launches = asyncio.run(train_phase(cfg, rng))
     distill, distill_launches = asyncio.run(distill_phase(cfg))
     telemeter, telemeter_launches = asyncio.run(telemeter_phase(cfg))
+    linker, linker_launches = asyncio.run(linker_phase())
     telemeter["recorder"] = recorder_us()
     print(f"recorder filter: {telemeter['recorder']['recorder_us']:.2f} us "
           f"a request, the downstream alone "
@@ -2457,7 +3048,8 @@ def main() -> int:
         "launches": launches,
         "launches_by_phase": dict(serve=launches, **train_launches,
                                   distill=distill_launches,
-                                  telemeter=telemeter_launches),
+                                  telemeter=telemeter_launches,
+                                  linker=linker_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -2476,6 +3068,8 @@ def main() -> int:
     print(json.dumps({"distill": distill, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"telemeter": telemeter, "card": name.strip(),
+                      "power_limit": limit.strip()}))
+    print(json.dumps({"linker": linker, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

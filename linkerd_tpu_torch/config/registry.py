@@ -1,15 +1,20 @@
-"""Plugin registry of the port: (category, kind) -> config class.
+"""Plugin registry: (category, kind) -> config class: a copy of
+``linkerd_tpu/config/registry.py``.
 
-``register``, ``lookup`` and ``ConfigError`` of
-``linkerd_tpu/config/registry.py``, over a registry of the port's own:
-the port's config classes register here under the reference's category
-and kind names (``telemeter`` / ``io.l5d.jaxAnomaly``), never in the
-reference's registry.
+Reference parity: LoadService/META-INF SPI discovery + the unique-kind
+enforcement in Parser.scala:68-90. ``CATEGORIES`` is the authoritative
+inventory of every category actually registered in this tree (protocols
+are wired by the linker directly, not through the registry): the SPI
+kinds the reference Linker loads (Linker.scala:64-75) with h1/h2 split
+identifier/classifier categories, plus namerd's dtab storage and
+control-plane iface categories. The l5dlint ``config-registry`` rule
+cross-checks every ``@register`` call against this tuple, so a new
+category must be declared here before it can register kinds.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterable, Optional, Tuple, Type
 
 
 class ConfigError(Exception):
@@ -18,8 +23,17 @@ class ConfigError(Exception):
 
 _REGISTRY: Dict[str, Dict[str, type]] = {}
 
+CATEGORIES = (
+    "namer", "interpreter", "transformer",
+    "identifier", "h2identifier",      # h1 / h2 request identification
+    "classifier", "h2classifier",      # h1 / h2 response classification
+    "telemeter", "announcer", "failureAccrual", "logger",
+    "dtabStore", "namerdIface",        # namerd storage + control ifaces
+)
 
-def register(category: str, kind: str) -> Callable[[type], type]:
+
+def register(category: str, kind: str, *, experimental: bool = False,
+             aliases: Iterable[str] = ()) -> Callable[[type], type]:
     """Class decorator registering a config class for ``kind`` in ``category``.
 
     Kind ids must be unique within a category (duplicate registration is a
@@ -28,12 +42,14 @@ def register(category: str, kind: str) -> Callable[[type], type]:
 
     def deco(cls: type) -> type:
         cat = _REGISTRY.setdefault(category, {})
-        if kind in cat and cat[kind] is not cls:
-            raise ConfigError(
-                f"duplicate kind {kind!r} in category {category!r}: "
-                f"{cat[kind].__name__} vs {cls.__name__}")
-        cat[kind] = cls
+        for k in (kind, *aliases):
+            if k in cat and cat[k] is not cls:
+                raise ConfigError(
+                    f"duplicate kind {k!r} in category {category!r}: "
+                    f"{cat[k].__name__} vs {cls.__name__}")
+            cat[k] = cls
         cls.kind = kind
+        cls.experimental = experimental
         return cls
 
     return deco
@@ -46,3 +62,16 @@ def lookup(category: str, kind: str) -> type:
         known = sorted(_REGISTRY.get(category, ()))
         raise ConfigError(
             f"unknown {category} kind {kind!r}; known kinds: {known}") from None
+
+
+def kinds(category: str) -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY.get(category, ())))
+
+
+def registered_categories() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def clear_category(category: str) -> None:
+    """Test helper: drop all registrations in a category."""
+    _REGISTRY.pop(category, None)

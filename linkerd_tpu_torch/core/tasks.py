@@ -1,16 +1,20 @@
-"""Owned background tasks: ``spawn`` and ``monitor`` from
+"""Owned background tasks: spawn-with-reference + failure logging: a copy of
 ``linkerd_tpu/core/tasks.py``.
 
 ``asyncio.create_task`` holds only a weak reference to the task — a
 fire-and-forget spawn can be garbage-collected mid-flight, and an
 exception inside it surfaces only at GC time through the loop's
-exception handler (i.e. never, in practice).
+exception handler (i.e. never, in practice). On the data plane that
+turns a dead h2 window pump or a failed channel close into a silent
+wedge. The l5dlint ``task-leak`` rule (tools/analysis) rejects dropped
+spawn results; this module is the sanctioned fix:
 
 - ``spawn(coro, what=...)``  — create the task, hold a strong reference
   in a module-level registry until it completes, and log non-cancelled
   exceptions with the ``what`` label.
 - ``monitor(task, what=...)`` — attach the same failure logging to a
-  task whose reference the caller already holds.
+  task whose reference the caller already holds (long-lived loops whose
+  crash should be loud even though close() cancels them).
 """
 
 from __future__ import annotations
@@ -53,3 +57,8 @@ def monitor(task: "asyncio.Task", *, what: str) -> "asyncio.Task":
     """Attach failure logging to an already-owned task and return it."""
     task.add_done_callback(_on_done(what))
     return task
+
+
+def pending_count() -> int:
+    """Registry depth (observability / test hook)."""
+    return len(_BACKGROUND)

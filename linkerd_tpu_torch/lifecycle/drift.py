@@ -31,8 +31,8 @@ _VAR_FLOOR = 1e-2  # matches models.anomaly.normalize_features
 class DriftMonitor:
     """Running feature/score population stats vs. a reference snapshot.
 
-    ``node`` is any scope with ``gauge(name)`` returning an object with
-    ``set(value)`` (a metrics tree scope); pass None to keep no gauges.
+    ``node`` is a MetricsTree scope (gauges register under it); pass None
+    for registry-less use (unit tests, standalone evaluation).
     """
 
     def __init__(self, node=None, momentum: float = 0.05):
