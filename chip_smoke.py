@@ -6,10 +6,13 @@
     python3 chip_smoke.py --sweep    # the kernel's row tiles and breakdown
     python3 chip_smoke.py --check telemeter  # the telemeter phase alone
     python3 chip_smoke.py --check linker     # the linker phase alone
+    python3 chip_smoke.py --check fastpath   # the fastpath phase alone
     python3 chip_smoke.py --mutant one_rounding telemeter  # one mutant, one check
+    python3 chip_smoke.py --witness  # the kernel's sums against exact ones
 
-Builds every CUDA kernel of the scoring path from the sources in this
-checkout, holds each against its plain PyTorch version on the card,
+Builds every CUDA kernel of the scoring path, and the native engine
+(``native/`` through ``linkerd_tpu_torch/native/_build.py``), from the
+sources in this checkout, holds each against its plain PyTorch version on the card,
 drives the scorer sidecar's request handlers (Restore, Score with
 batches in flight, Snapshot) on the exact wire bytes, checks that every
 batch went through the kernel, and times the kernel and the service.
@@ -47,18 +50,35 @@ scored with no drop, one launch a batch, the board against a plain fold,
 AUC, faulted destinations above calm ones), part B with the
 ``io.l5d.jaxAnomaly`` accrual (faulted endpoints removed, calm ones
 not), part C with no telemetry block (the router's own cost); and its
-times. Prints the card, a JSON line of kernel and
+times. Then the fastpath phase: the same topology and traffic through a
+``fastPath: true`` router served by the native engine, every retired
+request's engine row drained into the telemeter's native ring: part A
+with ``nativeTier: off`` (every row through the kernel, one launch a
+batch, kernel and board against plain, AUC over the window's rows
+labeled by destination), part B with ``nativeTier: primary`` (the
+telemeter's blob published into the engine, which scores the rows in
+its data plane: its share of the window, its scores against the native
+evaluator and the float32 plain forward, and against the kernel), part
+C with no telemetry block, beside the window's traffic sent straight to
+the backends; and its times. Prints the card, a JSON line of kernel and
 service numbers, one of the train phase's, one of the distill
-phase's, one of the telemeter phase's, one of the linker phase's, and
-as its last line
+phase's, one of the telemeter phase's, one of the linker phase's, one
+of the fastpath phase's, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; with no CUDA device, or
 outside the repository, it exits non-zero before printing any result.
 Imports nothing of JAX.
 
 ``--mutants`` builds deliberately broken copies of the kernel in a
 temporary copy of the port and runs the kernel and served checks
-against each, and the linker phase against ``LINKER_MUTANT``, in a fresh
-interpreter; it fails unless every check fails on its mutant.
+against each, and the linker and fastpath phases against
+``LINKER_MUTANT``, in a fresh interpreter; it fails unless every check
+fails on its mutant.
+
+``--witness`` runs the linker phase's part A and, on its window rows,
+holds the kernel, the plain version and a variant of the kernel that
+sums each k16 step's product in a fresh fragment against an exact
+forward (float64 sums, the kernel's rounding points), layer by layer,
+and times the kernel against that variant.
 
 ``--sweep`` builds variants of the kernel in temporary copies and times
 each at ``TIMED_ROWS``, one after another on this card: the row tiles
@@ -70,6 +90,7 @@ nothing checkable.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import shutil
 import struct
@@ -1802,6 +1823,13 @@ async def tele_layers(tele, dev: str, reps: int = 20) -> dict:
                 dsts, x, s, labels, mask))}
 
 
+def batch_key(scores: np.ndarray) -> int:
+    """One batch's scores, as a score call returned them (an array that
+    owns its memory) or as a board fold took them (that array or a
+    slice of it)."""
+    return id(scores if scores.base is None else scores.base)
+
+
 def tele_plain(snap, rec, dev: str):
     """The plain version's scores of every scored batch, on ``dev``."""
     return [plain_scores(snap, x, dev) for x, _ in rec.scored]
@@ -1884,10 +1912,10 @@ async def telemeter_part_a(cfg, snap, seed: int, dev: str = "cuda"):
         agree.add(got, ref, f"batch of {len(x)}")
     agree.close()
     # a fresh board folded with the plain scores in the fold order
-    by_id = {id(s): p for (_, s), p in zip(rec.scored, plain)}
+    by_id = {batch_key(s): p for (_, s), p in zip(rec.scored, plain)}
     fresh = ScoreBoard(ttl_s=tele.cfg.scoreTtlSecs)
     for dsts, s, eps in rec.folds:
-        fresh.update_batch(dsts, by_id[id(s)], endpoints=eps)
+        fresh.update_batch(dsts, by_id[batch_key(s)], endpoints=eps)
     got, want = tele.board.scores.sample(), fresh.scores.sample()
     got_ep, want_ep = (tele.board.effective_endpoint_scores(),
                        fresh.effective_endpoint_scores())
@@ -2152,6 +2180,9 @@ LINKER_FAULT_MS = 40.0
 LINKER_BODY = 200          # response bytes, as the reference test's backend
 LINKER_AUC_MIN = 0.9
 LINKER_SETTLE_S = 60.0
+# the last window the linker phase scored (rows, snapshot, kernel and
+# plain scores), for the witness of the kernel's sums (``--witness``)
+WINDOWS: dict = {}
 
 
 def linker_backends(conn, dsts, flag, seed: int) -> None:
@@ -2222,15 +2253,15 @@ async def linker_connection(port: int, plan, out: dict, off: int) -> None:
 
 
 def linker_load(conn) -> None:
-    """Child process: on each ``(port, plans)`` from ``conn``, one
-    connection a plan, all at once; sends back every request's
-    destination, status, whether a replica of its destination answered,
-    its ms, and the wall seconds. ``None`` ends it."""
+    """Child process: on each ``(ports, plans)`` from ``conn``, one
+    connection a plan (to its port), all at once; sends back every
+    request's destination, status, whether a replica of its destination
+    answered, its ms, and the wall seconds. ``None`` ends it."""
     while True:
         msg = conn.recv()
         if msg is None:
             return
-        port, plans = msg
+        ports, plans = msg
         n = sum(len(p) for p in plans)
         out = {"dst": np.concatenate(plans).astype(np.int16),
                "status": np.zeros(n, np.int16), "right": np.zeros(n, bool),
@@ -2240,7 +2271,7 @@ def linker_load(conn) -> None:
         async def run():
             t0 = time.perf_counter()
             await asyncio.gather(*(linker_connection(port, p, out, int(o))
-                                   for p, o in zip(plans, offs)))
+                                   for port, p, o in zip(ports, plans, offs)))
             return time.perf_counter() - t0
 
         out["wall"] = asyncio.run(run())
@@ -2253,13 +2284,15 @@ def linker_plans(rng, n: int):
     return np.array_split(rng.integers(TELE_ROUTES, size=n), LINKER_CONNS)
 
 
-async def linker_traffic(loads, port: int, plans) -> dict:
-    """The load processes' share of ``plans`` at once; waits for every
-    answer off the event loop, so the router keeps serving."""
+async def linker_traffic(loads, port, plans) -> dict:
+    """The load processes' share of ``plans`` at once, each plan to
+    ``port`` (or to its own port, with a list); waits for every answer
+    off the event loop, so the router keeps serving."""
     loop = asyncio.get_running_loop()
+    ports = port if isinstance(port, list) else [port] * len(plans)
     shares = np.array_split(np.arange(len(plans)), len(loads))
     for (conn, _), idx in zip(loads, shares):
-        conn.send((port, [plans[i] for i in idx]))
+        conn.send(([ports[i] for i in idx], [plans[i] for i in idx]))
     outs = await asyncio.gather(*(loop.run_in_executor(None, conn.recv)
                                   for conn, _ in loads))
     res = {k: np.concatenate([o[k] for o in outs])
@@ -2392,13 +2425,17 @@ def linker_config(disco: Path, telemetry: bool, accrual: str,
 
 
 def batch_sizes(tap) -> dict:
-    n = np.array([len(b["x"]) for b in tap.batches])
+    """Rows a batch took, device- and engine-scored together."""
+    n = np.array([len(b["x"]) + (len(b["nat_scored"]["x"])
+                                 if b.get("nat_scored") else 0)
+                  for b in tap.batches])
     return {"batches": len(n), "mean": float(n.mean()),
             **{f"p{q}": float(np.percentile(n, q)) for q in (10, 50, 90, 99)},
             "max": int(n.max())}
 
 
-def linker_gap_report(got, plain, x, snap, labels, dev: str) -> dict:
+def linker_gap_report(got, plain, x, snap, labels, dev: str,
+                      what: str = "linker A") -> dict:
     """How kernel and plain scores of the window's rows part: the largest
     gap, the rows past ROW_TOL and 1e-3, and the five widest gaps with
     each row's scores, label and largest z-score; beside it, a witness
@@ -2419,7 +2456,7 @@ def linker_gap_report(got, plain, x, snap, labels, dev: str) -> dict:
                        "plain": float(plain[i]), "cpu_plain": float(cpu[i]),
                        "label": float(labels[i]), "max_abs_z": float(z[i])}
                       for i in top]}
-    print(f"linker A: kernel vs plain max|diff| {out['kernel_vs_plain_max']:.3e}, "
+    print(f"{what}: kernel vs plain max|diff| {out['kernel_vs_plain_max']:.3e}, "
           f"{out['rows_past_row_tol']} of {len(gap)} rows past {ROW_TOL}, "
           f"{out['rows_past_1e-3']} past 1e-3; the plain version on the CPU "
           f"vs the card's: max {out['cpu_plain_vs_card_plain_max']:.3e}, "
@@ -2430,7 +2467,7 @@ def linker_gap_report(got, plain, x, snap, labels, dev: str) -> dict:
                       for w in out["widest"]))
     if out["rows_past_row_tol"] > ROW_SHARE * len(gap):
         raise AssertionError(
-            f"linker A: kernel vs plain: {out['rows_past_row_tol']} of "
+            f"{what}: kernel vs plain: {out['rows_past_row_tol']} of "
             f"{len(gap)} rows past {ROW_TOL} > {ROW_SHARE:.0%}")
     return out
 
@@ -2443,7 +2480,8 @@ def linker_board_check(tele, tap, start: int, plain_by_id: dict) -> float:
 
     fresh = ScoreBoard(ttl_s=tele.cfg.scoreTtlSecs)
     for i, (dsts, s, eps) in enumerate(tap.folds):
-        fresh.update_batch(dsts, s if i < start else plain_by_id[id(s)],
+        fresh.update_batch(dsts, s if i < start else
+                           plain_by_id[batch_key(s)],
                            endpoints=eps)
     got, want = tele.board.scores.sample(), fresh.scores.sample()
     got_ep, want_ep = (tele.board.effective_endpoint_scores(),
@@ -2534,7 +2572,7 @@ async def linker_part(part: str, text: str, loads, flag, plans, dev: str):
             got = np.concatenate([s for _, s in tap.scored[start:]])
             plain = plain_scores(snap, np.concatenate(xs), dev)
             cuts = np.cumsum([len(x) for x in xs])[:-1]
-            plain_by_id = {id(s): p for (_, s), p in zip(
+            plain_by_id = {batch_key(s): p for (_, s), p in zip(
                 tap.scored[start:], np.split(plain, cuts))}
             gap = linker_board_check(tele, tap, start, plain_by_id)
             print(f"linker A: board vs plain fold {gap:.3e}")
@@ -2560,6 +2598,8 @@ async def linker_part(part: str, text: str, loads, flag, plans, dev: str):
                        kernel_vs_plain_max=rows["kernel_vs_plain_max"],
                        window_rows=len(got), positives=int(labels.sum()),
                        auc=got_auc)
+            WINDOWS["linker"] = dict(x=np.concatenate(xs), snap=snap,
+                                     kernel=got, plain=plain)
         if part == "B":
             ports = linker_endpoints(linker)
             removed = {f"{d}/{r}": accrual.removals.get(p, [])
@@ -2611,12 +2651,11 @@ def linker_endpoints(linker) -> dict:
     return out
 
 
-async def linker_phase(seed: int = 12, dev: str = "cuda"):
-    """Backends and load clients in child processes (spawn), then parts A
-    (failure accrual none, training during the warm-up only), B
-    (io.l5d.jaxAnomaly accrual at the reference's cadence) and C (no
-    telemetry block: the router's own cost) on the same traffic. Returns
-    the results and the kernel's launches on parts A and B."""
+@contextlib.asynccontextmanager
+async def linker_topology(seed: int):
+    """Backends and load clients in child processes (spawn) and the fs
+    namer's directory over them; yields ``(loads, flag, plans, disco)``
+    and stops every process after."""
     import multiprocessing
 
     mp = multiprocessing.get_context("spawn")
@@ -2649,16 +2688,7 @@ async def linker_phase(seed: int = 12, dev: str = "cuda"):
                     (disco / f"tele-{d:02d}").write_text("".join(
                         f"127.0.0.1 {pp[j * LINKER_REPLICAS + r]}\n"
                         for r in range(LINKER_REPLICAS)))
-            res = {}
-            res["part_a"], la = await linker_part(
-                "A", linker_config(disco, True, "none", 1), loads, flag,
-                plans, dev)
-            res["part_b"], lb = await linker_part(
-                "B", linker_config(disco, True, "io.l5d.jaxAnomaly", 8),
-                loads, flag, plans, dev)
-            res["no_telemetry"], _ = await linker_part(
-                "C", linker_config(disco, False, "none", 0), loads, flag,
-                plans, dev)
+            yield loads, flag, plans, disco
     finally:
         for conn, _ in backs + loads:
             try:
@@ -2670,6 +2700,28 @@ async def linker_phase(seed: int = 12, dev: str = "cuda"):
             if p.is_alive():
                 p.terminate()
                 p.join()
+
+
+async def linker_phase(seed: int = 12, dev: str = "cuda",
+                       parts=("A", "B", "C")):
+    """Parts A (failure accrual none, training during the warm-up only),
+    B (io.l5d.jaxAnomaly accrual at the reference's cadence) and C (no
+    telemetry block: the router's own cost) on the same traffic, over
+    ``linker_topology``. Returns the results and the kernel's launches
+    on parts A and B (with ``parts=("A",)``, part A's alone)."""
+    res = {}
+    async with linker_topology(seed) as (loads, flag, plans, disco):
+        res["part_a"], la = await linker_part(
+            "A", linker_config(disco, True, "none", 1), loads, flag,
+            plans, dev)
+        if parts == ("A",):
+            return res, la
+        res["part_b"], lb = await linker_part(
+            "B", linker_config(disco, True, "io.l5d.jaxAnomaly", 8),
+            loads, flag, plans, dev)
+        res["no_telemetry"], _ = await linker_part(
+            "C", linker_config(disco, False, "none", 0), loads, flag,
+            plans, dev)
     a, b, c = res["part_a"], res["part_b"], res["no_telemetry"]
     print(f"linker, seed {seed}: {TELE_ROUTES} destinations x "
           f"{LINKER_REPLICAS} replicas, {LINKER_CONNS} connections; part A "
@@ -2694,6 +2746,776 @@ async def linker_phase(seed: int = 12, dev: str = "cuda"):
                   f"{r['score_and_publish_p50_ms']:.3f} ms p99 "
                   f"{r['score_and_publish_p99_ms']:.3f} ms")
     return res, a["launches"] + b["launches"]
+
+
+# The fastpath phase: the same topology and traffic through a
+# ``fastPath: true`` router, served by the native engine that the port
+# builds from native/. Every retired request's engine row is drained into
+# the telemeter's native ring on the controller's stats tick (1 s) and
+# featurized a block at a time. Part A, nativeTier off: every row scored
+# by the kernel. Part B, nativeTier primary: the telemeter's model
+# published into the engine, which scores rows in its data plane. Part
+# C: no telemetry block, the engine's own cost, beside the same traffic
+# sent straight to the backends.
+FASTPATH_NATIVE_SHARE = 0.9   # part B's window rows scored in the engine
+SATURATION_S = 5.0            # each h1load reading, through and around C
+ENGINE_TOL = 1e-5             # engine against the float32 forward
+ENGINE_KERNEL_MAX, ENGINE_KERNEL_MEAN = 0.05, 0.01  # f32 engine vs bf16
+
+
+def fastpath_config(disco: Path, tier, train_every: int) -> str:
+    """The fastPath router over the fs namer as JSON text; with ``tier``
+    the io.l5d.jaxAnomaly telemeter at the reference's defaults (the
+    linker phase's reconWeight) and that nativeTier."""
+    cfg = {"routers": [{
+        "protocol": "http", "label": "tele", "fastPath": True,
+        "dtab": "/svc => /#/io.l5d.fs ;", "servers": [{"port": 0}]}],
+        "namers": [{"kind": "io.l5d.fs", "rootDir": str(disco)}]}
+    if tier is not None:
+        cfg["telemetry"] = [{"kind": "io.l5d.jaxAnomaly",
+                             "trainEveryBatches": train_every,
+                             "reconWeight": 1.0, "nativeTier": tier}]
+    return json.dumps(cfg)
+
+
+class FastPathTap:
+    """Wraps, on a fastPath linker's telemeter, what the phase reads:
+    every raw engine block consumed from the native ring (copied, in
+    order), each batch taken, each score call's rows and scores, each
+    per-route fold (device-scored or engine-scored), the host ms of
+    ``_score_and_publish`` and the batches in flight."""
+
+    def __init__(self, tele):
+        self.raw, self.batches, self.scored, self.folds = [], [], [], []
+        self.publish_ms, self.inflight, self._native = [], 0, False
+        scorer, ring = tele._ensure_scorer(), tele.native_ring
+        score, consume = scorer.score, ring.consume
+        take, publish = tele._take_batch, tele._score_and_publish
+        means, native = tele._publish_route_means, tele._publish_native_batch
+
+        def consuming(m):
+            v = consume(m)
+            self.raw.append(v.copy())
+            return v
+
+        def taking():
+            b = take()
+            if b is not None:
+                self.batches.append(b)
+            return b
+
+        async def scoring(x):
+            s = await score(x)
+            self.scored.append((x, s))
+            return s
+
+        def folding(dsts, inv, scores):
+            self.folds.append(("engine" if self._native else "device",
+                               list(dsts), inv.copy(), scores.copy()))
+            return means(dsts, inv, scores)
+
+        def publishing_native(ns):
+            self._native = True
+            try:
+                return native(ns)
+            finally:
+                self._native = False
+
+        async def publishing(s, b):
+            self.inflight += 1
+            t0 = time.perf_counter()
+            try:
+                return await publish(s, b)
+            finally:
+                self.publish_ms.append((time.perf_counter() - t0) * 1e3)
+                self.inflight -= 1
+
+        scorer.score, ring.consume = scoring, consuming
+        tele._take_batch, tele._score_and_publish = taking, publishing
+        tele._publish_route_means = folding
+        tele._publish_native_batch = publishing_native
+
+    async def settle(self, tele, task, sent: int, what: str) -> None:
+        """Until ``sent`` engine rows have reached the telemeter and
+        every one is scored and published."""
+        t0 = time.monotonic()
+        while (tele._requests.value < sent or len(tele.native_ring)
+               or self.inflight or tele._scored.value != tele._requests.value):
+            if task.done():
+                task.result()
+                raise AssertionError(f"fastpath {what}: run() ended early")
+            if time.monotonic() - t0 > LINKER_SETTLE_S:
+                raise AssertionError(
+                    f"fastpath {what}: {tele._requests.value} rows of "
+                    f"{sent} requests reached the telemeter, "
+                    f"{tele._scored.value} scored after {LINKER_SETTLE_S} s")
+            await asyncio.sleep(1e-3)
+
+    def window_rows(self, first: int, start: int):
+        """Rows the device scored from batch ``first`` (score call
+        ``start``) on: features, kernel scores and each row's
+        destination."""
+        dsts = [b["nat_dsts"][int(i)] for b in self.batches[first:]
+                if b["nat_inv"] is not None for i in b["nat_inv"]]
+        return (np.concatenate([x for x, _ in self.scored[start:]]),
+                np.concatenate([s for _, s in self.scored[start:]]), dsts)
+
+
+def fastpath_board_check(tele, tap, start: int, plain: list) -> float:
+    """The board against a fresh ScoreBoard folded in the same order:
+    device folds from ``start`` on with the plain version's scores of
+    the same rows (``plain``, one array a score call from ``start``),
+    every other fold as it was. Returns the largest gap."""
+    import types
+
+    from linkerd_tpu_torch.telemetry.anomaly import (
+        JaxAnomalyTelemeter, ScoreBoard,
+    )
+
+    fresh = types.SimpleNamespace(board=ScoreBoard(ttl_s=tele.cfg.scoreTtlSecs))
+    device = 0
+    for kind, dsts, inv, scores in tap.folds:
+        if kind == "device":
+            if device >= start:
+                p = plain[device - start]
+                if len(p) != len(scores):
+                    raise AssertionError("fastpath A: folds out of step "
+                                         "with score calls")
+                scores = p
+            device += 1
+        JaxAnomalyTelemeter._publish_route_means(fresh, dsts, inv, scores)
+    got, want = tele.board.scores.sample(), fresh.board.scores.sample()
+    if sorted(got) != sorted(want):
+        raise AssertionError("fastpath A: board keys differ from the fold")
+    return max(abs(got[k] - want[k]) for k in got)
+
+
+def engine_check(tap, snap, blob: bytes, window_raw: int, route_dst,
+                 dev: str) -> dict:
+    """Part B's in-plane scores, on the window's engine-scored rows: the
+    engine's scores against ``score_eval`` of the published blob and
+    the float32 plain forward of ``snap`` within ENGINE_TOL, and against
+    the kernel within ENGINE_KERNEL_MAX / MEAN, all on the rows' engine
+    features (``engine_features``: every row the engine retired, in
+    order, for its per-row drift)."""
+    import dataclasses
+
+    import torch
+
+    from linkerd_tpu_torch import native
+    from linkerd_tpu_torch.models.convert import params_from_numpy
+    from linkerd_tpu_torch.ops.scoring import (
+        fused_anomaly_scores, fused_anomaly_scores_plain,
+    )
+    from linkerd_tpu_torch.telemetry.linerate import (
+        NATIVE_COL_SCORE, NATIVE_COL_SCORED,
+    )
+
+    rows = np.concatenate(tap.raw)
+    x = engine_features(rows, route_dst)
+    win = np.zeros(len(rows), bool)
+    win[sum(len(r) for r in tap.raw[:window_raw]):] = True
+    pick = win & (rows[:, NATIVE_COL_SCORED] > 0.5)
+    got, xw = rows[pick, NATIVE_COL_SCORE], torch.tensor(x[pick], device=dev)
+    lib = native.score_eval(blob, x[pick])
+    params = params_from_numpy(snap.params, dev)
+    mu = torch.tensor(snap.mu, device=dev)
+    var = torch.tensor(snap.var, device=dev)
+    f32 = fused_anomaly_scores_plain(
+        params, xw, dataclasses.replace(snap.cfg, compute_dtype=torch.float32),
+        mu, var).cpu().numpy()
+    kernel = fused_anomaly_scores(params, xw, snap.cfg, mu, var).cpu().numpy()
+    out = {"rows": int(pick.sum()),
+           "engine_vs_score_eval_max": float(np.abs(got - lib).max()),
+           "engine_vs_f32_plain_max": float(np.abs(got - f32).max()),
+           "engine_vs_kernel_max": float(np.abs(got - kernel).max()),
+           "engine_vs_kernel_mean": float(np.abs(got - kernel).mean())}
+    print(f"fastpath B: {out['rows']} engine-scored window rows; engine vs "
+          f"score_eval {out['engine_vs_score_eval_max']:.3e}, vs float32 "
+          f"plain {out['engine_vs_f32_plain_max']:.3e}, vs kernel max "
+          f"{out['engine_vs_kernel_max']:.3e} mean "
+          f"{out['engine_vs_kernel_mean']:.3e}")
+    if not out["rows"]:
+        raise AssertionError("fastpath B: no engine-scored window rows")
+    if max(out["engine_vs_score_eval_max"],
+           out["engine_vs_f32_plain_max"]) > ENGINE_TOL:
+        raise AssertionError(f"fastpath B: engine scores off by more than "
+                             f"{ENGINE_TOL}: {out}")
+    if out["engine_vs_kernel_max"] > ENGINE_KERNEL_MAX or \
+            out["engine_vs_kernel_mean"] > ENGINE_KERNEL_MEAN:
+        raise AssertionError(f"fastpath B: engine vs kernel {out}")
+    return out
+
+
+async def fastpath_part(part: str, text: str, loads, flag, plans, disco,
+                        dev: str):
+    """One fastPath linker from ``text`` driven with the warm-up, then
+    the window with faults on. Part A holds the kernel's scores, the
+    board and AUC (rows labeled by their destination) against the plain
+    version; part B holds the engine's in-plane scores and its share of
+    the window; part C has no telemeter."""
+    from linkerd_tpu_torch.core.tasks import monitor
+    from linkerd_tpu_torch.lifecycle.promote import auc
+    from linkerd_tpu_torch.linker import load_linker
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+
+    linker = load_linker(text, device=dev)
+    await linker.start()
+    router = linker.routers[0]
+    port = router.server_ports[0]
+    tele = linker.telemeters[0] if linker.telemeters else None
+    tap = task = None
+    out = {}
+    sent = 0
+    try:
+        if tele is not None:
+            tap = FastPathTap(tele)
+            task = monitor(asyncio.create_task(tele.run()),
+                           what=f"telemeter-{type(tele).__name__}")
+        fused_anomaly_scores.launches = 0
+        flag.value = 0
+        warm = await linker_traffic(loads, port, plans[0])
+        sent += len(warm["ms"])
+        if tele is not None:
+            await tap.settle(tele, task, sent, f"{part} warm-up")
+            tele.cfg.trainEveryBatches = 0
+            snap, first, start = tele._scorer.snapshot(), len(tap.batches), \
+                len(tap.scored)
+            window_raw = len(tap.raw)
+            if part == "B":
+                # the window's model: published once more, so the engine
+                # serves what the device holds (a fit may have followed
+                # the last periodic publish)
+                await tele.refresh_native_weights()
+                blob = tele._last_blob
+                nat0, sc0 = tele._native_scored.value, tele._scored.value
+        flag.value = 1
+        window = await linker_traffic(loads, port, plans[1])
+        sent += len(window["ms"])
+        if tele is not None:
+            await tap.settle(tele, task, sent, f"{part} window")
+        flag.value = 0
+        launches = fused_anomaly_scores.launches
+        router.controller._export_stats()
+        engine = router.controller.engine.stats()
+        out["warmup"] = linker_traffic_checks(warm, f"fastpath {part} warm-up",
+                                              False)
+        out["window"] = linker_traffic_checks(
+            window, f"fastpath {part} window", True)
+        served = sum(int(r["requests"]) for r in engine["routes"].values())
+        out["engine"] = {"requests": served,
+                         "features_dropped": engine.get("features_dropped"),
+                         "native_scorer": {
+                             k: engine["native_scorer"].get(k) for k in (
+                                 "scored", "unscored", "weights", "version")}}
+        if served != sent or engine.get("features_dropped"):
+            raise AssertionError(f"fastpath {part}: {sent} sent, engine "
+                                 f"{out['engine']}")
+        if tele is None:
+            out["saturation"] = await saturation(port, disco)
+            return out, launches
+        flat = tele.metrics.flatten()
+        bad = {k: flat[f"anomaly/{k}"] for k in (
+            "score_failures", "dropped_batches", "degraded")
+            if flat[f"anomaly/{k}"]}
+        rows, scored = flat["anomaly/requests_total"], \
+            flat["anomaly/scored_total"]
+        drops = flat["anomaly/native_ring_dropped"]
+        print(f"fastpath {part}: {sent} requests, {rows} engine rows, "
+              f"{scored} scored ({flat['anomaly/native_scored_total']} in "
+              f"the engine), ring drops {drops}")
+        if bad or drops or scored != rows or rows != sent:
+            raise AssertionError(
+                f"fastpath {part}: {sent} sent, {rows} rows, {scored} "
+                f"scored, {drops} dropped, {bad}")
+        batches = flat["anomaly/batches"]
+        with_device = sum(len(b["x"]) > 0 for b in tap.batches)
+        expect = 0 if dev == "cpu" else with_device
+        if launches != expect or len(tap.scored) != with_device:
+            raise AssertionError(
+                f"fastpath {part}: {launches} kernel launches, "
+                f"{with_device} batches with device rows of {batches}, "
+                f"{len(tap.scored)} score calls")
+        pub = np.asarray(tap.publish_ms)
+        out.update(launches=launches, batches=batches,
+                   batches_with_device_rows=with_device,
+                   batch_sizes=batch_sizes(tap),
+                   score_and_publish_p50_ms=float(np.percentile(pub, 50)),
+                   score_and_publish_p99_ms=float(np.percentile(pub, 99)))
+        routes = tele_routes()
+        faulted = set(routes[:TELE_FAULTED])
+        board = {d: tele.board.score_of(d) for d in routes}
+        out["board_levels"] = {
+            "faulted_min": min(board[d] for d in faulted),
+            "calm_max": max(board[d] for d in routes[TELE_FAULTED:])}
+        if part == "A":
+            x, got, dsts = tap.window_rows(first, start)
+            if len(dsts) != len(got) or len(got) != len(window["ms"]):
+                raise AssertionError(f"fastpath A: {len(got)} window rows "
+                                     f"scored, {len(window['ms'])} sent")
+            plain = plain_scores(snap, x, dev)
+            cuts = np.cumsum([len(xx) for xx, _ in tap.scored[start:]])[:-1]
+            gap = fastpath_board_check(tele, tap, start,
+                                       np.split(plain, cuts))
+            print(f"fastpath A: board vs plain fold {gap:.3e}")
+            if gap > TOL:
+                raise AssertionError(f"fastpath A: board off the plain fold "
+                                     f"by {gap} > {TOL}")
+            labels = np.array([d in faulted for d in dsts], np.float32)
+            rows_gap = linker_gap_report(got, plain, x, snap, labels, dev,
+                                         what="fastpath A")
+            got_auc = auc(labels.tolist(), got.tolist())
+            if not got_auc >= LINKER_AUC_MIN:
+                raise AssertionError(f"fastpath A: AUC {got_auc} < "
+                                     f"{LINKER_AUC_MIN}")
+            lv = out["board_levels"]
+            if not lv["faulted_min"] > lv["calm_max"]:
+                raise AssertionError(f"fastpath A: board {board}")
+            out.update(board_vs_plain_fold_max=gap, kernel_vs_plain=rows_gap,
+                       kernel_vs_plain_max=rows_gap["kernel_vs_plain_max"],
+                       window_rows=len(got), positives=int(labels.sum()),
+                       auc=got_auc)
+        if part == "B":
+            nat = tele._native_scored.value - nat0
+            share = nat / max(tele._scored.value - sc0, 1)
+            print(f"fastpath B: {share:.4f} of the window's rows scored in "
+                  f"the engine")
+            if share < FASTPATH_NATIVE_SHARE:
+                raise AssertionError(f"fastpath B: native share {share} < "
+                                     f"{FASTPATH_NATIVE_SHARE}")
+            out["native_scored_share_window"] = share
+            out["engine_vs"] = engine_check(
+                tap, snap, blob, window_raw, router.controller._route_dst,
+                dev)
+        return out, launches
+    finally:
+        if task is not None:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        await linker.close()
+
+
+async def saturation(port: int, disco: Path) -> dict:
+    """Closed-loop readings by the C++ load generator (``h2bench h1load``,
+    LINKER_CONNS connections, one request in flight each, SATURATION_S
+    seconds): through the engine at ``port`` to one calm destination,
+    then straight to that destination's first replica."""
+    from linkerd_tpu_torch.native import _build as native_build
+
+    exe = native_build.build("h2bench")
+    d = TELE_ROUTES // 4
+    backend = int((disco / f"tele-{d:02d}").read_text().split()[1])
+    out = {"destination": f"tele-{d:02d}"}
+    for name, p in (("through_engine", port), ("direct", backend)):
+        proc = await asyncio.create_subprocess_exec(
+            str(exe), "h1load", "127.0.0.1", str(p), f"tele-{d:02d}",
+            str(LINKER_CONNS), str(SATURATION_S), "--conns-per-worker",
+            str(LINKER_CONNS), stdout=asyncio.subprocess.PIPE)
+        stdout, _ = await asyncio.wait_for(proc.communicate(),
+                                           SATURATION_S + 30)
+        out[name] = json.loads(stdout.decode().strip().splitlines()[-1])
+        if proc.returncode or out[name]["errors"] or not out[name]["reqs"]:
+            raise AssertionError(f"h1load {name}: rc {proc.returncode}, "
+                                 f"{out[name]}")
+    print(f"h1load, {LINKER_CONNS} connections to {out['destination']}: "
+          f"through the engine {out['through_engine']['rps']:.0f} "
+          f"requests/s, p50 {out['through_engine']['p50_ms']:.3f} ms, p99 "
+          f"{out['through_engine']['p99_ms']:.3f} ms; direct "
+          f"{out['direct']['rps']:.0f} requests/s, p50 "
+          f"{out['direct']['p50_ms']:.3f} ms, p99 "
+          f"{out['direct']['p99_ms']:.3f} ms")
+    return out
+
+
+async def direct_traffic(loads, disco: Path, n: int) -> dict:
+    """``n`` calm requests straight to the backends, no router: each
+    connection to replica 0 of one calm destination."""
+    ports, plans = [], []
+    for i, plan in enumerate(np.array_split(np.zeros(n, np.int64),
+                                            LINKER_CONNS)):
+        d = TELE_FAULTED + i % (TELE_ROUTES - TELE_FAULTED)
+        line = (disco / f"tele-{d:02d}").read_text().splitlines()[0]
+        ports.append(int(line.split()[1]))
+        plans.append(plan + d)
+    res = await linker_traffic(loads, ports, plans)
+    return linker_traffic_checks(res, "direct", False)
+
+
+async def fastpath_phase(seed: int = 12, dev: str = "cuda"):
+    """Parts A (nativeTier off: training during the warm-up, every row
+    through the kernel), B (nativeTier primary, a fit every 8 batches in
+    the warm-up: rows scored in the engine) and C (no telemetry block),
+    and the window's traffic straight to the backends, over
+    ``linker_topology``. Returns the results and the kernel's launches
+    on parts A and B."""
+    res = {}
+    async with linker_topology(seed) as (loads, flag, plans, disco):
+        res["part_a"], la = await fastpath_part(
+            "A", fastpath_config(disco, "off", 1), loads, flag, plans,
+            disco, dev)
+        res["part_b"], lb = await fastpath_part(
+            "B", fastpath_config(disco, "primary", 8), loads, flag, plans,
+            disco, dev)
+        res["no_telemetry"], _ = await fastpath_part(
+            "C", fastpath_config(disco, None, 0), loads, flag, plans, disco,
+            dev)
+        res["direct"] = await direct_traffic(loads, disco, LINKER_WINDOW)
+    a, b, c, d = (res[k] for k in ("part_a", "part_b", "no_telemetry",
+                                   "direct"))
+    print(f"fastpath, seed {seed}: part A {a['launches']} launches for "
+          f"{a['batches']} batches, kernel vs plain max|diff| "
+          f"{a['kernel_vs_plain_max']:.3e}, board vs plain fold "
+          f"{a['board_vs_plain_fold_max']:.3e}, AUC {a['auc']:.4f}; part B "
+          f"{b['launches']} launches for {b['batches_with_device_rows']} of "
+          f"{b['batches']} batches with device rows, native share "
+          f"{b['native_scored_share_window']:.4f}")
+    for name, r in (("A", a), ("B", b), ("C no telemetry", c)):
+        for w in ("warmup", "window"):
+            t = r[w]
+            print(f"fastpath {name} {w}: {t['requests_per_s']:.0f} "
+                  f"requests/s, p50 {t['p50_ms']:.3f} ms, p99 "
+                  f"{t['p99_ms']:.3f} ms (calm p50 {t['calm_p50_ms']:.3f}, "
+                  f"p99 {t['calm_p99_ms']:.3f})")
+        if "batch_sizes" in r:
+            print(f"fastpath {name}: batch sizes {r['batch_sizes']}, "
+                  f"_score_and_publish p50 "
+                  f"{r['score_and_publish_p50_ms']:.3f} ms p99 "
+                  f"{r['score_and_publish_p99_ms']:.3f} ms")
+    print(f"direct to the backends: {d['requests_per_s']:.0f} requests/s, "
+          f"p50 {d['p50_ms']:.3f} ms, p99 {d['p99_ms']:.3f} ms; fastpath C "
+          f"window calm p99 {c['window']['calm_p99_ms']:.3f} ms")
+    return res, a["launches"] + b["launches"]
+
+
+# The witness of the kernel's sums (``--witness``): on a phase's window
+# rows, an "exact" forward in float64 with the kernel's rounding points
+# (the float64 sum of bf16 products rounded once to bf16, the bf16 bias
+# added in float32 and rounded again) says, layer by layer, how often
+# each version's bf16 activation differs from the exact one given that
+# version's own input to the layer. The kernel's activations come from a
+# copy that also writes each layer's output after its scores
+# (``DUMP``); ``FRESH`` is the kernel with each k16 step's product taken
+# into a zeroed fragment and added to the float32 sum by FADD, in place
+# of chaining the sum through mma.sync's accumulator.
+DUMP = ("    consumers_sync();  // this layer's output is whole; its input "
+        "is free",
+        "    consumers_sync();  // this layer's output is whole; its input "
+        "is free\n"
+        "    for (int i = tid; i < live * L.npad; i += WARPS * 32) {\n"
+        "      const int r = i / L.npad, c = i - r * L.npad;\n"
+        "      out[n + ((long)(li + 1) * n + row0 + r) * MAXW + c] =\n"
+        "          __bfloat162float(s_act[L.out * ROWS * AST + r * AST + c]);\n"
+        "    }")
+DUMP_INPUT = ("  int g = 0;  // chunks consumed",
+              "  for (int i = tid; i < live * kpad0; i += WARPS * 32) {\n"
+              "    const int r = i / kpad0, c = i - r * kpad0;\n"
+              "    out[n + (row0 + r) * (long)MAXW + c] =\n"
+              "        __bfloat162float(s_act[r * AST + c]);\n"
+              "  }\n"
+              "  int g = 0;  // chunks consumed")
+FRESH = ("      mma_bf16(acc[TILES == 1 ? odd : j][i], f.a[i], f.b[j]);",
+         "      {\n"
+         "        float c[4] = {0.f, 0.f, 0.f, 0.f};\n"
+         "        mma_bf16(c, f.a[i], f.b[j]);\n"
+         "        float (&s)[4] = acc[TILES == 1 ? odd : j][i];\n"
+         "        s[0] += c[0]; s[1] += c[1]; s[2] += c[2]; s[3] += c[3];\n"
+         "      }")
+WITNESS_VARIANTS = {"dump": (DUMP, DUMP_INPUT), "fresh": (FRESH,),
+                    "fresh_dump": (FRESH, DUMP, DUMP_INPUT)}
+LAYER_ORDER = (("enc", 0), ("enc", 1), ("enc", 2), ("cls", 0), ("cls", 1),
+               ("dec", 0), ("dec", 1), ("dec", 2))
+LAYER_INPUT = (0, 1, 2, 3, 4, 3, 6, 7)  # slot each layer reads (0: x)
+MAXW = 256
+
+
+def bf16_of(a: np.ndarray) -> np.ndarray:
+    """Round to bf16 (nearest even), straight from ``a``'s own type."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).to(
+        torch.bfloat16).to(torch.float64).numpy()
+
+
+def exact_layer(h: np.ndarray, layer, relu: bool) -> np.ndarray:
+    """One layer from bf16 activations ``h``: the float64 sum of the bf16
+    products rounded once to bf16, plus the bf16 bias in float32, rounded
+    again; then ReLU."""
+    w = bf16_of(np.asarray(layer["w"], np.float32))
+    b = bf16_of(np.asarray(layer["b"], np.float32)).astype(np.float32)
+    h = h[:, :w.shape[0]].astype(np.float64)
+    y = bf16_of(bf16_of(h @ w).astype(np.float32) + b)
+    return np.maximum(y, 0.0) if relu else y
+
+
+def exact_scores(snap, x32: np.ndarray, acts=None):
+    """Scores of the float32 z-scored rows ``x32`` by the exact chain,
+    and its activations by slot (0: the bf16 input, 1..8: LAYER_ORDER);
+    with ``acts`` (another version's activations by slot), each layer
+    is taken from that version's own input to it instead."""
+    p = snap.params
+    chain = [bf16_of(x32)]
+    for k, (g, i) in enumerate(LAYER_ORDER):
+        src = chain if acts is None else acts
+        relu = not ((g == "dec" and i == 2) or (g == "cls" and i == 1))
+        chain.append(exact_layer(src[LAYER_INPUT[k]], p[g][i], relu))
+    recon, logit = chain[8], chain[5][:, 0]
+    err = np.mean((recon[:, :x32.shape[1]] - x32.astype(np.float64)) ** 2,
+                  axis=1)
+    w = float(snap.cfg.recon_weight)
+    return w * np.tanh(err) + (1 - w) / (1 + np.exp(-logit)), chain
+
+
+def plain_acts(snap, x: np.ndarray, dev: str = "cuda"):
+    """The plain version's activations by slot on ``dev``, and its
+    float32 z-scored input."""
+    import torch
+
+    from linkerd_tpu_torch.models.anomaly import normalize_features
+    from linkerd_tpu_torch.models.convert import params_from_numpy
+
+    params = params_from_numpy(snap.params, dev)
+    x32 = normalize_features(torch.tensor(x, device=dev),
+                             torch.tensor(snap.mu, device=dev),
+                             torch.tensor(snap.var, device=dev))
+    slots = [x32.to(torch.bfloat16)]
+    for k, (g, i) in enumerate(LAYER_ORDER):
+        layer = params[g][i]
+        y = (slots[LAYER_INPUT[k]].float() @ layer["w"].to(
+            torch.bfloat16).float()).to(torch.bfloat16)
+        y = y + layer["b"].to(torch.bfloat16)
+        relu = not ((g == "dec" and i == 2) or (g == "cls" and i == 1))
+        slots.append(torch.relu(y) if relu else y)
+    return [t.double().cpu().numpy() for t in slots], \
+        x32.cpu().numpy()
+
+
+def variant_fn(lib_path: Path):
+    """``score_mlp_forward`` of a variant's library."""
+    import ctypes
+
+    fn = ctypes.CDLL(str(lib_path)).score_mlp_forward
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, i, i, p, p, p, p, i, i, f, f, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def variant_scores(fn, kp, x, cfg, mu, var, dump: bool):
+    """Scores (and with ``dump`` the activations by slot, [9, n, MAXW])
+    of a variant's kernel; its launches are not counted."""
+    import torch
+
+    n = x.shape[0]
+    out = torch.zeros(n + (9 * n * MAXW if dump else 0),
+                      dtype=torch.float32, device="cuda")
+    rc = fn(x.data_ptr(), n, cfg.in_dim, mu.data_ptr(), var.data_ptr(),
+            kp.packed.data_ptr(), kp.table, len(kp.layers), kp.bias_len,
+            cfg.recon_weight, 1.0 - cfg.recon_weight, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise AssertionError(f"variant launch failed: cudaError {rc}")
+    torch.cuda.synchronize()
+    out = out.cpu().numpy()
+    return out[:n], (out[n:].reshape(9, n, MAXW) if dump else None)
+
+
+def layer_counts(acts, snap, width_of) -> list:
+    """Per layer: the activations of ``acts`` that differ from the exact
+    layer taken on ``acts``' own input."""
+    _, forced = exact_scores(snap, acts[0][:, :36], acts=acts)
+    return [int((acts[k][:, :width_of(k)] != forced[k][:, :width_of(k)])
+                .sum()) for k in range(1, 9)]
+
+
+def witness(window: dict, libs: dict) -> dict:
+    """The witness on one window (``WINDOWS`` entry): the kernel, the
+    plain version and the FRESH kernel against the exact forward, by
+    score and layer by layer, over every row and over the rows where
+    kernel and plain part by more than ROW_TOL."""
+    import torch
+
+    from linkerd_tpu_torch.models.anomaly import AnomalyModelConfig
+    from linkerd_tpu_torch.models.convert import params_from_numpy
+    from linkerd_tpu_torch.ops.scoring import pack_params
+
+    x, snap = window["x"], window["snap"]
+    cfg = AnomalyModelConfig(recon_weight=float(snap.cfg.recon_weight))
+    kp = pack_params(params_from_numpy(snap.params, "cuda"), cfg)
+    xd = torch.tensor(x, device="cuda")
+    mu = torch.tensor(snap.mu, device="cuda")
+    var = torch.tensor(snap.var, device="cuda")
+    kernel, k_acts = variant_scores(libs["dump"], kp, xd, cfg, mu, var, True)
+    fresh, f_acts = variant_scores(libs["fresh_dump"], kp, xd, cfg, mu, var,
+                                   True)
+    fresh_alone, _ = variant_scores(libs["fresh"], kp, xd, cfg, mu, var,
+                                    False)
+    p_acts, x32 = plain_acts(snap, x)
+    plain = window["plain"]
+    exact, _ = exact_scores(snap, x32)
+    widths = [36] + [snap.params[g][i]["w"].shape[1] for g, i in LAYER_ORDER]
+    out = {"rows": len(x),
+           "dump_matches_kernel": float(np.abs(kernel - window["kernel"])
+                                        .max()),
+           "fresh_dump_matches_fresh": float(np.abs(fresh - fresh_alone)
+                                             .max())}
+    wide = np.abs(window["kernel"] - plain) > ROW_TOL
+    for name, sc, acts in (("kernel", kernel, k_acts), ("plain", plain,
+                                                        p_acts),
+                           ("fresh", fresh, f_acts)):
+        acts = [np.asarray(a, np.float64) for a in acts]
+        gap = np.abs(sc - exact)
+        counts = layer_counts(acts, snap, lambda k: widths[k])
+        sub = [a[wide] for a in acts]
+        out[name] = {
+            "vs_exact_max": float(gap.max()),
+            "rows_past_row_tol": int((gap > ROW_TOL).sum()),
+            "vs_plain_max": float(np.abs(sc - plain).max()),
+            "input_differs_from_plain": int(
+                (acts[0][:, :36] != p_acts[0]).sum()),
+            "layer_mismatches": counts,
+            "layer_mismatches_wide_rows": layer_counts(
+                sub, snap, lambda k: widths[k]) if wide.any() else None}
+    out["wide_rows"] = int(wide.sum())
+    out["activations_per_row"] = int(sum(widths[1:]))
+    print(f"witness, {len(x)} rows ({out['wide_rows']} where kernel and "
+          f"plain part by more than {ROW_TOL}); per layer "
+          f"{[f'{g}{i}' for g, i in LAYER_ORDER]}, bf16 activations off "
+          f"the exact layer on the version's own input:")
+    for name in ("kernel", "plain", "fresh"):
+        r = out[name]
+        print(f"  {name}: {r['layer_mismatches']} (rows past {ROW_TOL}: "
+              f"{r['layer_mismatches_wide_rows']}); score vs exact max "
+              f"{r['vs_exact_max']:.3e}, {r['rows_past_row_tol']} rows past "
+              f"{ROW_TOL}; vs plain max {r['vs_plain_max']:.3e}")
+    return out
+
+
+def build_variants(names) -> tuple:
+    """Each named WITNESS_VARIANTS kernel built in a temporary copy, all
+    at once; returns the temporary directory and the libraries."""
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    build = [sys.executable, "-c", "from linkerd_tpu_torch.ops import "
+             "_build; print(_build.build('score_mlp'))"]
+    procs = {}
+    for name in names:
+        d = copy_with(root, name, *WITNESS_VARIANTS[name][0])
+        src = d / KERNEL_SOURCE
+        text = src.read_text()
+        for line, repl in WITNESS_VARIANTS[name][1:]:
+            if text.count(line) != 1:
+                raise AssertionError(f"{name}: line not found once: {line}")
+            text = text.replace(line, repl)
+        src.write_text(text)
+        procs[name] = subprocess.Popen(build, cwd=d, stdout=subprocess.PIPE,
+                                       text=True)
+    libs = {}
+    for name, proc in procs.items():
+        outp, _ = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"witness variant {name} did not build")
+        libs[name] = variant_fn(Path(outp.strip().splitlines()[-1]))
+    return tmp, libs
+
+
+def variant_times(libs: dict, cfg, rng) -> dict:
+    """Device ms of the kernel and the FRESH variant at TIMED_ROWS, in
+    turns (kernel, fresh, fresh, kernel) on this card."""
+    import torch
+
+    from linkerd_tpu_torch.models.convert import params_from_numpy
+    from linkerd_tpu_torch.ops.scoring import _kernel, pack_params
+
+    params = params_from_numpy(random_params(0, cfg), "cuda")
+    kp = pack_params(params, cfg)
+    mu_h, var_h = make_stats(rng, cfg.in_dim)
+    mu, var = torch.tensor(mu_h, device="cuda"), torch.tensor(var_h,
+                                                             device="cuda")
+    fns = {"kernel": _kernel(), "fresh": libs["fresh"]}
+    out = {}
+    for n in TIMED_ROWS:
+        x = torch.tensor(make_inputs(rng, n, mu_h, var_h), device="cuda")
+        o = torch.empty(n, dtype=torch.float32, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch(fn):
+            return lambda: fn(x.data_ptr(), n, cfg.in_dim, mu.data_ptr(),
+                              var.data_ptr(), kp.packed.data_ptr(), kp.table,
+                              len(kp.layers), kp.bias_len, cfg.recon_weight,
+                              1.0 - cfg.recon_weight, o.data_ptr(), stream)
+
+        times = {k: [] for k in fns}
+        for k in ("kernel", "fresh", "fresh", "kernel"):
+            times[k].append(device_ms(launch(fns[k])))
+        out[n] = {k: float(np.mean(v)) for k, v in times.items()}
+    print("kernel vs fresh-fragment sums, ms: " + ", ".join(
+        f"n={n} {r['kernel']:.4f} / {r['fresh']:.4f}"
+        for n, r in out.items()))
+    return out
+
+
+WITNESS_SEEDS = (12, 13, 14, 15)  # linker windows the witness reads
+
+
+def run_witness() -> int:
+    """``--witness``: for each of WITNESS_SEEDS the linker phase's part
+    A, then the witness of the kernel's sums on its window; and the
+    variants' times."""
+    from linkerd_tpu_torch.models.anomaly import AnomalyModelConfig
+    from linkerd_tpu_torch.ops import _build
+
+    _build.build("score_mlp")
+    tmp, libs = build_variants(WITNESS_VARIANTS)
+    try:
+        out = {}
+        for seed in WITNESS_SEEDS:
+            asyncio.run(linker_phase(seed=seed, parts=("A",)))
+            out[f"linker_seed_{seed}"] = witness(WINDOWS["linker"], libs)
+        out["times"] = variant_times(
+            libs, AnomalyModelConfig(recon_weight=0.7),
+            np.random.default_rng(0))
+    finally:
+        tmp.cleanup()
+    name, _, limit = card_line().partition(",")
+    print(json.dumps({"witness": out, "card": name.strip(),
+                      "power_limit": limit.strip()}))
+    return 0
+
+
+def engine_drift(rows: np.ndarray) -> np.ndarray:
+    """Per-row latency drift as the engine's in-plane featurizer keeps
+    it (``l5dscore::feat_drift_update`` in ``native/scorer.h``): one
+    robust EWMA a route, updated per retired request in float32, in the
+    order the engine retired them (the order it drains them)."""
+    f = np.float32
+    state, out = {}, np.zeros(len(rows), np.float32)
+    for i, (rid, lat) in enumerate(zip(rows[:, 0].tolist(),
+                                       rows[:, 1].astype(np.float32))):
+        st = state.get(rid)
+        if st is None:
+            state[rid] = (lat, max(f(abs(lat) * f(0.1)), f(0.25)))
+            continue
+        ewma, dev = st
+        drift = f(lat - ewma)
+        lim = f(f(3.0) * max(dev, f(0.25)))
+        inc = min(max(drift, -lim), lim)
+        ad = min(abs(drift), lim)
+        state[rid] = (f(ewma + f(f(0.05) * inc)),
+                      f(dev + f(f(0.05) * f(ad - dev))))
+        out[i] = drift
+    return out
+
+
+def engine_features(rows: np.ndarray, dst_of) -> np.ndarray:
+    """The features the engine scored ``rows`` on (every row it retired,
+    in order): ``NativeFeaturizer``'s encoding with the engine's per-row
+    drift in column 32 in place of the featurizer's per-block one."""
+    from linkerd_tpu_torch.telemetry.linerate import NativeFeaturizer
+
+    x, _, _ = NativeFeaturizer(resolver=dst_of).encode_block(rows)
+    drift = engine_drift(rows)
+    x[:, 32] = np.sign(drift) * np.log1p(np.abs(drift))
+    return x
 
 
 # Broken kernels the checks must catch: (line in score_mlp.cu, its
@@ -2729,8 +3551,9 @@ BREAKDOWN = {
     "no_products": ("    if (TILES > 0) {", "    if (false) {"),
 }
 CHECKS = ("kernel", "served")  # what --mutants runs on every mutant
-LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker phase
-PHASES = ("telemeter", "linker")  # phases --check and --mutant also take
+LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker and
+                                # fastpath phases
+PHASES = ("telemeter", "linker", "fastpath")  # --check and --mutant take these too
 
 
 def run_check(which: str) -> int:
@@ -2745,13 +3568,19 @@ def run_check(which: str) -> int:
         check_kernel(cfg, rng)
     elif which == "served":
         asyncio.run(drive_service(cfg, rng))
-    elif which == "linker":
+    elif which in ("linker", "fastpath"):
+        from linkerd_tpu_torch import native
+        from linkerd_tpu_torch.native import _build as native_build
         from linkerd_tpu_torch.ops import _build
 
         _build.build("score_mlp")  # before the event loop serves
-        linker, _ = asyncio.run(linker_phase())
+        if which == "fastpath":
+            native.ensure_built()
+            native_build.build("h2bench")
+        phase = linker_phase if which == "linker" else fastpath_phase
+        res, _ = asyncio.run(phase())
         name, _, limit = card_line().partition(",")
-        print(json.dumps({"linker": linker, "card": name.strip(),
+        print(json.dumps({which: res, "card": name.strip(),
                           "power_limit": limit.strip()}))
     else:
         asyncio.run(telemeter_phase(cfg))
@@ -2802,9 +3631,9 @@ def check_mutant(name: str, which: str) -> int:
 
 
 def check_mutants() -> int:
-    """Every check must fail on every mutant, and the linker phase on
-    LINKER_MUTANT, by its own assertion (a build failure or a crash is
-    not a catch)."""
+    """Every check must fail on every mutant, and the linker and
+    fastpath phases on LINKER_MUTANT, by its own assertion (a build
+    failure or a crash is not a catch)."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for name, (line, broken) in MUTANTS.items():
@@ -2815,7 +3644,8 @@ def check_mutants() -> int:
             results = list(pool.map(lambda n: run_mutant(n, "kernel", tmp),
                                     MUTANTS))
         results += [run_mutant(n, "served", tmp) for n in MUTANTS]
-        results.append(run_mutant(LINKER_MUTANT, "linker", tmp))
+        results += [run_mutant(LINKER_MUTANT, phase, tmp)
+                    for phase in ("linker", "fastpath")]
     missed = []
     for name, which, rc, last in results:
         print(f"mutant {name}, {which} check: "
@@ -2963,6 +3793,8 @@ def main() -> int:
         return sweep()
     if args in (["--time"], ["--time-only"]):
         return run_timing(check=args == ["--time"])
+    if args == ["--witness"]:
+        return run_witness()
     if len(args) == 2 and args[0] == "--check" and \
             args[1] in CHECKS + PHASES:
         return run_check(args[1])
@@ -2974,6 +3806,7 @@ def main() -> int:
         return 2
 
     from linkerd_tpu_torch.models.anomaly import AnomalyModelConfig
+    from linkerd_tpu_torch.native import _build as native_build
     from linkerd_tpu_torch.ops import _build
     from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
 
@@ -2984,8 +3817,15 @@ def main() -> int:
           f"device {kind}")
 
     t0 = time.perf_counter()
-    lib = _build.build("score_mlp")
-    print(f"build score_mlp.cu: {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(2) as pool:  # g++ beside nvcc
+        engine = [pool.submit(native_build.build, t)
+                  for t in ("engine", "h2bench")]
+        lib = _build.build("score_mlp")
+        print(f"build score_mlp.cu: {time.perf_counter() - t0:.2f} s")
+        for f in engine:
+            f.result()
+    print(f"build the native engine and h2bench: "
+          f"{time.perf_counter() - t0:.2f} s")
     ptxas = lib.with_suffix(".ptxas.txt").read_text().strip()
     print(ptxas)
     spills = [ln for ln in ptxas.splitlines()
@@ -3022,6 +3862,7 @@ def main() -> int:
     distill, distill_launches = asyncio.run(distill_phase(cfg))
     telemeter, telemeter_launches = asyncio.run(telemeter_phase(cfg))
     linker, linker_launches = asyncio.run(linker_phase())
+    fastpath, fastpath_launches = asyncio.run(fastpath_phase())
     telemeter["recorder"] = recorder_us()
     print(f"recorder filter: {telemeter['recorder']['recorder_us']:.2f} us "
           f"a request, the downstream alone "
@@ -3049,7 +3890,8 @@ def main() -> int:
         "launches_by_phase": dict(serve=launches, **train_launches,
                                   distill=distill_launches,
                                   telemeter=telemeter_launches,
-                                  linker=linker_launches),
+                                  linker=linker_launches,
+                                  fastpath=fastpath_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -3070,6 +3912,8 @@ def main() -> int:
     print(json.dumps({"telemeter": telemeter, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"linker": linker, "card": name.strip(),
+                      "power_limit": limit.strip()}))
+    print(json.dumps({"fastpath": fastpath, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,10 +8,13 @@ assembly.
 
 The port's linker builds HTTP routers with the ``io.l5d.fs`` namer (plus
 the in-process ``/$/inet`` and status utility namers) and the
-``io.l5d.jaxAnomaly`` telemeter, whose scorer runs on ``device``. What
-the reference's linker also takes is refused by name with the ROADMAP
-item that brings it (``REFUSED_ROUTER_KEYS``, ``UNPORTED_KINDS``):
-a config naming one fails at load rather than serving without it.
+``io.l5d.jaxAnomaly`` telemeter, whose scorer runs on ``device``. A
+``fastPath: true`` router is served by the native HTTP/1.1 engine, built
+from the repository's ``native/`` sources, with one worker; its rows
+feed the telemeter's native ring. What the reference's linker also
+takes is refused by name with the ROADMAP item that brings it
+(``REFUSED_ROUTER_KEYS``, ``UNPORTED_KINDS``): a config naming one fails
+at load rather than serving without it.
 """
 
 from __future__ import annotations
@@ -71,7 +74,11 @@ import linkerd_tpu_torch.namer.fs  # noqa: F401
 DEFAULT_ADMIN_PORT = 9990  # ref: Linker.scala:37
 
 # The ROADMAP items (Queue 1) that bring what this linker refuses.
-_NATIVE = "ROADMAP Queue 1 item 4 (the native engines)"
+_WORKERS = "ROADMAP Queue 1 item 4 (the native engines: sharded workers)"
+_H2_ENGINE = "ROADMAP Queue 1 item 4 (the native engines: the h2 engine)"
+_NATIVE_TLS = "ROADMAP Queue 1 item 4 (the native engines: native TLS)"
+_GUARD = ("ROADMAP Queue 1 item 4 (the native engines: connectionGuard "
+          "and streamScoring)")
 _PROTOCOLS = "ROADMAP Queue 1 item 12 (h2/gRPC, then thrift/mux)"
 _TLS = "ROADMAP Queue 1 item 9 (TLS)"
 _EDGE = "ROADMAP Queue 1 item 10 (admission, tenants and loggers)"
@@ -86,12 +93,10 @@ _NAMING = ("ROADMAP Queue 1 item 13 (the other namers, transformers and "
 
 # Router keys the reference takes and the port does not yet, each with
 # the item that brings it. A key counts as given when it is not None and
-# not False.
+# not False. (``workers`` other than 1 is refused with ``_WORKERS``.)
 REFUSED_ROUTER_KEYS: Dict[str, str] = {
-    "fastPath": _NATIVE,
-    "workers": _NATIVE,
-    "connectionGuard": _NATIVE,
-    "streamScoring": _NATIVE,
+    "connectionGuard": _GUARD,
+    "streamScoring": _GUARD,
     "tenants": _EDGE,
     "tenantIdentifier": _EDGE,
     "admissionControl": _EDGE,
@@ -586,6 +591,39 @@ class Router:
             await s.close()
         await self.service.close()
 
+
+class _FastPathRouter(Router):
+    """Router facade over a FastPathController (fastPath: true)."""
+
+    class _ServerHandle:
+        """A listener's bound port, as a Python HttpServer exposes
+        it."""
+
+        def __init__(self, port: int):
+            self.bound_port = port
+
+    def __init__(self, spec: RouterSpec, label: str, controller,
+                 ports: List[int], interpreter=None):
+        self.spec = spec
+        self.label = label
+        self.controller = controller
+        self._ports = ports
+        self.service = None
+        self.binding = None
+        self.servers = [self._ServerHandle(p) for p in ports]
+        self.interpreter = interpreter
+
+    @property
+    def server_ports(self) -> List[int]:
+        return list(self._ports)
+
+    async def start(self) -> None:
+        await self.controller.start()
+
+    async def close(self) -> None:
+        await self.controller.close()
+
+
 class Linker:
     """The reference's ``Linker`` for HTTP/1.1 routers, with its
     telemeters built on ``device``."""
@@ -639,6 +677,10 @@ class Linker:
 
         labels_seen: Dict[str, int] = {}
         for rspec in self.spec.routers:
+            if rspec.fastPath and rspec.protocol != "http":
+                raise _refusal(
+                    f"{rspec.label or rspec.protocol}.fastPath on protocol "
+                    f"{rspec.protocol!r}", _H2_ENGINE)
             if rspec.protocol in REFUSED_PROTOCOLS:
                 raise _refusal(f"protocol {rspec.protocol!r}",
                                REFUSED_PROTOCOLS[rspec.protocol])
@@ -650,6 +692,17 @@ class Linker:
             labels_seen[label] = n + 1
             if n:
                 label = f"{label}-{n}"
+            if rspec.workers is not None:
+                if not rspec.fastPath:
+                    raise ConfigError(
+                        f"{label}: workers requires fastPath: true (the "
+                        f"sharded epoll workers are the native engines; "
+                        f"the asyncio data plane is single-loop)")
+                if rspec.workers != 1:
+                    raise _refusal(f"{label}.workers: {rspec.workers}",
+                                   _WORKERS)
+            if rspec.fastPath:
+                self._check_fastpath_spec(rspec, label)
             for key, item in REFUSED_ROUTER_KEYS.items():
                 value = getattr(rspec, key)
                 if value is not None and value is not False:
@@ -779,7 +832,83 @@ class Linker:
 
         return per_server
 
+    def _check_fastpath_spec(self, rspec: RouterSpec, label: str) -> None:
+        """Refuse config the native engine cannot honor — silently
+        dropping an operator's TLS or policy block would be worse than
+        failing the load. TLS on a fastPath server or client is refused
+        by name until the engine's TLS is bound; the rest is the
+        reference's own refusals, word for word."""
+        for i, srv in enumerate(rspec.servers or []):
+            if srv.tls is not None:
+                raise _refusal(f"{label}.servers[{i}].tls", _NATIVE_TLS)
+        raw = rspec.client
+        if isinstance(raw, dict) and ("tls" in raw or any(
+                isinstance(c, dict) and "tls" in c
+                for c in (raw.get("configs") or []))):
+            raise _refusal(f"{label}.client.tls", _NATIVE_TLS)
+        if rspec.service:
+            raise ConfigError(
+                f"{label}: service policy (classifier/retries/timeout) "
+                f"is not supported with fastPath: true")
+        if rspec.loggers:
+            # the native engine has no Python per-request hook; an
+            # ignored audit log is worse than a load failure
+            raise ConfigError(
+                f"{label}: loggers are not supported with fastPath: true")
+        if rspec.admissionControl is not None:
+            raise ConfigError(
+                f"{label}: admissionControl is not supported with "
+                f"fastPath: true (the native engine has no Python "
+                f"per-request hook to enforce it)")
+        for i, srv in enumerate(rspec.servers or []):
+            if srv.timeoutMs is not None:
+                # the h1 engine has no per-response timeout setter, so
+                # reject rather than silently drop the knob
+                raise ConfigError(
+                    f"{label}.servers[{i}].timeoutMs is not supported "
+                    f"with fastPath: true on http/1.1 (the engine "
+                    f"applies its own timeouts); h2 fastPath honors it")
+            if srv.compressionLevel:
+                raise ConfigError(
+                    f"{label}.servers[{i}].compressionLevel is not "
+                    f"supported with fastPath: true (the native engine "
+                    f"proxies bodies byte-for-byte)")
+
+    def _mk_fastpath_router(self, rspec: RouterSpec,
+                            label: str) -> Router:
+        """An http router served by the native engine (fastPath: true),
+        one worker. The engine owns the listeners and the request hot
+        loop; naming, stats, and anomaly features flow through
+        FastPathController. The router's client and identifier blocks
+        are not read (the engine routes by Host), as in the reference."""
+        from linkerd_tpu_torch import native
+        from linkerd_tpu_torch.router.fastpath import FastPathController
+
+        try:
+            native.ensure_built()
+        except (RuntimeError, OSError, AttributeError) as e:
+            raise ConfigError(
+                f"{label}: fastPath requires the native library ({e})"
+            ) from None
+        base_dtab = Dtab.read(rspec.dtab) if rspec.dtab else Dtab.empty()
+        prefix = Path.read(rspec.dstPrefix)
+        interpreter = ConfiguredDtabNamer(self.namers)
+        engine = native.FastPathEngine()
+        try:
+            ports = [engine.listen(s.ip, s.port)
+                     for s in rspec.servers or [ServerSpec()]]
+        except BaseException:
+            engine.close()
+            raise
+        ctl = FastPathController(
+            engine, interpreter, base_dtab, prefix, label, self.metrics,
+            telemeters=self.telemeters)
+        return _FastPathRouter(rspec, label, ctl, ports,
+                               interpreter=interpreter)
+
     def _mk_http_router(self, rspec: RouterSpec, label: str) -> Router:
+        if rspec.fastPath:
+            return self._mk_fastpath_router(rspec, label)
         base_dtab = Dtab.read(rspec.dtab) if rspec.dtab else Dtab.empty()
         prefix = Path.read(rspec.dstPrefix)
         identifier = self._mk_identifier(

@@ -17,10 +17,13 @@ master weights held on the device, and snapshots carry the Adam state
 in the layout of ``optax.adam``'s, so training continues across the
 two packages.
 
-The telemeter has no router, sidecar tier, control loop or native
-engine feed yet (ROADMAP Queue 1 items 3 and 4): its config refuses those
-keys by name, and a caller drives it through ``recorder()``, ``ring``,
-``drain_once`` and ``run``.
+Native engine rows (a ``fastPath: true`` router's) arrive in
+``native_ring``, drained by ``router.fastpath.FastPathController`` and
+featurized a block at a time by ``linerate.NativeFeaturizer``; rows the
+engine already scored in its data plane (``nativeTier: primary``) skip
+the device and fold straight into the board. The telemeter has no
+sidecar tier or control loop yet (ROADMAP Queue 1 item 4): its config
+refuses those keys by name.
 """
 
 from __future__ import annotations
@@ -65,7 +68,10 @@ from linkerd_tpu_torch.router.failure_accrual import (
 )
 from linkerd_tpu_torch.router.service import Filter, Service
 from linkerd_tpu_torch.router.tracing import TraceId
-from linkerd_tpu_torch.telemetry.linerate import RingDispatcher
+from linkerd_tpu_torch.telemetry.linerate import (
+    NATIVE_COL_SCORE, NATIVE_COL_SCORED, NativeFeatureRing,
+    NativeFeaturizer, RingDispatcher,
+)
 from linkerd_tpu_torch.telemetry.metrics import MetricsTree
 from linkerd_tpu_torch.telemetry.sidecar import bucket_rows
 from linkerd_tpu_torch.telemetry.telemeter import Telemeter
@@ -687,7 +693,6 @@ REFUSED_KEYS = {
     "breakerMaxBackoffMs": "ROADMAP Queue 1 item 4 (the sidecar's breaker)",
     "control": "ROADMAP Queue 1 item 4 (the control: block)",
 }
-NATIVE_FEED = "ROADMAP Queue 1 item 4 (NativeFeatureRing / NativeFeaturizer)"
 
 
 @register("telemeter", "io.l5d.jaxAnomaly")
@@ -747,10 +752,9 @@ class JaxAnomalyConfig:
 
 class JaxAnomalyTelemeter(Telemeter):
     """The in-process anomaly telemeter on one device: the reference's
-    counterpart less the sidecar tiers, the control loop and the native
-    engine feed. The scorer, lifecycle manager and distillation
-    pipeline it builds run on ``device`` (CUDA unless ``"cpu"`` is
-    named)."""
+    counterpart less the sidecar tiers and the control loop. The
+    scorer, lifecycle manager and distillation pipeline it builds run
+    on ``device`` (CUDA unless ``"cpu"`` is named)."""
 
     def __init__(self, cfg: JaxAnomalyConfig, metrics: MetricsTree,
                  scorer: Optional[Scorer] = None,
@@ -779,6 +783,10 @@ class JaxAnomalyTelemeter(Telemeter):
         self.cfg = cfg
         self.metrics = metrics
         self.ring: Deque = collections.deque(maxlen=cfg.ringCapacity)
+        # raw native-engine rows, drained C -> ring memory by the
+        # FastPathController and consumed zero-copy by the batcher
+        self.native_ring = NativeFeatureRing(cfg.ringCapacity)
+        self._native_featurizer = NativeFeaturizer()
         self.board = ScoreBoard(ttl_s=cfg.scoreTtlSecs)
         self._scorer = scorer
         self._stop = asyncio.Event()
@@ -786,19 +794,22 @@ class JaxAnomalyTelemeter(Telemeter):
         self._fit_lock = asyncio.Lock()
         self._node = metrics.scope("anomaly")
         self._scored = self._node.counter("scored_total")
-        # the reference's native-tier metrics, under its names: with no
-        # engine feed in the port (NATIVE_FEED) no row is scored in an
-        # engine and the native ring stays empty, so these read 0
+        # rows scored IN the native engines (in-data-plane tier); the
+        # scored_total counter includes them — native_scored_fraction
+        # is the native-vs-device tier split
         self._native_scored = self._node.counter("native_scored_total")
-        self._node.gauge("native_scored_fraction", fn=lambda: 0.0)
-        # every request that ENTERS the scoring path: scored_total /
-        # requests_total is the scored fraction — "100% scored" is
-        # measured, not asserted
+        self._node.gauge("native_scored_fraction",
+                         fn=self._native_fraction)
+        # every request that ENTERS the scoring path (recorder append or
+        # native-ring row): scored_total / requests_total is the scored
+        # fraction — "100% scored" is measured, not asserted
         self._requests = self._node.counter("requests_total")
         self._node.gauge("scored_fraction", fn=self._scored_fraction)
         self._node.gauge("ring_depth", fn=lambda: len(self.ring))
-        self._node.gauge("native_ring_depth", fn=lambda: 0.0)
-        self._node.gauge("native_ring_dropped", fn=lambda: 0.0)
+        self._node.gauge("native_ring_depth",
+                         fn=lambda: float(len(self.native_ring)))
+        self._node.gauge("native_ring_dropped",
+                         fn=lambda: float(self.native_ring.dropped))
         self._batches = self._node.counter("batches")
         self._train_loss = self._node.gauge("train_loss")
         # degraded mode: 1 while the scorer path is failing; scoring
@@ -867,6 +878,12 @@ class JaxAnomalyTelemeter(Telemeter):
         if req <= 0:
             return 1.0
         return min(1.0, self._scored.value / req)
+
+    def _native_fraction(self) -> float:
+        scored = self._scored.value
+        if scored <= 0:
+            return 0.0
+        return min(1.0, self._native_scored.value / scored)
 
     # -- native tier: weight export + publication -------------------------
     def register_weight_sink(self, sink: Callable[[bytes], None],
@@ -1066,11 +1083,23 @@ class JaxAnomalyTelemeter(Telemeter):
         self._requests.incr()
         self._wake.set()
 
-    def native_committed(self, rows: int, dropped: int = 0) -> None:
-        raise NotImplementedError(f"the native feed comes with {NATIVE_FEED}")
-
+    # -- native fastpath feed ---------------------------------------------
     def set_native_route_resolver(self, fn: Callable[[int], str]) -> None:
-        raise NotImplementedError(f"the native feed comes with {NATIVE_FEED}")
+        """Install the FastPathController's route_id -> dst-path mapping
+        (consulted once per unique route, cached)."""
+        self._native_featurizer.resolver = fn
+
+    def native_committed(self, rows: int, dropped: int = 0) -> None:
+        """The controller drained ``rows`` engine rows into
+        ``native_ring`` and shed ``dropped`` more under backpressure:
+        BOTH count toward requests_total (a shed row entered the
+        scoring path and was not scored — the scored fraction must
+        report < 1.0 under overload, not hide the shed), then wake the
+        batcher."""
+        if rows > 0 or dropped > 0:
+            self._requests.incr(rows + dropped)
+        if rows > 0:
+            self._wake.set()
 
     # with a span sink installed, 1-in-N batches pay the instrumented
     # timing path; the other N-1 keep the line-rate ring and span tags
@@ -1209,7 +1238,7 @@ class JaxAnomalyTelemeter(Telemeter):
                 await asyncio.gather(*inflight, return_exceptions=True)
 
     def _pending_rows(self) -> int:
-        return len(self.ring)
+        return len(self.ring) + len(self.native_ring)
 
     async def lifecycle_cycle(self) -> Optional[dict]:
         """One checkpoint/shadow-eval/promote-or-rollback pass (the
@@ -1253,83 +1282,202 @@ class JaxAnomalyTelemeter(Telemeter):
         return await self._score_and_publish(scorer, batch)
 
     def _take_batch(self) -> Optional[dict]:
-        """Assemble one micro-batch from the ring, featurized here,
-        synchronously."""
-        n = min(len(self.ring), self.cfg.maxBatch)
-        if not n:
-            return None
+        """Assemble one micro-batch: Python-path ring items plus a
+        zero-copy block of native engine rows. Featurization happens
+        HERE, synchronously — the native block is a view into ring
+        memory that is only valid until the caller's next await.
+
+        Engine rows that arrived PRE-SCORED (the in-data-plane native
+        tier; scored flag set) are split out of the device dispatch:
+        their features still feed training/drift/holdout, but the
+        device never re-scores them. ``x`` holds only the rows that
+        NEED a device score (Python-path + unscored native rows)."""
+        n_py = min(len(self.ring), self.cfg.maxBatch)
         # ring items are (fv, label[, trace, enqueued_at, endpoint]) —
         # external producers (benchmarks, fault harnesses) append
         # 2-tuples
         items = [(it + (None, None, None, None))[:5]
-                 for it in (self.ring.popleft() for _ in range(n))]
+                 for it in (self.ring.popleft() for _ in range(n_py))]
+        nat_block = self.native_ring.consume(self.cfg.maxBatch - n_py)
+        k = len(nat_block)
+        if not items and k == 0:
+            return None
         fvs = [it[0] for it in items]
-        labels = np.array([0.0 if it[1] is None else float(it[1])
-                           for it in items], dtype=np.float32)
-        mask = np.array([0.0 if it[1] is None else 1.0 for it in items],
-                        dtype=np.float32)
-        return {"items": items, "fvs": fvs, "x": featurize_batch(fvs),
-                "labels": labels, "mask": mask}
+        x_py = featurize_batch(fvs)
+        nat_inv: Optional[np.ndarray] = None
+        nat_dsts: List[str] = []
+        nat_scored: Optional[dict] = None
+        x_nat: Optional[np.ndarray] = None
+        if k:
+            # encode the WHOLE block in one pass — the featurizer's
+            # per-route drift EWMA must advance exactly once per drain,
+            # in arrival order (two subset passes would double-step the
+            # baseline and compute the later subset's drift against an
+            # already-advanced EWMA) — then split the ENCODED rows by
+            # tier. Boolean fancy indexing copies, safe across awaits.
+            x_enc, inv_all, dsts = \
+                self._native_featurizer.encode_block(nat_block)
+            is_scored = nat_block[:, NATIVE_COL_SCORED] > 0.5
+            if is_scored.any():
+                all_sc = bool(is_scored.all())
+                nat_scored = {
+                    "x": x_enc if all_sc else x_enc[is_scored],
+                    "scores": np.ascontiguousarray(
+                        nat_block[is_scored, NATIVE_COL_SCORE],
+                        np.float32),
+                    "inv": inv_all if all_sc else inv_all[is_scored],
+                    "dsts": dsts,
+                }
+            un = ~is_scored
+            if un.any():
+                all_un = bool(un.all())
+                x_nat = x_enc if all_un else x_enc[un]
+                nat_inv = inv_all if all_un else inv_all[un]
+                nat_dsts = dsts
+        k_un = 0 if x_nat is None else len(x_nat)
+        labels = np.array(
+            [0.0 if it[1] is None else float(it[1]) for it in items]
+            + [0.0] * k_un, dtype=np.float32)
+        mask = np.array(
+            [0.0 if it[1] is None else 1.0 for it in items]
+            + [0.0] * k_un, dtype=np.float32)
+        if x_nat is not None:
+            x = np.concatenate([x_py, x_nat]) if n_py else x_nat
+        else:
+            x = x_py
+        return {"items": items, "fvs": fvs, "x": x, "labels": labels,
+                "mask": mask, "n_py": n_py, "nat_inv": nat_inv,
+                "nat_dsts": nat_dsts, "nat_scored": nat_scored}
 
     async def _score_and_publish(self, scorer: Scorer, b: dict) -> int:
         """Score one assembled batch and publish every downstream
         effect: degraded-mode accounting, scorer spans, lifecycle
         drift/holdout, per-dst board updates, the distill feed,
-        training cadence."""
-        x, items, labels, mask = b["x"], b["items"], b["labels"], b["mask"]
+        training cadence.
+
+        Rows the engines already scored in-data-plane (``nat_scored``)
+        skip the device dispatch entirely: their scores publish
+        straight to the board, their features still feed
+        drift/holdout/distill/training — the RingDispatcher stays the
+        training and fallback tier."""
+        x, items, n_py = b["x"], b["items"], b["n_py"]
+        ns = b.get("nat_scored")
+        k_ns = 0 if ns is None else len(ns["x"])
+        n_dev = len(x)
         t_drain = time.monotonic()
         ts_us = int(time.time() * 1e6)
-        try:
-            scores = await scorer.score(x)
-        except asyncio.CancelledError:
-            raise
-        except Exception as e:  # noqa: BLE001 — graceful degradation:
-            # scoring is best-effort; a failing scorer drops the batch
-            # (requests were never blocked on it) and flips degraded mode
-            self._score_failures.incr()
-            self._dropped_batches.incr()
-            if not self.board.degraded:
-                log.warning(
-                    "anomaly scorer degraded (scoring paused, data "
-                    "plane unaffected): %r", e)
-            self._set_degraded(True)
-            return 0
-        scores = np.asarray(scores)
-        if self.board.degraded:
-            log.info("anomaly scorer recovered; scoring resumed")
-        self._set_degraded(False)
-        n = len(x)
-        self._scored.incr(n)
-        self._batches.incr()
-        if self._span_sink is not None:
-            self._record_scorer_spans(
-                items, t_drain, ts_us,
-                int((time.monotonic() - t_drain) * 1e6), scorer)
+        scores: Optional[np.ndarray] = None
+        dev_failed = False
+        if n_dev:
+            try:
+                scores = await scorer.score(x)
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:  # noqa: BLE001 — graceful degradation:
+                # scoring is best-effort; a failing scorer drops the
+                # device half of the batch (requests were never blocked
+                # on it) and flips degraded mode — engine-scored rows
+                # still publish below: the native tier does not depend
+                # on the device being healthy
+                self._score_failures.incr()
+                self._dropped_batches.incr()
+                dev_failed = True
+                if not self.board.degraded:
+                    log.warning(
+                        "anomaly scorer degraded (scoring paused, data "
+                        "plane unaffected): %r", e)
+                self._set_degraded(True)
+                if k_ns == 0:
+                    return 0
+            else:
+                scores = np.asarray(scores)
+                if self.board.degraded:
+                    log.info("anomaly scorer recovered; scoring resumed")
+                self._set_degraded(False)
+        n_scored = (n_dev if scores is not None else 0) + k_ns
+        self._scored.incr(n_scored)
+        if k_ns:
+            self._native_scored.incr(k_ns)
+        if not dev_failed:
+            # a failed device dispatch was already counted dropped; the
+            # native half still publishes below but the batch must not
+            # ALSO count completed, nor export scorer spans for the
+            # Python items whose scoring was just dropped
+            self._batches.incr()
+            if self._span_sink is not None:
+                self._record_scorer_spans(
+                    items, t_drain, ts_us,
+                    int((time.monotonic() - t_drain) * 1e6), scorer)
+        # every row with a score — device-scored and engine-scored alike
+        # — feeds drift/holdout; labels/mask for the native rows are all
+        # zeros (engine rows are never fault-labeled)
+        x_all, labels_all, mask_all, scores_all = x, b["labels"], \
+            b["mask"], scores
+        if k_ns:
+            if scores is not None and n_dev:
+                x_all = np.concatenate([x, ns["x"]])
+                scores_all = np.concatenate(
+                    [scores, ns["scores"]])
+                labels_all = np.concatenate(
+                    [b["labels"], np.zeros(k_ns, np.float32)])
+                mask_all = np.concatenate(
+                    [b["mask"], np.zeros(k_ns, np.float32)])
+            else:
+                x_all, scores_all = ns["x"], ns["scores"]
+                labels_all = np.zeros(k_ns, np.float32)
+                mask_all = np.zeros(k_ns, np.float32)
         holdout = False
-        if self._lifecycle is not None:
+        if self._lifecycle is not None and scores_all is not None:
             # drift sees every batch (read-only); the replay window only
             # takes HOLDOUT batches, which are then excluded from
             # training below — a shadow-eval set the candidate trained
             # on could not catch a poisoned training stream
-            self._lifecycle.drift.observe(x, scores)
+            self._lifecycle.drift.observe(x_all, scores_all)
             holdout = self._batch_i % self.cfg.lifecycle.holdoutEveryBatches == 0
             if holdout:
-                self._lifecycle.replay.add_batch(x, labels, mask)
-        dsts = [fv.dst_path for fv in b["fvs"]]
-        self.board.update_batch(dsts, scores,
-                                endpoints=[it[4] for it in items])
-        if self.distill is not None and n:
-            # per-route drift + replay feed: host-only bookkeeping
-            self.distill.observe_batch(dsts, x, scores, labels, mask)
+                self._lifecycle.replay.add_batch(x_all, labels_all,
+                                                 mask_all)
+        if scores is not None:
+            self.board.update_batch([fv.dst_path for fv in b["fvs"]],
+                                    scores[:n_py],
+                                    endpoints=[it[4] for it in items])
+            if b["nat_inv"] is not None and b["nat_dsts"]:
+                # native rows: per-ROUTE means, vectorized (update_batch
+                # averages per dst anyway, so feeding group means is
+                # equivalent to feeding every row)
+                self._publish_route_means(
+                    b["nat_dsts"], b["nat_inv"], scores[n_py:])
+        self._publish_native_batch(ns)
+        if self.distill is not None and scores_all is not None \
+                and len(scores_all):
+            # per-route drift + replay feed: host-only bookkeeping,
+            # mirroring exactly how x_all was assembled (python rows,
+            # then device-scored native rows, then engine-scored rows)
+            dsts_all: List[str] = []
+            if scores is not None:
+                dsts_all.extend(fv.dst_path for fv in b["fvs"])
+                if b["nat_inv"] is not None and b["nat_dsts"]:
+                    nd = b["nat_dsts"]
+                    dsts_all.extend(nd[int(i)] for i in b["nat_inv"])
+            if k_ns:
+                nsd = ns["dsts"]
+                dsts_all.extend(nsd[int(i)] for i in ns["inv"])
+            if len(dsts_all) == len(scores_all):
+                self.distill.observe_batch(dsts_all, x_all, scores_all,
+                                           labels_all, mask_all)
         self._publish_gauges()
         self._batch_i += 1
         if (not holdout and self.cfg.trainEveryBatches
+                and not dev_failed
                 and self._batch_i % self.cfg.trainEveryBatches == 0):
             try:
                 # serialized: concurrent line-rate batches must not
-                # interleave their fit steps
+                # interleave their fit steps. Engine-scored rows train
+                # too — the device model is the training tier for ALL
+                # traffic, or it would drift away from the distribution
+                # the native tier actually serves
                 async with self._fit_lock:
-                    loss = await scorer.fit(x, labels, mask)
+                    loss = await scorer.fit(x_all, labels_all, mask_all)
             except asyncio.CancelledError:
                 raise
             except Exception as e:  # noqa: BLE001 — training is optional;
@@ -1340,7 +1488,34 @@ class JaxAnomalyTelemeter(Telemeter):
                 self._train_loss.set(loss)
                 self._maybe_refresh_native_weights(scorer)
         self._maybe_distill(scorer)
-        return n
+        return n_scored
+
+    def _publish_native_batch(self, ns: Optional[dict]) -> None:
+        """Publish engine-scored rows to the board: per-route score
+        means, no device work — the scores were computed in-data-plane
+        and this hop is pure host arithmetic."""
+        if ns is None or not ns["dsts"]:
+            return
+        self._publish_route_means(ns["dsts"], ns["inv"], ns["scores"])
+
+    def _publish_route_means(self, dsts: List[str], inv: np.ndarray,
+                             scores: np.ndarray) -> None:
+        """Per-route score means onto the board. ``dsts`` is the FULL
+        block's route list while ``inv`` may index only one tier's
+        subset of its rows — routes with no rows here are skipped, not
+        published as a spurious 0.0."""
+        m = len(dsts)
+        sums = np.bincount(inv, weights=scores, minlength=m)
+        counts = np.bincount(inv, minlength=m)
+        nz = counts > 0
+        if not nz.any():
+            return
+        if nz.all():
+            self.board.update_batch(dsts, sums / counts)
+        else:
+            self.board.update_batch(
+                [d for d, keep in zip(dsts, nz) if keep],
+                sums[nz] / counts[nz])
 
     # at most this many per-request scorer spans per drained batch: a
     # 1024-row batch must not turn into 1024 span records

@@ -1,5 +1,7 @@
 """Line-rate score dispatch: counterpart of ``RingDispatcher`` in
-``linkerd_tpu/telemetry/linerate.py``.
+``linkerd_tpu/telemetry/linerate.py``, and of its native engine feed
+(``NativeFeatureRing``, ``RouteTemporal``, ``NativeFeaturizer``), which
+carries the engines' per-request rows into the micro-batcher.
 
 ``RingDispatcher`` keeps, per batch bucket, two persistent staging
 slots in pinned host memory. A dispatch copies the batch into a free
@@ -257,3 +259,208 @@ class RingDispatcher:
                     self._reject, fut, RuntimeError("dispatcher closed"))
             except RuntimeError:
                 pass
+
+
+# -- native engine rows ---------------------------------------------------
+
+# engine row: route_id, lat_ms, status, req_b, rsp_b, ts, score,
+# scored, tenant, kind, stream, frame_seq. score/scored are the
+# in-data-plane scorer's output (native/scorer.h): scored == 1.0 rows
+# arrive pre-scored from the engine; 0.0 rows (no weight blob
+# published, route hash not pushed yet, nativeTier: off) fall back to
+# the device tier in the micro-batcher. tenant is the 24-bit-folded
+# FNV-1a tenant hash (0 = no tenant) the engine extracted per its
+# tenantIdentifier config. kind (native/stream_track.h row kinds) is
+# 0 for request rows, 1 for h2 stream samples, 2 for tunnel samples;
+# kind > 0 rows carry the 24-bit stream-lifetime key in `stream` and
+# the frame count at sample time in `frame_seq`, and repeat per
+# stream — the training path must keep them out of request-shaped
+# aggregation (the micro-batcher routes them to the stream sentinel).
+NATIVE_ROW_WIDTH = 12
+NATIVE_COL_SCORE = 6
+NATIVE_COL_SCORED = 7
+NATIVE_COL_TENANT = 8
+NATIVE_COL_KIND = 9
+NATIVE_COL_STREAM = 10
+NATIVE_COL_SEQ = 11
+
+# row kinds (mirror native/stream_track.h)
+NATIVE_KIND_REQUEST = 0.0
+NATIVE_KIND_STREAM = 1.0
+NATIVE_KIND_TUNNEL = 2.0
+
+
+class NativeFeatureRing:
+    """Preallocated single-producer single-consumer ring of raw native
+    feature rows (float32 [capacity, NATIVE_ROW_WIDTH], the engines'
+    FeatureRow layout incl. the in-data-plane score/scored columns).
+    Both sides run on the event loop thread; views are valid
+    until the holder's next await (no interleaved producer).
+
+    The producer (FastPathController) drains engine rows straight into
+    ring memory via ``produce_views`` + ``commit`` — no per-row Python
+    objects on the C++→Python seam. Under backpressure (consumer
+    behind), overflow rows are dropped-and-counted, never written over
+    unconsumed rows: wraparound can lose NEW rows, not corrupt old
+    ones.
+    """
+
+    def __init__(self, capacity: int = 65536, width: int = NATIVE_ROW_WIDTH):
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        self.buf = np.zeros((capacity, width), np.float32)
+        self.capacity = capacity
+        self.head = 0   # next row to consume
+        self.count = 0  # readable rows
+        self.dropped = 0
+
+    def __len__(self) -> int:
+        return self.count
+
+    @property
+    def free(self) -> int:
+        return self.capacity - self.count
+
+    def produce_views(self, max_rows: Optional[int] = None
+                      ) -> List[np.ndarray]:
+        """Up to two contiguous writable views (tail, then wrapped
+        head). Fill in order, then ``commit(rows_written)``."""
+        avail = self.free if max_rows is None else min(self.free, max_rows)
+        if avail <= 0:
+            return []
+        tail = (self.head + self.count) % self.capacity
+        first = min(avail, self.capacity - tail)
+        views = [self.buf[tail:tail + first]]
+        if avail > first:
+            views.append(self.buf[:avail - first])
+        return views
+
+    def commit(self, rows: int) -> None:
+        if rows < 0 or rows > self.free:
+            raise ValueError(f"commit({rows}) with free={self.free}")
+        self.count += rows
+
+    def drop(self, rows: int) -> None:
+        """Record ``rows`` overflow rows dropped at the producer."""
+        self.dropped += rows
+
+    def consume(self, max_rows: int) -> np.ndarray:
+        """Zero-copy view of up to ``max_rows`` oldest rows (one
+        contiguous chunk; call again for a wrapped remainder). The view
+        is valid until the caller's next await."""
+        n = min(self.count, max_rows, self.capacity - self.head)
+        if n <= 0:
+            return self.buf[:0]
+        view = self.buf[self.head:self.head + n]
+        self.head = (self.head + n) % self.capacity
+        self.count -= n
+        return view
+
+
+class RouteTemporal:
+    """Vectorized per-route latency-drift context for native feature
+    blocks: the block-granular analogue of the one temporal signal that
+    survived feature ablation (``models.features`` layout note: drift
+    is column 32; the error-rate/rate-delta columns are deliberately
+    zero). ``DstTemporal``'s per-row ``observe`` is exactly the
+    per-row Python churn the native seam must avoid, so each consumed
+    block updates one robust EWMA per route from the block's group
+    mean; per-row drift is computed against the EWMA *before* the
+    update, vectorized."""
+
+    def __init__(self, lat_alpha: float = 0.05, dev_clip: float = 3.0,
+                 dev_alpha: float = 0.05, max_routes: int = 4096):
+        self._lat_alpha = lat_alpha
+        self._dev_clip = dev_clip
+        self._dev_alpha = dev_alpha
+        self._max_routes = max_routes
+        self._ewma: Dict[int, float] = {}
+        self._dev: Dict[int, float] = {}
+
+    def drift_block(self, route_ids: np.ndarray,
+                    lat_ms: np.ndarray) -> np.ndarray:
+        """-> per-row latency drift (ms) against state BEFORE this
+        block updates it."""
+        drift = np.zeros(len(route_ids), np.float32)
+        uniq, inv = np.unique(route_ids, return_inverse=True)
+        for j, rid in enumerate(uniq):
+            rid = int(rid)
+            rows = inv == j
+            prev = self._ewma.get(rid)
+            if prev is not None:
+                drift[rows] = lat_ms[rows] - prev
+            mean = float(lat_ms[rows].mean())
+            if prev is None:
+                if len(self._ewma) >= self._max_routes:
+                    continue  # bounded cardinality: overflow routes get 0s
+                self._ewma[rid] = mean
+                self._dev[rid] = max(abs(mean) * 0.1, 0.25)
+            else:
+                dev = self._dev.get(rid, 0.25)
+                lim = self._dev_clip * max(dev, 0.25)
+                inc = min(max(mean - prev, -lim), lim)
+                self._ewma[rid] = prev + self._lat_alpha * inc
+                self._dev[rid] = dev + self._dev_alpha * (
+                    min(abs(mean - prev), lim) - dev)
+        return drift
+
+
+class NativeFeaturizer:
+    """Vectorized native-row → model-feature encoding. One numpy pass
+    per block; the only per-ROUTE (not per-row) Python work is the
+    cached dst-path hash lookup."""
+
+    def __init__(self, resolver: Optional[Callable[[int], str]] = None):
+        from linkerd_tpu_torch.models.features import FEATURE_DIM
+        self.dim = FEATURE_DIM
+        self.resolver = resolver
+        self.temporal = RouteTemporal()
+        self._hash_cache: Dict[int, Tuple[int, float, str]] = {}
+
+    def _route_info(self, rid: int) -> Tuple[int, float, str]:
+        from linkerd_tpu_torch.models.features import path_hash_cols
+        info = self._hash_cache.get(rid)
+        if info is None:
+            dst = self.resolver(rid) if self.resolver is not None else None
+            cacheable = dst is not None
+            if dst is None:
+                # resolver doesn't know this route yet (the id→host map
+                # rides the 1s stats loop): attribute to a placeholder
+                # but do NOT cache it — the next block re-resolves, so
+                # the board key self-corrects once the mapping lands
+                dst = f"/fp-{rid}"
+            col, sign = path_hash_cols(dst)
+            info = (col, sign, dst)
+            if cacheable and len(self._hash_cache) < 65536:
+                self._hash_cache[rid] = info
+        return info
+
+    def encode_block(self, block: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+        """float32 [k, 6] engine rows -> (x [k, FEATURE_DIM], route
+        index per row, dst path per unique route index)."""
+        from linkerd_tpu_torch.models.features import STATUS_ONEHOT_OFF
+        k = len(block)
+        x = np.zeros((k, self.dim), np.float32)
+        if k == 0:
+            return x, np.zeros(0, np.int64), []
+        rid = block[:, 0].astype(np.int64)
+        lat = np.maximum(block[:, 1], 0.0)
+        status = block[:, 2].astype(np.int64)
+        x[:, 0] = np.log1p(lat)
+        sc = status // 100
+        ok = (sc >= 1) & (sc <= 5)
+        x[np.flatnonzero(ok), STATUS_ONEHOT_OFF + sc[ok] - 1] = 1.0
+        x[:, 8] = np.log1p(np.maximum(block[:, 3], 0.0))
+        x[:, 9] = np.log1p(np.maximum(block[:, 4], 0.0))
+        x[:, 10] = np.log1p(1.0)  # engine rows carry no concurrency
+        x[:, 31] = 1.0
+        uniq, inv = np.unique(rid, return_inverse=True)
+        dsts: List[str] = []
+        for j, r in enumerate(uniq):
+            col, sign, dst = self._route_info(int(r))
+            dsts.append(dst)
+            x[inv == j, col] += sign
+        drift = self.temporal.drift_block(rid, lat.astype(np.float32))
+        x[:, 32] = np.sign(drift) * np.log1p(np.abs(drift))
+        return x, inv, dsts

@@ -64,6 +64,30 @@ DIFFERENT = {
     "announcer.py": (
         "a counterpart of FsAnnouncer alone, not a copy of the module",
         None),
+    "native/__init__.py": (
+        "the loader builds the port's own library from native/ and has no "
+        "pure-Python fallback (a failed build raises); FastPathEngine "
+        "drives one HTTP/1.1 worker (no sharding, TLS, tenants, guard or "
+        "streams); no h2 engine, head parser, Huffman or test-blob "
+        "bindings; the scorer calls raise instead of returning None "
+        "(ROADMAP Queue 1 item 4)",
+        {"FastPathEngine", "H2FastPathEngine", "MAX_HEADERS", "ScoreSlab",
+         "_QUANT_CODES", "_SO_PATH", "_SPANS", "_build",
+         "_declare_fastpath", "_declare_h2_fastpath", "_declare_scorer",
+         "_declare_tls", "_lock", "_merge_worker_stats", "_sum_hists",
+         "_tried", "auto_workers", "available", "ensure_built",
+         "huffman_decode", "huffman_encode", "json", "lib", "np", "os",
+         "parse_http1_head", "score_blob_info", "score_eval",
+         "score_eval_raw", "score_eval_route", "score_feature_dim",
+         "score_test_bank", "score_test_blob", "score_test_delta",
+         "stream_accum", "subprocess", "sys", "tenant_hash_native",
+         "threading"}),
+    "router/fastpath.py": (
+        "the controller of one HTTP/1.1 engine: no tenant board and "
+        "admission, stream sentinel, sharded workers or native TLS "
+        "counters (ROADMAP Queue 1 item 4), and no per-row "
+        "FeatureVector feed (every port telemeter has a native ring)",
+        {"FastPathController"}),
 }
 
 

@@ -329,7 +329,6 @@ BASE = ("routers:\n- protocol: http\n  servers: [{port: 0}]\n")
 REFUSALS = {
     **{f"router key {k}": (
         "routers:\n- protocol: http\n  " + {
-            "fastPath": "fastPath: true", "workers": "workers: 2",
             "connectionGuard": "connectionGuard: {}",
             "streamScoring": "streamScoring: {}",
             "tenants": "tenants: {}",
@@ -341,6 +340,18 @@ REFUSALS = {
         }[k] + "\n", k) for k in REFUSED_ROUTER_KEYS},
     **{f"protocol {p}": (f"routers:\n- protocol: {p}\n", f"protocol '{p}'")
        for p in REFUSED_PROTOCOLS},
+    **{f"fastPath {k}": (
+        "routers:\n- protocol: http\n  fastPath: true\n" + text, k)
+       for k, text in (
+           ("workers", "  workers: 2\n"),
+           ("connectionGuard", "  connectionGuard: {}\n"),
+           ("streamScoring", "  streamScoring: {}\n"),
+           ("tenants", "  tenants: {}\n"),
+           ("servers[0].tls", "  servers:\n  - port: 0\n    tls:\n"
+                              "      certPath: c\n      keyPath: k\n"),
+           ("client.tls", "  client:\n    tls: {}\n"))},
+    "fastPath on h2": ("routers:\n- protocol: h2\n  fastPath: true\n",
+                       "fastPath on protocol 'h2'"),
     "server tls": (
         "routers:\n- protocol: http\n  servers:\n  - port: 0\n    tls:\n"
         "      certPath: c\n      keyPath: k\n", "servers[0].tls"),

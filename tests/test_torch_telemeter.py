@@ -999,15 +999,6 @@ def test_config_keys_and_defaults_match_reference():
     assert port.JaxAnomalyConfig.kind == "io.l5d.jaxAnomaly"
     with pytest.raises(ConfigError, match="unknown telemeter kind"):
         lookup("telemeter", "io.l5d.prometheus")
-    tele = port.JaxAnomalyConfig(trainEveryBatches=0).mk(
-        metrics.MetricsTree(), device="cpu")
-    try:
-        for call in (lambda: tele.native_committed(4),
-                     lambda: tele.set_native_route_resolver(str)):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-                call()
-    finally:
-        tele.close()
 
 
 def test_cuda_by_default(snap, tmp_path):
