@@ -7,6 +7,7 @@
     python3 chip_smoke.py --check telemeter  # the telemeter phase alone
     python3 chip_smoke.py --check linker     # the linker phase alone
     python3 chip_smoke.py --check fastpath   # the fastpath phase alone
+    python3 chip_smoke.py --check control    # the control phase alone
     python3 chip_smoke.py --mutant one_rounding telemeter  # one mutant, one check
     python3 chip_smoke.py --witness  # the kernel's sums against exact ones
 
@@ -60,17 +61,27 @@ telemeter's blob published into the engine, which scores the rows in
 its data plane: its share of the window, its scores against the native
 evaluator and the float32 plain forward, and against the kernel), part
 C with no telemetry block, beside the window's traffic sent straight to
-the backends; and its times. Prints the card, a JSON line of kernel and
+the backends; and its times. Then the control phase: the same topology
+with the router bound through the port's namerd (a spawned process) over
+``io.l5d.namerd.http``, ``admissionControl`` on the router and the
+telemeter's ``control:`` block: part A (faults on one replica of each
+faulted destination; the score-weighted balancer drains those replicas
+to a trickle), part B (both replicas sick; one verified override
+published per sick cluster through namerd, traffic answered by the
+failover clusters, each override reverted after the faults clear, the
+namespace back to its bytes, an oscillation publishing nothing, an
+unsafe failover entry rejected), each holding what the linker phase
+holds; and its times. Prints the card, a JSON line of kernel and
 service numbers, one of the train phase's, one of the distill
 phase's, one of the telemeter phase's, one of the linker phase's, one
-of the fastpath phase's, and as its last line
+of the fastpath phase's, one of the control phase's, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; with no CUDA device, or
 outside the repository, it exits non-zero before printing any result.
 Imports nothing of JAX.
 
 ``--mutants`` builds deliberately broken copies of the kernel in a
 temporary copy of the port and runs the kernel and served checks
-against each, and the linker and fastpath phases against
+against each, and the linker, fastpath and control phases against
 ``LINKER_MUTANT``, in a fresh interpreter; it fails unless every check
 fails on its mutant.
 
@@ -2180,17 +2191,31 @@ LINKER_FAULT_MS = 40.0
 LINKER_BODY = 200          # response bytes, as the reference test's backend
 LINKER_AUC_MIN = 0.9
 LINKER_SETTLE_S = 60.0
+FAILOVER_WHO = 10          # ``answerer`` code of the failover cluster's replica 0
 # the last window the linker phase scored (rows, snapshot, kernel and
 # plain scores), for the witness of the kernel's sums (``--witness``)
 WINDOWS: dict = {}
 
 
+def faulting(flag: int, d: int, replica: int) -> bool:
+    """Whether replica ``replica`` of destination ``d`` injects faults
+    while the flag reads ``flag``: 1, both replicas of the first
+    TELE_FAULTED destinations; 2, replica 0 of those alone; 3, both
+    replicas of the first TELE_FAULTED + 1 (the control phase's part B,
+    whose one more sick destination has the unsafe failover entry)."""
+    if flag == 2:
+        return d < TELE_FAULTED and replica == 0
+    if flag == 3:
+        return d <= TELE_FAULTED
+    return flag == 1 and d < TELE_FAULTED
+
+
 def linker_backends(conn, dsts, flag, seed: int) -> None:
     """Child process: one HTTP server a replica of each destination index
     in ``dsts``; each answers ``tele-DD/R`` padded to LINKER_BODY bytes.
-    While ``flag`` is set, the first TELE_FAULTED destinations inject the
+    The destinations ``faulting`` names for ``flag``'s value inject the
     reference test's faults (LINKER_FAULT_MS, then 503 at
-    LINKER_ERROR_RATE), and every response carries the fault label."""
+    LINKER_ERROR_RATE); every response carries the fault label."""
     import random
 
     from linkerd_tpu_torch.protocol.http.message import Response
@@ -2199,11 +2224,11 @@ def linker_backends(conn, dsts, flag, seed: int) -> None:
 
     rng = random.Random(seed)
 
-    def backend(name: str, faulted: bool):
+    def backend(name: str, d: int, replica: int):
         body = name.encode().ljust(LINKER_BODY, b"x")
 
         async def handle(req):
-            if faulted and flag.value:
+            if faulting(flag.value, d, replica):
                 await asyncio.sleep(LINKER_FAULT_MS / 1e3)
                 rsp = (Response(503, body=b"injected fault")
                        if rng.random() < LINKER_ERROR_RATE
@@ -2217,7 +2242,7 @@ def linker_backends(conn, dsts, flag, seed: int) -> None:
         return FnService(handle)
 
     async def main():
-        servers = [await serve(backend(f"tele-{d:02d}/{r}", d < TELE_FAULTED))
+        servers = [await serve(backend(f"tele-{d:02d}/{r}", d, r))
                    for d in dsts for r in range(LINKER_REPLICAS)]
         conn.send([s.bound_port for s in servers])
         await asyncio.get_running_loop().run_in_executor(None, conn.recv)
@@ -2229,7 +2254,8 @@ def linker_backends(conn, dsts, flag, seed: int) -> None:
 
 async def linker_connection(port: int, plan, out: dict, off: int) -> None:
     """One keep-alive connection sending ``plan``'s destinations in turn,
-    each by its Host header; stores status, right replica and ms."""
+    each by its Host header; stores status, right replica, ms, the
+    monotonic instant it completed and who answered (``answerer``)."""
     from linkerd_tpu_torch.protocol.http.client import HttpClient
     from linkerd_tpu_torch.protocol.http.message import Request
 
@@ -2246,10 +2272,24 @@ async def linker_connection(port: int, plan, out: dict, off: int) -> None:
             else:
                 status, body = rsp.status, rsp.body
             out["ms"][off + i] = (time.perf_counter() - t0) * 1e3
+            out["t"][off + i] = time.monotonic()
             out["status"][off + i] = status
             out["right"][off + i] = body.startswith(f"tele-{d:02d}/".encode())
+            out["who"][off + i] = answerer(body, d)
     finally:
         await client.close()
+
+
+def answerer(body: bytes, d: int) -> int:
+    """Which backend of destination ``d`` answered: its replica R for
+    ``tele-DD/R``, FAILOVER_WHO + R for the failover cluster's
+    ``tele-DD-b/R``, -1 for anything else (an error body)."""
+    for base, name in ((0, f"tele-{d:02d}/"), (FAILOVER_WHO,
+                                              f"tele-{d:02d}-b/")):
+        if body.startswith(name.encode()):
+            r = body[len(name):len(name) + 1]
+            return base + int(r) if r.isdigit() else -1
+    return -1
 
 
 def linker_load(conn) -> None:
@@ -2265,7 +2305,8 @@ def linker_load(conn) -> None:
         n = sum(len(p) for p in plans)
         out = {"dst": np.concatenate(plans).astype(np.int16),
                "status": np.zeros(n, np.int16), "right": np.zeros(n, bool),
-               "ms": np.zeros(n)}
+               "ms": np.zeros(n), "t": np.zeros(n),
+               "who": np.zeros(n, np.int8)}
         offs = np.cumsum([0] + [len(p) for p in plans])
 
         async def run():
@@ -2296,15 +2337,17 @@ async def linker_traffic(loads, port, plans) -> dict:
     outs = await asyncio.gather(*(loop.run_in_executor(None, conn.recv)
                                   for conn, _ in loads))
     res = {k: np.concatenate([o[k] for o in outs])
-           for k in ("dst", "status", "right", "ms")}
+           for k in ("dst", "status", "right", "ms", "t", "who")}
     res["wall"] = max(o["wall"] for o in outs)
     return res
 
 
-def linker_traffic_checks(res: dict, what: str, faults_on: bool) -> dict:
-    """Every calm request answered 200 by a replica of its destination;
+def linker_traffic_checks(res: dict, what: str, faults_on: bool,
+                          faulted: int = TELE_FAULTED) -> dict:
+    """Every calm request (with ``faults_on``, of the destinations past
+    the first ``faulted``) answered 200 by a replica of its destination;
     returns requests/s and ms percentiles."""
-    calm = res["dst"] >= (TELE_FAULTED if faults_on else 0)
+    calm = res["dst"] >= (faulted if faults_on else 0)
     wrong = calm & ~((res["status"] == 200) & res["right"])
     if wrong.any():
         i = int(np.flatnonzero(wrong)[0])
@@ -2472,7 +2515,8 @@ def linker_gap_report(got, plain, x, snap, labels, dev: str,
     return out
 
 
-def linker_board_check(tele, tap, start: int, plain_by_id: dict) -> float:
+def linker_board_check(tele, tap, start: int, plain_by_id: dict,
+                       what: str = "linker A") -> float:
     """The board against a fresh ScoreBoard folded in the same order: with
     the kernel's scores before fold ``start`` and the plain version's
     from it on. Returns the largest gap."""
@@ -2487,9 +2531,67 @@ def linker_board_check(tele, tap, start: int, plain_by_id: dict) -> float:
     got_ep, want_ep = (tele.board.effective_endpoint_scores(),
                        fresh.effective_endpoint_scores())
     if sorted(got) != sorted(want) or sorted(got_ep) != sorted(want_ep):
-        raise AssertionError("linker A: board keys differ from the fold")
+        raise AssertionError(f"{what}: board keys differ from the fold")
     return max(max(abs(got[k] - want[k]) for k in got),
                max(abs(got_ep[k] - want_ep[k]) for k in got_ep))
+
+
+def scored_checks(what: str, tele, tap, sent: int, launches: int,
+                  dev: str) -> dict:
+    """Every request recorded and every recorded row scored, with no
+    drop and no scorer failure; one kernel launch a batch. Returns the
+    launches, batches, batch sizes and ``_score_and_publish`` ms."""
+    flat = tele.metrics.flatten()
+    bad = {k: flat[f"anomaly/{k}"] for k in (
+        "score_failures", "dropped_batches", "degraded")
+        if flat[f"anomaly/{k}"]}
+    recorded, scored = flat["anomaly/requests_total"], \
+        flat["anomaly/scored_total"]
+    drops = recorded - scored - len(tele.ring)
+    print(f"{what}: {sent} requests, {recorded} recorded, "
+          f"{scored} scored, ring drops {drops}")
+    if bad or drops or scored != recorded or recorded != sent:
+        raise AssertionError(
+            f"{what}: {sent} sent, {recorded} recorded, {scored} "
+            f"scored, {drops} dropped, {bad}")
+    batches = flat["anomaly/batches"]
+    expect = 0 if dev == "cpu" else batches
+    if launches != expect or len(tap.scored) != batches:
+        raise AssertionError(
+            f"{what}: {launches} kernel launches, {batches} "
+            f"batches, {len(tap.scored)} score calls")
+    pub = np.asarray(tap.publish_ms)
+    return dict(launches=launches, batches=batches,
+                batch_sizes=batch_sizes(tap),
+                score_and_publish_p50_ms=float(np.percentile(pub, 50)),
+                score_and_publish_p99_ms=float(np.percentile(pub, 99)))
+
+
+def window_checks(what: str, tele, tap, snap, start: int, first: int,
+                  dev: str):
+    """The window's kernel scores (score calls from ``start``, batches
+    from ``first``, one model ``snap``) against the plain version, and the
+    board against a plain fold. Returns the readings, the kernel and plain
+    scores and the rows."""
+    xs = [x for x, _ in tap.scored[start:]]
+    got = np.concatenate([s for _, s in tap.scored[start:]])
+    plain = plain_scores(snap, np.concatenate(xs), dev)
+    cuts = np.cumsum([len(x) for x in xs])[:-1]
+    plain_by_id = {batch_key(s): p for (_, s), p in zip(
+        tap.scored[start:], np.split(plain, cuts))}
+    gap = linker_board_check(tele, tap, start, plain_by_id, what)
+    print(f"{what}: board vs plain fold {gap:.3e}")
+    if gap > TOL:
+        raise AssertionError(f"{what}: board off the plain fold "
+                             f"by {gap} > {TOL}")
+    wb = tap.batches[first:]
+    rows = linker_gap_report(
+        got, plain, np.concatenate(xs), snap,
+        np.concatenate([b["labels"] for b in wb]), dev, what)
+    held = dict(board_vs_plain_fold_max=gap, kernel_vs_plain=rows,
+                kernel_vs_plain_max=rows["kernel_vs_plain_max"],
+                window_rows=len(got))
+    return held, got, plain, xs
 
 
 async def linker_part(part: str, text: str, loads, flag, plans, dev: str):
@@ -2536,31 +2638,9 @@ async def linker_part(part: str, text: str, loads, flag, plans, dev: str):
         out["router_ms"] = linker_stages(linker)
         if tele is None:
             return out, launches
-        flat = tele.metrics.flatten()
-        bad = {k: flat[f"anomaly/{k}"] for k in (
-            "score_failures", "dropped_batches", "degraded")
-            if flat[f"anomaly/{k}"]}
-        recorded, scored = flat["anomaly/requests_total"], \
-            flat["anomaly/scored_total"]
-        drops = recorded - scored - len(tele.ring)
-        sent = len(warm["ms"]) + len(window["ms"])
-        print(f"linker {part}: {sent} requests, {recorded} recorded, "
-              f"{scored} scored, ring drops {drops}")
-        if bad or drops or scored != recorded or recorded != sent:
-            raise AssertionError(
-                f"linker {part}: {sent} sent, {recorded} recorded, {scored} "
-                f"scored, {drops} dropped, {bad}")
-        batches = flat["anomaly/batches"]
-        expect = 0 if dev == "cpu" else batches
-        if launches != expect or len(tap.scored) != batches:
-            raise AssertionError(
-                f"linker {part}: {launches} kernel launches, {batches} "
-                f"batches, {len(tap.scored)} score calls")
-        pub = np.asarray(tap.publish_ms)
-        out.update(launches=launches, batches=batches,
-                   batch_sizes=batch_sizes(tap),
-                   score_and_publish_p50_ms=float(np.percentile(pub, 50)),
-                   score_and_publish_p99_ms=float(np.percentile(pub, 99)))
+        out.update(scored_checks(
+            f"linker {part}", tele, tap,
+            len(warm["ms"]) + len(window["ms"]), launches, dev))
         routes = tele_routes()
         board = {d: tele.board.score_of(d) for d in routes}
         faulted = routes[:TELE_FAULTED]
@@ -2568,21 +2648,9 @@ async def linker_part(part: str, text: str, loads, flag, plans, dev: str):
             "faulted_min": min(board[d] for d in faulted),
             "calm_max": max(board[d] for d in routes[TELE_FAULTED:])}
         if part == "A":
-            xs = [x for x, _ in tap.scored[start:]]
-            got = np.concatenate([s for _, s in tap.scored[start:]])
-            plain = plain_scores(snap, np.concatenate(xs), dev)
-            cuts = np.cumsum([len(x) for x in xs])[:-1]
-            plain_by_id = {batch_key(s): p for (_, s), p in zip(
-                tap.scored[start:], np.split(plain, cuts))}
-            gap = linker_board_check(tele, tap, start, plain_by_id)
-            print(f"linker A: board vs plain fold {gap:.3e}")
-            if gap > TOL:
-                raise AssertionError(f"linker A: board off the plain fold "
-                                     f"by {gap} > {TOL}")
+            held, got, plain, xs = window_checks(
+                "linker A", tele, tap, snap, start, first, dev)
             wb = tap.batches[first:]
-            rows = linker_gap_report(
-                got, plain, np.concatenate(xs), snap,
-                np.concatenate([b["labels"] for b in wb]), dev)
             labels = np.concatenate([b["labels"] for b in wb])
             mask = np.concatenate([b["mask"] for b in wb])
             if len(labels) != len(got) or mask.min() < 1:
@@ -2594,10 +2662,7 @@ async def linker_part(part: str, text: str, loads, flag, plans, dev: str):
             lv = out["board_levels"]
             if not lv["faulted_min"] > lv["calm_max"]:
                 raise AssertionError(f"linker A: board {board}")
-            out.update(board_vs_plain_fold_max=gap, kernel_vs_plain=rows,
-                       kernel_vs_plain_max=rows["kernel_vs_plain_max"],
-                       window_rows=len(got), positives=int(labels.sum()),
-                       auc=got_auc)
+            out.update(held, positives=int(labels.sum()), auc=got_auc)
             WINDOWS["linker"] = dict(x=np.concatenate(xs), snap=snap,
                                      kernel=got, plain=plain)
         if part == "B":
@@ -3187,6 +3252,761 @@ async def fastpath_phase(seed: int = 12, dev: str = "cuda"):
     return res, a["launches"] + b["launches"]
 
 
+# The control phase: the linker phase's topology with the router bound
+# through the port's namerd (a spawned process serving the HTTP control
+# API over an in-memory store and the io.l5d.fs namer) with
+# ``interpreter: {kind: io.l5d.namerd.http}``, and the telemeter's
+# ``control:`` block at the reference's defaults. Part A (no failover
+# map): faults on replica 0 of the 4 faulted destinations; the
+# score-weighted balancer drains those replicas to a trickle. Part B:
+# both replicas of the 4 go sick, with ``failover: /svc/tele-DD:
+# /svc/tele-DD-b``, and a fifth with one deliberately unsafe entry
+# (``/svc/tele-04: /svc/tele-04``, a self-shift: a cycle); the reactor
+# publishes one
+# verified override per sick cluster through namerd, the router rebinds
+# over its namerd watch, traffic moves to the ``-b`` clusters, and each
+# override reverts after the faults clear; then faults toggled faster
+# than quorum x intervalMs publish nothing. Part B's model trains on at
+# the reference's cadence, and nothing may actuate on the calm traffic
+# between the cold-start guard's lift and the fault.
+# ``admissionControl`` with a base limit of 256 in both (floor 0.25: 64,
+# the connections in flight).
+CONTROL_BASE_DTAB = "/svc => /#/io.l5d.fs ;"
+# one more destination goes sick in part B, under a self-shift: a cycle
+CONTROL_UNSAFE = (f"/svc/tele-{TELE_FAULTED:02d}",) * 2
+CONTROL_ADMISSION = 256              # admissionControl.maxConcurrency
+CONTROL_SEGMENT = 2048    # requests a traffic segment while part B runs
+CONTROL_WAIT_S = 30.0     # longest wait for a publish or a revert
+CONTROL_HOLD_S = 0.5      # faults stay on this long after the publishes
+# The oscillation: faults on, then off, per cycle; a cycle (0.2 s) is
+# under quorum x intervalMs. Its dose is small because the model's
+# latency-drift feature reads the calm requests after a fault as
+# anomalous for about a second (the per-destination latency baseline
+# returns slowly): 10 cycles of 30 ms left an aftershock that held a
+# cluster over enterThreshold for a quorum of steps after the toggles
+# (on an NVIDIA H100 80GB HBM3 host; ROADMAP Queue 3). At this dose the
+# board smooths the toggles and the levels have stayed under
+# enterThreshold, so the segment holds that the toggles move nothing,
+# not the governor's quorum and dwell: those are held on scripted
+# levels by tests/test_torch_control.py (the oscillation scenario). The
+# phase prints whether the segment reached enterThreshold.
+CONTROL_OSC_ON_S = 0.02
+CONTROL_OSC_OFF_S = 0.18
+CONTROL_OSC_CYCLES = 5
+CONTROL_FIT_EVERY = 8     # the second warm-up's cadence: the reference's
+# The cold-start guard: no actuator before this many batches. The default
+# (50) lifts inside the first warm-up, where the model still trains on a
+# router slowed by a fit a batch, and the reactor published and reverted
+# overrides on calm traffic there (ROADMAP Queue 3, open); the two
+# warm-ups take ~170 batches at the linker phase's ~95 rows a batch
+# (PERF.md §5), and the guard lifts near their end. Part B fails on any
+# publish, revert, reject or governor transition between the guard's
+# lift and the fault.
+CONTROL_WARMUP_BATCHES = 150
+CONTROL_KEYS = ("intervalMs", "weightThreshold", "weightFloor",
+                "admissionThreshold", "admissionFloor", "enterThreshold",
+                "exitThreshold", "quorum", "cooldownS", "warmupBatches")
+
+
+def failover_backends(conn) -> None:
+    """Child process: the failover cluster ``tele-DD-b`` of each faulted
+    destination, one backend each answering ``tele-DD-b/0`` padded to
+    LINKER_BODY bytes (never faulted)."""
+    from linkerd_tpu_torch.protocol.http.message import Response
+    from linkerd_tpu_torch.protocol.http.server import serve
+    from linkerd_tpu_torch.router.service import FnService
+
+    def backend(name: str):
+        body = name.encode().ljust(LINKER_BODY, b"x")
+
+        async def handle(req):
+            rsp = Response(200, body=body)
+            rsp.headers.set("l5d-fault-label", "0")
+            return rsp
+
+        return FnService(handle)
+
+    async def main():
+        servers = [await serve(backend(f"tele-{d:02d}-b/0"))
+                   for d in range(TELE_FAULTED)]
+        conn.send([s.bound_port for s in servers])
+        await asyncio.get_running_loop().run_in_executor(None, conn.recv)
+        for s in servers:
+            await s.close()
+
+    asyncio.run(main())
+
+
+def control_namerd(conn, disco: str) -> None:
+    """Child process: the port's namerd, the ``default`` namespace at
+    CONTROL_BASE_DTAB in an in-memory store over the io.l5d.fs namer at
+    ``disco``, served by its HTTP control API; sends the port, serves
+    until told to stop."""
+    from linkerd_tpu_torch.core import Dtab, Path as NPath
+    from linkerd_tpu_torch.namer.fs import FsNamer
+    from linkerd_tpu_torch.namerd import InMemoryDtabStore, Namerd
+    from linkerd_tpu_torch.namerd.http_api import HttpControlService
+    from linkerd_tpu_torch.protocol.http.server import serve
+
+    async def main():
+        namerd = Namerd(
+            InMemoryDtabStore({"default": Dtab.read(CONTROL_BASE_DTAB)}),
+            namers=[(NPath.read("/io.l5d.fs"), FsNamer(disco))])
+        server = await serve(HttpControlService(namerd))
+        conn.send(server.bound_port)
+        await asyncio.get_running_loop().run_in_executor(None, conn.recv)
+        await server.close()
+        await namerd.close()
+
+    asyncio.run(main())
+
+
+def control_config(namerd_port: int, failover: bool) -> str:
+    """The control phase's linker as JSON text: the linker phase's router
+    with no dtab of its own, bound through namerd, with
+    ``admissionControl``; the telemeter as in the linker phase's part A
+    with a ``control:`` block at the reference's defaults but for
+    ``warmupBatches`` (with ``failover`` the reactor's map, else none)."""
+    control = {"namespace": "default",
+               "namerdAddress": f"127.0.0.1:{namerd_port}",
+               "warmupBatches": CONTROL_WARMUP_BATCHES}
+    if failover:
+        control["failover"] = {
+            **{d: f"{d}-b" for d in tele_routes()[:TELE_FAULTED]},
+            CONTROL_UNSAFE[0]: CONTROL_UNSAFE[1]}
+    return json.dumps({
+        "routers": [{
+            "protocol": "http", "label": "tele",
+            "identifier": {"kind": "io.l5d.header.token"},
+            "interpreter": {"kind": "io.l5d.namerd.http",
+                            "dst": f"/$/inet/127.0.0.1/{namerd_port}",
+                            "namespace": "default"},
+            "admissionControl": {"maxConcurrency": CONTROL_ADMISSION},
+            "servers": [{"port": 0}],
+            "client": {"failureAccrual": {"kind": "none"}}}],
+        "telemetry": [{"kind": "io.l5d.jaxAnomaly", "trainEveryBatches": 1,
+                       "reconWeight": 1.0, "control": control}]})
+
+
+class ControlTap:
+    """Records, on a linker's control loop, each admission factor and,
+    with a reactor, each step's instant and cluster levels; and, on a
+    namerd watch of the namespace, each dtab with the instant it
+    arrived."""
+
+    def __init__(self, ctl, namerd_port: int):
+        from linkerd_tpu_torch.control.reactor import NamerdHttpStoreClient
+
+        self.factors, self.levels, self.dtabs = [], [], []
+        step = ctl.admission.step
+
+        def stepping():
+            f = step()
+            self.factors.append(f)
+            return f
+
+        ctl.admission.step = stepping
+        if ctl.reactor is not None:
+            reactor, rstep = ctl.reactor, ctl.reactor.step
+
+            async def rstepping(now=None):
+                self.levels.append((time.monotonic(),
+                                    reactor.cluster_levels()))
+                return await rstep(now)
+
+            ctl.reactor.step = rstepping
+        self.client = NamerdHttpStoreClient(f"127.0.0.1:{namerd_port}")
+        self.watch = asyncio.create_task(self._watch())
+
+    async def _watch(self):
+        async for dtab in self.client.watch("default"):
+            self.dtabs.append((time.monotonic(), dtab.show))
+
+    async def close(self) -> None:
+        self.watch.cancel()
+        await asyncio.gather(self.watch, return_exceptions=True)
+        await self.client.aclose()
+
+
+async def wait_for(pred, what: str, timeout: float = CONTROL_WAIT_S,
+                   task=None) -> float:
+    """Polls ``pred`` every 5 ms; returns the monotonic instant it held.
+    Fails after ``timeout`` or when ``task`` (the telemeter) ends."""
+    t0 = time.monotonic()
+    while not pred():
+        if task is not None and task.done():
+            task.result()
+            raise AssertionError(f"control: run() ended waiting for {what}")
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"control: no {what} after {timeout} s")
+        await asyncio.sleep(5e-3)
+    return time.monotonic()
+
+
+def level_summary(levels, t0: float, t1: float, enter: float,
+                  exit_: float) -> dict:
+    """The failover clusters' levels the reactor observed at its steps in
+    [t0, t1): the largest, the median and the least of each step's
+    highest, the longest run of steps with one cluster at or over
+    ``enter`` and the longest with one at or over ``exit_``."""
+    steps = [{c: v for c, v in lv.items() if c != CONTROL_UNSAFE[0]}
+             for t, lv in levels if t0 <= t < t1]
+    if not steps:
+        return {"steps": 0}
+
+    def longest(bar):
+        best = 0
+        for c in steps[0]:
+            run = 0
+            for s in steps:
+                run = run + 1 if s[c] >= bar else 0
+                best = max(best, run)
+        return best
+
+    top = [max(s.values()) for s in steps]
+    return {"steps": len(steps), "max": max(top),
+            "p50": float(np.median(top)), "min": min(top),
+            "longest_run_over_enter": longest(enter),
+            "longest_run_over_exit": longest(exit_)}
+
+
+def level_trace(levels, start: float, zero: float = None) -> list:
+    """Each step's highest failover-cluster level from ``start``, with its
+    instant in s from ``zero`` (default ``start``)."""
+    zero = start if zero is None else zero
+    return [(round(t - zero, 3), round(max(
+        v for c, v in lv.items() if c != CONTROL_UNSAFE[0]), 3))
+        for t, lv in levels if t >= start]
+
+
+def settled(levels, cfg) -> bool:
+    """The reactor's last ``quorum`` steps saw every failover cluster at
+    or under ``exitThreshold``."""
+    last = levels[-cfg.quorum:]
+    return len(last) == cfg.quorum and all(
+        v <= cfg.exitThreshold for _, lv in last
+        for c, v in lv.items() if c != CONTROL_UNSAFE[0])
+
+
+async def reactor_timeline(linker, tele, task, loads, port, flag, rng,
+                           ctap):
+    """Part B's events while traffic segments run back to back: faults on
+    both replicas of the faulted destinations and of CONTROL_UNSAFE's
+    (``faulting``'s flag 3) until every override is
+    published (and CONTROL_HOLD_S more), off until every override is
+    reverted; once the levels are calm again and after the governor's
+    dwell, CONTROL_OSC_CYCLES fault toggles, then the dwell and a quorum
+    of steps again. Returns the segments and the instants."""
+    def counter(name):
+        # the counter itself: flattening the tree, with its histograms,
+        # on every poll would take the router's loop
+        return linker.metrics.counter("control", "reactor", name).value
+
+    cfg = tele.control.cfg
+    stop, segments = asyncio.Event(), []
+
+    async def pump():
+        while not stop.is_set():
+            segments.append(await linker_traffic(
+                loads, port, linker_plans(rng, CONTROL_SEGMENT)))
+
+    pumping = asyncio.create_task(pump())
+    ev = {"start": time.monotonic()}
+    reactor = tele.control.reactor
+    try:
+        await asyncio.sleep(1.0)   # traffic flowing, calm
+        await wait_for(lambda: tele.control._warmed,
+                       "the end of the control loop's warm-up", task=task)
+        # a key's dwell runs from its first observation: the calm
+        # traffic runs on past it, so the fault can trip the governor
+        await asyncio.sleep(cfg.cooldownS + 0.5)
+        ev["fault"] = time.monotonic()
+        # no actuator fires before the guard lifts, so from its lift to
+        # here the calm traffic must have moved nothing
+        counts = {n: counter(n) for n in (
+            "overrides_published", "overrides_reverted",
+            "overrides_rejected")}
+        moved = {c: s["transitions"] for c, s in
+                 reactor.status()["governor"].items() if s["transitions"]}
+        if any(counts.values()) or moved:
+            raise AssertionError(
+                f"control B: actuated on calm traffic before the fault: "
+                f"{counts}, governor transitions {moved}")
+        ev["guard_lifted"] = ctap.levels[0][0]
+        flag.value = 3
+        ev["published"] = await wait_for(
+            lambda: counter("overrides_published") >= TELE_FAULTED,
+            "publish of every override", task=task)
+        await asyncio.sleep(CONTROL_HOLD_S)
+        ev["clear"] = time.monotonic()
+        flag.value = 0
+        ev["reverted"] = await wait_for(
+            lambda: counter("overrides_reverted") >= TELE_FAULTED,
+            "revert of every override", task=task)
+        # the oscillation starts on a calm mesh: every failover cluster
+        # at or under exitThreshold for a quorum of steps, and the
+        # governor's dwell past
+        await wait_for(lambda: settled(ctap.levels, cfg), "calm levels "
+                       "after the reverts", task=task)
+        await asyncio.sleep(cfg.cooldownS)
+        ev["osc"] = time.monotonic()
+        ev["osc_counts"] = (counter("overrides_published"),
+                            counter("overrides_reverted"))
+        for _ in range(CONTROL_OSC_CYCLES):
+            flag.value = 3
+            await asyncio.sleep(CONTROL_OSC_ON_S)
+            flag.value = 0
+            await asyncio.sleep(CONTROL_OSC_OFF_S)
+        ev["osc_toggled"] = time.monotonic()
+        await asyncio.sleep(cfg.cooldownS
+                            + cfg.quorum * cfg.intervalMs / 1e3 + 0.5)
+        ev["osc_end"] = time.monotonic()
+        ev["osc_after"] = (counter("overrides_published"),
+                           counter("overrides_reverted"))
+    except AssertionError as e:
+        # what the reactor saw when the timeline stalled
+        now = time.monotonic()
+        last = level_summary(ctap.levels, now - 3, now, cfg.enterThreshold,
+                             cfg.exitThreshold)
+        before = (level_summary(ctap.levels, 0.0, ev["fault"],
+                                cfg.enterThreshold, cfg.exitThreshold)
+                  if "fault" in ev else None)
+        eff = tele.board.effective_scores()
+        calm = sorted(v for d, v in eff.items()
+                      if d in tele_routes()[TELE_FAULTED:])
+        print(f"control B: each step's highest failover-cluster level, "
+              f"s from the timeline's start: "
+              f"{level_trace(ctap.levels, ev['start'])}")
+        raise AssertionError(
+            f"{e}; levels {reactor.cluster_levels()}, governor "
+            f"{reactor.status()['governor']}, the last 3 s {last}, "
+            f"before the fault {before}, calm destinations now "
+            f"{calm[0] if calm else None}-{calm[-1] if calm else None} "
+            f"(median {np.median(calm) if calm else None}), "
+            f"events {ev}") from None
+    finally:
+        flag.value = 0
+        stop.set()
+        await pumping
+    return segments, ev
+
+
+def merge_segments(segs) -> dict:
+    res = {k: np.concatenate([s[k] for s in segs])
+           for k in ("dst", "status", "right", "ms", "t", "who")}
+    res["wall"] = sum(s["wall"] for s in segs)
+    return res
+
+
+def replica_shares(res: dict, dsts) -> dict:
+    """Per destination index, the share of its answered requests that
+    replica 0 served (of replicas 0 and 1)."""
+    out = {}
+    for d in dsts:
+        mine = res["who"][res["dst"] == d]
+        n0, n1 = int((mine == 0).sum()), int((mine == 1).sum())
+        out[d] = n0 / max(1, n0 + n1)
+    return out
+
+
+def replica_hostports(disco: Path) -> dict:
+    """hostport -> (destination index, replica), from the fs namer's
+    directory."""
+    out = {}
+    for d in range(TELE_ROUTES):
+        for r, line in enumerate(
+                (disco / f"tele-{d:02d}").read_text().splitlines()):
+            host, port = line.split()
+            out[f"{host}:{port}"] = (d, r)
+    return out
+
+
+def weighting_checks(res: dict, ctl, disco: Path) -> dict:
+    """Part A: each faulted replica's share of its destination over the
+    second half of the window well below a half, and its requests over
+    the window above 0; each calm
+    destination's replicas near an even split; the control loop's
+    weights down on the faulted replicas alone."""
+    half = res["t"] >= np.median(res["t"])
+    second = {k: v[half] for k, v in res.items() if k != "wall"}
+    faulted = range(TELE_FAULTED)
+    calm = range(TELE_FAULTED, TELE_ROUTES)
+    whole, late = replica_shares(res, faulted), replica_shares(second,
+                                                              faulted)
+    calm_shares = replica_shares(res, calm)
+    counts = {d: int(((res["dst"] == d) & (res["who"] == 0)).sum())
+              for d in faulted}
+    weights = ctl.status()["endpoint_weights"]
+    where = replica_hostports(disco)
+    sick = {hp: w for hp, w in weights.items()
+            if where[hp][0] < TELE_FAULTED and where[hp][1] == 0}
+    rest = [w for hp, w in weights.items() if hp not in sick]
+    out = {"faulted_replica_share": {f"tele-{d:02d}": whole[d]
+                                     for d in faulted},
+           "faulted_replica_share_second_half": {
+               f"tele-{d:02d}": late[d] for d in faulted},
+           "faulted_replica_requests": {f"tele-{d:02d}": counts[d]
+                                        for d in faulted},
+           "calm_replica0_share_min": min(calm_shares.values()),
+           "calm_replica0_share_max": max(calm_shares.values()),
+           "faulted_replica_weights": sorted(sick.values()),
+           "other_weights_min": min(rest)}
+    print("control A: faulted replicas' share of their destination "
+          + ", ".join(f"tele-{d:02d} {whole[d]:.3f} (second half "
+                      f"{late[d]:.3f}, {counts[d]} requests)"
+                      for d in faulted)
+          + f"; calm replica 0 share {out['calm_replica0_share_min']:.3f}"
+          f"-{out['calm_replica0_share_max']:.3f}")
+    if len(sick) != TELE_FAULTED or not max(sick.values()) < min(rest):
+        raise AssertionError(f"control A: status weights {weights}")
+    if not all(late[d] < 0.25 and counts[d] > 0 for d in faulted):
+        raise AssertionError(
+            f"control A: faulted replicas' share {late} (second half), "
+            f"requests {counts}: not drained to a trickle above 0")
+    if not 0.3 < out["calm_replica0_share_min"] <= \
+            out["calm_replica0_share_max"] < 0.7:
+        raise AssertionError(f"control A: calm replicas unevenly split "
+                             f"{calm_shares}")
+    return out
+
+
+def shift_checks(res: dict, ev: dict, dtabs) -> dict:
+    """Part B, read on the namespace watch and at the load clients: one
+    publish and one revert of each override, never the unsafe one, the
+    namespace back to its bytes; every request of a faulted destination
+    started after its first failover answer and before the first revert
+    answered by its failover cluster; and the latencies."""
+    from linkerd_tpu_torch.core import Dtab
+
+    base = Dtab.read(CONTROL_BASE_DTAB).show
+    start = res["t"] - res["ms"] / 1e3
+    faulted = tele_routes()[:TELE_FAULTED]
+    appeared, gone = {}, {}
+    prev = set(base.split(";"))
+    if dtabs[0][1] != base:
+        raise AssertionError(f"control B: namespace starts {dtabs[0][1]!r}")
+    for t, show in dtabs:
+        now = set(show.split(";"))
+        if t < ev["fault"] and show != base:
+            raise AssertionError(f"control B: namespace {show!r} before "
+                                 f"the fault")
+        for d in faulted:
+            entry = f"{d} => {d}-b"
+            if entry in now and entry not in prev:
+                appeared.setdefault(d, []).append(t)
+            if entry in prev and entry not in now:
+                gone.setdefault(d, []).append(t)
+        if f"{CONTROL_UNSAFE[0]} => {CONTROL_UNSAFE[1]}" in now:
+            raise AssertionError(f"control B: the unsafe entry was "
+                                 f"published: {show}")
+        prev = now
+    if any(len(appeared.get(d, ())) != 1 or len(gone.get(d, ())) != 1
+           for d in faulted):
+        rel = {k: {d: [round(x - ev["fault"], 3) for x in v]
+                   for d, v in m.items()}
+               for k, m in (("publishes", appeared), ("reverts", gone))}
+        raise AssertionError(f"control B: {rel} s from the fault (one "
+                             f"publish and one revert each per sick "
+                             f"cluster)")
+    if dtabs[-1][1] != base:
+        raise AssertionError(f"control B: namespace ends {dtabs[-1][1]!r}, "
+                             f"not {base!r}")
+    first_revert = min(v[0] for v in gone.values())
+    moved, first_b = 0, {}
+    for i, d in enumerate(faulted):
+        mine = res["dst"] == i
+        b = mine & (res["who"] >= FAILOVER_WHO)
+        if not b.any():
+            raise AssertionError(f"control B: no request for {d} answered "
+                                 f"by {d}-b")
+        j = int(np.argmin(np.where(b, res["t"], np.inf)))
+        first_b[d] = float(res["t"][j])
+        window = mine & (start > res["t"][j]) & (res["t"] < first_revert)
+        wrong = window & (res["who"] < FAILOVER_WHO)
+        if wrong.any() or not window.any():
+            raise AssertionError(
+                f"control B: {int(wrong.sum())} of {int(window.sum())} "
+                f"requests for {d} after the shift not answered by {d}-b")
+        moved += int(window.sum())
+        back = mine & (start > max(gone[d]) + 1.0)
+        if not (back.any() and (res["who"][back] < FAILOVER_WHO).all()):
+            raise AssertionError(f"control B: traffic for {d} did not "
+                                 f"return after the revert")
+    ms = lambda a, b: (b - a) * 1e3  # noqa: E731
+    return {
+        "fault_to_first_publish_ms": ms(ev["fault"], min(
+            v[0] for v in appeared.values())),
+        "fault_to_last_publish_ms": ms(ev["fault"], max(
+            v[0] for v in appeared.values())),
+        "fault_to_first_failover_answer_ms": ms(ev["fault"],
+                                                min(first_b.values())),
+        "clear_to_first_revert_ms": ms(ev["clear"], first_revert),
+        "clear_to_last_revert_ms": ms(ev["clear"], max(
+            v[0] for v in gone.values())),
+        "requests_moved": moved,
+    }
+
+
+async def trained_window_checks(what: str, tele, tap, start: int,
+                                first: int, dev: str) -> dict:
+    """A window whose model trained as it scored: the board against a
+    plain fold of the kernel's own scores, and the kernel against the
+    plain version on the window's rows (score calls from ``start``,
+    batches from ``first``) under the model the window ended with. Call
+    after the main path's launches are read: it launches the kernel."""
+    gap = linker_board_check(tele, tap, len(tap.folds), {}, what)
+    print(f"{what}: board vs plain fold of the kernel's scores {gap:.3e}")
+    if gap > TOL:
+        raise AssertionError(f"{what}: board off the plain fold "
+                             f"by {gap} > {TOL}")
+    x = np.concatenate([x for x, _ in tap.scored[start:]])
+    labels = np.concatenate([b["labels"] for b in tap.batches[first:]])
+    snap = tele._scorer.snapshot()
+    got = np.concatenate([await tele._scorer.score(x[i:i + 1024])
+                          for i in range(0, len(x), 1024)])
+    rows = linker_gap_report(got, plain_scores(snap, x, dev), x, snap,
+                             labels, dev, what)
+    return dict(board_vs_plain_fold_max=gap, kernel_vs_plain=rows,
+                kernel_vs_plain_max=rows["kernel_vs_plain_max"],
+                window_rows=len(got))
+
+
+async def control_part(part: str, text: str, loads, flag, plans, disco,
+                       namerd_port: int, dev: str):
+    """One linker from ``text`` with the control loop: the warm-up
+    (training every batch, then the same calm traffic again at the
+    reference's cadence of a fit every CONTROL_FIT_EVERY batches, so the
+    model last learns the router's pace without a fit every batch), then
+    with training off part A's labeled window with faults on replica 0 of
+    the faulted destinations (the weigher on one model: a model training
+    on a lasting fault learns it, and the faulted replicas' weights come
+    back), or part B's ``reactor_timeline`` with the model still training
+    at the reference's cadence, as a deployment's does (a frozen model
+    reads the router's faster pace as anomalous, mesh-wide, and the
+    reactor then acts on calm traffic). Holds what the linker phase
+    holds (every row scored, one launch a batch, kernel and board against
+    plain) and the control loop's own checks."""
+    from linkerd_tpu_torch.core.tasks import monitor
+    from linkerd_tpu_torch.linker import load_linker
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+
+    linker = load_linker(text, device=dev)
+    await linker.start()
+    port = linker.routers[0].server_ports[0]
+    tele = linker.telemeters[0]
+    ctl = tele.control
+    tap = LinkerTap(tele)
+    ctap = ControlTap(ctl, namerd_port)
+    task = monitor(asyncio.create_task(tele.run()),
+                   what="telemeter-control")
+    what = f"control {part}"
+    out = {"thresholds": {k: getattr(ctl.cfg, k) for k in CONTROL_KEYS}}
+    try:
+        fused_anomaly_scores.launches = 0
+        flag.value = 0
+        warm = await linker_traffic(loads, port, plans[0])
+        tele.cfg.trainEveryBatches = CONTROL_FIT_EVERY
+        warm = merge_segments([warm, await linker_traffic(loads, port,
+                                                          plans[0])])
+        await tap.settle(tele, task, f"{part} warm-up")
+        start, first = len(tap.folds), len(tap.batches)
+        if part == "A":
+            tele.cfg.trainEveryBatches = 0
+            snap = tele._scorer.snapshot()
+            flag.value = 2
+            window = await linker_traffic(loads, port, plans[1])
+            flag.value = 0
+            ev = None
+        else:
+            segs, ev = await reactor_timeline(
+                linker, tele, task, loads, port, flag,
+                np.random.default_rng(len(plans[0])), ctap)
+            window = merge_segments(segs)
+        tele.cfg.trainEveryBatches = 0
+        await tap.settle(tele, task, f"{part} window")
+        await asyncio.sleep(0.3)     # the namespace watch catches up
+        launches = fused_anomaly_scores.launches
+        out["warmup"] = linker_traffic_checks(warm, f"{what} warm-up", False)
+        out["window"] = linker_traffic_checks(
+            window, f"{what} window", True,
+            TELE_FAULTED + (part == "B"))
+        out.update(scored_checks(what, tele, tap,
+                                 len(warm["ms"]) + len(window["ms"]),
+                                 launches, dev))
+        if part == "A":
+            held = window_checks(what, tele, tap, snap, start, first,
+                                 dev)[0]
+        else:
+            held = await trained_window_checks(what, tele, tap, start,
+                                               first, dev)
+        out.update(held)
+        flat = linker.metrics.flatten()
+        status = ctl.status()
+        out["admission"] = {
+            "factor_min": min(ctap.factors),
+            "limit_min": round(CONTROL_ADMISSION * min(ctap.factors)),
+            "sheds": flat["rt/tele/server/admission/shed_total"],
+            "status": status["admission"]}
+        counters = {k.rsplit("/", 1)[1]: v for k, v in flat.items()
+                    if k.startswith("control/reactor/")}
+        out["control_steps"] = flat["control/steps"]
+        if status["steps"] != flat["control/steps"] or not \
+                status["warmed_up"] or out["control_steps"] < 1 or \
+                round(ctl.admission.factor, 4) != \
+                status["admission"]["factor"]:
+            raise AssertionError(f"{what}: status {status}")
+        if part == "A":
+            out.update(weighting_checks(window, ctl, disco))
+            out.update(publishes=0, reverts=0, rejects=0, flaps=0)
+            if status["actuators"]["mesh_reactor"] or counters:
+                raise AssertionError(f"{what}: a reactor without failover")
+        else:
+            c = ctl.cfg
+            out["levels"] = {
+                name: level_summary(ctap.levels, ev[a], ev[b],
+                                    c.enterThreshold, c.exitThreshold)
+                for name, a, b in (
+                    ("calm", "start", "fault"),
+                    ("calm_since_guard", "guard_lifted", "fault"),
+                    ("faulted", "fault", "clear"),
+                    ("recovery", "clear", "reverted"),
+                    ("settle", "reverted", "osc"),
+                    ("oscillation", "osc", "osc_toggled"),
+                    ("after", "osc_toggled", "osc_end"))}
+            out["events_s"] = {k: v - ev["fault"] for k, v in ev.items()
+                               if isinstance(v, float)}
+            out["level_trace"] = level_trace(ctap.levels, ev["start"],
+                                             ev["fault"])
+            print(f"{what}: events (s from the fault) {out['events_s']}; "
+                  f"levels {out['levels']}")
+            out.update(shift_checks(window, ev, ctap.dtabs))
+            osc = (ev["osc_after"][0] - ev["osc_counts"][0],
+                   ev["osc_after"][1] - ev["osc_counts"][1])
+            calm = out["levels"]["calm_since_guard"]
+            osc_lv = out["levels"]["oscillation"]
+            out.update(publishes=counters["overrides_published"],
+                       reverts=counters["overrides_reverted"],
+                       calm_steps_before_fault=calm["steps"],
+                       calm_s_before_fault=ev["fault"] - ev["guard_lifted"],
+                       oscillation_reached_enter=osc_lv.get(
+                           "longest_run_over_enter", 0) > 0,
+                       rejects=counters["overrides_rejected"],
+                       flaps=sum(osc), oscillation_publishes=osc[0],
+                       oscillation_reverts=osc[1],
+                       cas_conflicts=counters["cas_conflicts"],
+                       errors=counters["errors"])
+            rs = status["reactor"]
+            gov = rs["governor"]
+            unsafe = rs["rejected"].get(CONTROL_UNSAFE[0], "")
+            if out["publishes"] != TELE_FAULTED or out["reverts"] != \
+                    TELE_FAULTED or rs["active_overrides"] or \
+                    out["flaps"] or not out["rejects"] or \
+                    "cycle" not in unsafe or any(
+                        gov[d]["transitions"] != 2
+                        for d in tele_routes()[:TELE_FAULTED]):
+                raise AssertionError(f"{what}: counters {counters}, "
+                                     f"reactor status {rs}")
+            out["unsafe_rejected"] = unsafe
+        return out, launches
+    finally:
+        await ctap.close()
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+        await linker.close()
+
+
+async def control_phase(seed: int = 12, dev: str = "cuda", linker_a=None):
+    """Parts A (balancer weighting, no failover map) and B (the reactor)
+    over ``linker_topology`` with the failover clusters and the port's
+    namerd in spawned processes. ``linker_a``: the linker phase's part A
+    on this host, printed beside. Returns the results and the kernel's
+    launches on both parts."""
+    import multiprocessing
+
+    mp = multiprocessing.get_context("spawn")
+    loop = asyncio.get_running_loop()
+    res = {}
+    async with linker_topology(seed) as (loads, flag, plans, disco):
+        procs, conns = [], []
+        try:
+            ours, theirs = mp.Pipe()
+            p = mp.Process(target=failover_backends, args=(theirs,),
+                           daemon=True)
+            p.start()
+            procs.append(p)
+            conns.append(ours)
+            ports = await loop.run_in_executor(None, ours.recv)
+            for d, pp in zip(range(TELE_FAULTED), ports):
+                (disco / f"tele-{d:02d}-b").write_text(f"127.0.0.1 {pp}\n")
+            ours, theirs = mp.Pipe()
+            p = mp.Process(target=control_namerd, args=(theirs, str(disco)),
+                           daemon=True)
+            p.start()
+            procs.append(p)
+            conns.append(ours)
+            namerd_port = await loop.run_in_executor(None, ours.recv)
+            res["part_a"], la = await control_part(
+                "A", control_config(namerd_port, False), loads, flag, plans,
+                disco, namerd_port, dev)
+            res["part_b"], lb = await control_part(
+                "B", control_config(namerd_port, True), loads, flag, plans,
+                disco, namerd_port, dev)
+        finally:
+            for conn in conns:
+                try:
+                    conn.send(None)
+                except OSError:
+                    pass
+            for p in procs:
+                p.join(timeout=10)
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+    a, b = res["part_a"], res["part_b"]
+    res["linker_a_same_host"] = None if linker_a is None else {
+        w: linker_a[w] for w in ("warmup", "window")}
+    print(f"control, seed {seed}: part A {a['launches']} launches for "
+          f"{a['batches']} batches, kernel vs plain max|diff| "
+          f"{a['kernel_vs_plain_max']:.3e}, board vs plain fold "
+          f"{a['board_vs_plain_fold_max']:.3e}; part B {b['launches']} "
+          f"launches for {b['batches']} batches, kernel vs plain "
+          f"{b['kernel_vs_plain_max']:.3e}, board {b['board_vs_plain_fold_max']:.3e}")
+    print(f"control B: fault to first publish "
+          f"{b['fault_to_first_publish_ms']:.1f} ms (last "
+          f"{b['fault_to_last_publish_ms']:.1f}), to first failover answer "
+          f"{b['fault_to_first_failover_answer_ms']:.1f} ms; clear to first "
+          f"revert {b['clear_to_first_revert_ms']:.1f} ms (last "
+          f"{b['clear_to_last_revert_ms']:.1f}); publishes "
+          f"{b['publishes']}, reverts {b['reverts']}, rejects "
+          f"{b['rejects']} ({b['unsafe_rejected'][:60]}...), flaps "
+          f"{b['flaps']}, {b['requests_moved']} requests moved; no "
+          f"actuation over {b['calm_steps_before_fault']} steps "
+          f"({b['calm_s_before_fault']:.3f} s) of calm traffic from the "
+          f"guard's lift to the fault")
+    osc = b["levels"]["oscillation"]
+    print(f"control B: oscillation levels max {osc.get('max', 0.0):.3f} "
+          f"over {osc['steps']} steps (enterThreshold "
+          f"{b['thresholds']['enterThreshold']}): "
+          + ("reached enterThreshold, the quorum guard exercised"
+             if b["oscillation_reached_enter"] else
+             "under enterThreshold; the quorum guard is held on scripted "
+             "levels by tests/test_torch_control.py"))
+    for name, r in (("A", a), ("B", b)):
+        t = r["window"]
+        print(f"control {name} window: {t['requests_per_s']:.0f} "
+              f"requests/s, p50 {t['p50_ms']:.3f} ms, p99 {t['p99_ms']:.3f} "
+              f"ms (calm p50 {t['calm_p50_ms']:.3f}, p99 "
+              f"{t['calm_p99_ms']:.3f}); admission factor min "
+              f"{r['admission']['factor_min']:.4f}, sheds "
+              f"{r['admission']['sheds']}")
+    if linker_a is not None:
+        t = linker_a["window"]
+        print(f"linker A window on this host: {t['requests_per_s']:.0f} "
+              f"requests/s, p50 {t['p50_ms']:.3f} ms, p99 "
+              f"{t['p99_ms']:.3f} ms")
+    return res, a["launches"] + b["launches"]
+
+
 # The witness of the kernel's sums (``--witness``): on a phase's window
 # rows, an "exact" forward in float64 with the kernel's rounding points
 # (the float64 sum of bf16 products rounded once to bf16, the bf16 bias
@@ -3551,9 +4371,10 @@ BREAKDOWN = {
     "no_products": ("    if (TILES > 0) {", "    if (false) {"),
 }
 CHECKS = ("kernel", "served")  # what --mutants runs on every mutant
-LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker and
-                                # fastpath phases
-PHASES = ("telemeter", "linker", "fastpath")  # --check and --mutant take these too
+LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker,
+                                # fastpath and control phases
+PHASES = ("telemeter", "linker", "fastpath",
+          "control")  # --check and --mutant take these too
 
 
 def run_check(which: str) -> int:
@@ -3568,7 +4389,7 @@ def run_check(which: str) -> int:
         check_kernel(cfg, rng)
     elif which == "served":
         asyncio.run(drive_service(cfg, rng))
-    elif which in ("linker", "fastpath"):
+    elif which in ("linker", "fastpath", "control"):
         from linkerd_tpu_torch import native
         from linkerd_tpu_torch.native import _build as native_build
         from linkerd_tpu_torch.ops import _build
@@ -3577,7 +4398,8 @@ def run_check(which: str) -> int:
         if which == "fastpath":
             native.ensure_built()
             native_build.build("h2bench")
-        phase = linker_phase if which == "linker" else fastpath_phase
+        phase = {"linker": linker_phase, "fastpath": fastpath_phase,
+                 "control": control_phase}[which]
         res, _ = asyncio.run(phase())
         name, _, limit = card_line().partition(",")
         print(json.dumps({which: res, "card": name.strip(),
@@ -3631,8 +4453,8 @@ def check_mutant(name: str, which: str) -> int:
 
 
 def check_mutants() -> int:
-    """Every check must fail on every mutant, and the linker and
-    fastpath phases on LINKER_MUTANT, by its own assertion (a build
+    """Every check must fail on every mutant, and the linker, fastpath
+    and control phases on LINKER_MUTANT, by its own assertion (a build
     failure or a crash is not a catch)."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -3645,7 +4467,7 @@ def check_mutants() -> int:
                                     MUTANTS))
         results += [run_mutant(n, "served", tmp) for n in MUTANTS]
         results += [run_mutant(LINKER_MUTANT, phase, tmp)
-                    for phase in ("linker", "fastpath")]
+                    for phase in ("linker", "fastpath", "control")]
     missed = []
     for name, which, rc, last in results:
         print(f"mutant {name}, {which} check: "
@@ -3863,6 +4685,8 @@ def main() -> int:
     telemeter, telemeter_launches = asyncio.run(telemeter_phase(cfg))
     linker, linker_launches = asyncio.run(linker_phase())
     fastpath, fastpath_launches = asyncio.run(fastpath_phase())
+    control, control_launches = asyncio.run(control_phase(
+        linker_a=linker["part_a"]))
     telemeter["recorder"] = recorder_us()
     print(f"recorder filter: {telemeter['recorder']['recorder_us']:.2f} us "
           f"a request, the downstream alone "
@@ -3891,7 +4715,8 @@ def main() -> int:
                                   distill=distill_launches,
                                   telemeter=telemeter_launches,
                                   linker=linker_launches,
-                                  fastpath=fastpath_launches),
+                                  fastpath=fastpath_launches,
+                                  control=control_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -3914,6 +4739,8 @@ def main() -> int:
     print(json.dumps({"linker": linker, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"fastpath": fastpath, "card": name.strip(),
+                      "power_limit": limit.strip()}))
+    print(json.dumps({"control": control, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -25,6 +25,13 @@ from linkerd_tpu_torch.config.types import HostAndPort, Port
 T = TypeVar("T")
 
 
+class ConfigRefused(ConfigError):
+    """A key the reference takes and the port refuses by name (with the
+    ROADMAP item that brings it). It passes through the ``Optional``
+    branch of ``_convert`` unchanged, so a refusal inside a nested block
+    keeps its message instead of becoming "cannot convert"."""
+
+
 _STRICT_LOADER: Any = None
 
 
@@ -93,6 +100,8 @@ def _convert(value: Any, ftype: Any, path: str) -> Any:
         for a in args:
             try:
                 return _convert(value, a, path)
+            except ConfigRefused:
+                raise
             except (ConfigError, TypeError, ValueError):
                 continue
         raise ConfigError(f"{path}: cannot convert {value!r} to {ftype}")

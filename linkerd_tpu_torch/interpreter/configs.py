@@ -1,0 +1,51 @@
+"""Interpreter config kinds: the ``default`` and ``io.l5d.namerd.http``
+kinds of ``linkerd_tpu/interpreter/configs.py``.
+
+Ref: namer/core/.../InterpreterInitializer.scala:9-57 (SPI). The default
+interpreter is the in-process recursive dtab namer
+(DefaultInterpreterInitializer.scala); ``io.l5d.namerd.http`` binds
+through namerd's HTTP control API. The reference's other kinds are
+refused by name by the linker (ROADMAP Queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from linkerd_tpu_torch.config import ConfigError, register
+from linkerd_tpu_torch.core import Path
+from linkerd_tpu_torch.namer.core import ConfiguredDtabNamer, NameInterpreter
+
+
+@register("interpreter", "default")
+@dataclass
+class DefaultInterpreterConfig:
+    def mk(self, namers) -> NameInterpreter:
+        return ConfiguredDtabNamer(namers)
+
+
+def parse_inet_dst(dst: str) -> tuple:
+    """``/$/inet/<host>/<port>`` -> (host, port) (the reference's mesh dst
+    syntax, MeshInterpreterInitializer.scala dst param)."""
+    p = Path.read(dst)
+    if len(p) != 4 or p[0] != "$" or p[1] != "inet":
+        raise ConfigError(
+            f"mesh dst must look like /$/inet/<host>/<port>, got {dst!r}")
+    try:
+        return p[2], int(p[3])
+    except ValueError:
+        raise ConfigError(f"mesh dst port not a number: {dst!r}")
+
+
+@register("interpreter", "io.l5d.namerd.http")
+@dataclass
+class NamerdHttpInterpreterConfig:
+    """Ref: NamerdHttpInterpreterInitializer.scala:94 — namerd's HTTP
+    control API with chunked-watch streams."""
+
+    dst: str = "/$/inet/127.0.0.1/4180"
+    namespace: str = "default"
+
+    def mk(self, namers) -> NameInterpreter:
+        from linkerd_tpu_torch.interpreter.namerd_http import NamerdHttpInterpreter
+        host, port = parse_inet_dst(self.dst)
+        return NamerdHttpInterpreter(host, port, namespace=self.namespace)

@@ -7,8 +7,13 @@ port-conflict checks) and Router.scala / Server.scala for the per-router
 assembly.
 
 The port's linker builds HTTP routers with the ``io.l5d.fs`` namer (plus
-the in-process ``/$/inet`` and status utility namers) and the
-``io.l5d.jaxAnomaly`` telemeter, whose scorer runs on ``device``. A
+the in-process ``/$/inet`` and status utility namers), bound in process
+or through namerd's HTTP API (``interpreter: {kind:
+io.l5d.namerd.http}``), and the ``io.l5d.jaxAnomaly`` telemeter, whose
+scorer runs on ``device``. The telemeter's ``control:`` block closes the
+loop on routing: the linker wraps each balancer in the control loop's
+score weigher, registers each router's ``admissionControl`` filter for
+adaptive admission, and routes through the reactor's override book. A
 ``fastPath: true`` router is served by the native HTTP/1.1 engine, built
 from the repository's ``native/`` sources, with one worker; its rows
 feed the telemeter's native ring. What the reference's linker also
@@ -26,6 +31,7 @@ from linkerd_tpu_torch import DeviceLike, resolve_device
 from linkerd_tpu_torch.config import (
     ConfigError, instantiate, kinds, parse_config,
 )
+from linkerd_tpu_torch.control.balancer import ScoreWeightedBalancer
 from linkerd_tpu_torch.config.parser import instantiate_as
 from linkerd_tpu_torch.core import Dtab, Path
 from linkerd_tpu_torch.core.addr import Address, BoundName
@@ -41,6 +47,7 @@ from linkerd_tpu_torch.protocol.http.filters import (
 from linkerd_tpu_torch.protocol.http.identifiers import compose_identifiers
 from linkerd_tpu_torch.protocol.http.message import Response
 from linkerd_tpu_torch.protocol.http.server import HttpServer
+from linkerd_tpu_torch.router.admission import AdmissionControlFilter
 from linkerd_tpu_torch.router.balancer import BALANCER_KINDS, mk_balancer
 from linkerd_tpu_torch.router.classifiers import ClassifierFilter
 from linkerd_tpu_torch.router.binding import DstBindingFactory, DstPath
@@ -68,7 +75,8 @@ from linkerd_tpu_torch.telemetry.metrics import MetricsTree
 
 # The port's plugins register into its own registry when imported: the
 # identifiers, classifiers, failure accrual kinds and the telemeter by
-# the imports above, the fs namer here.
+# the imports above, the fs namer and the interpreter kinds here.
+import linkerd_tpu_torch.interpreter.configs  # noqa: F401
 import linkerd_tpu_torch.namer.fs  # noqa: F401
 
 DEFAULT_ADMIN_PORT = 9990  # ref: Linker.scala:37
@@ -81,7 +89,7 @@ _GUARD = ("ROADMAP Queue 1 item 4 (the native engines: connectionGuard "
           "and streamScoring)")
 _PROTOCOLS = "ROADMAP Queue 1 item 12 (h2/gRPC, then thrift/mux)"
 _TLS = "ROADMAP Queue 1 item 9 (TLS)"
-_EDGE = "ROADMAP Queue 1 item 10 (admission, tenants and loggers)"
+_EDGE = "ROADMAP Queue 1 item 10 (tenants and loggers)"
 _ADMIN = ("ROADMAP Queue 1 item 7 (the CLI, the admin server and the "
           "metric exporters)")
 _TRACING = ("ROADMAP Queue 1 item 8 (router/tracing.py with the tracer "
@@ -99,10 +107,8 @@ REFUSED_ROUTER_KEYS: Dict[str, str] = {
     "streamScoring": _GUARD,
     "tenants": _EDGE,
     "tenantIdentifier": _EDGE,
-    "admissionControl": _EDGE,
     "loggers": _EDGE,
     "httpAccessLog": _EDGE,
-    "interpreter": _NAMING,
 }
 
 REFUSED_PROTOCOLS: Dict[str, str] = {
@@ -128,6 +134,11 @@ UNPORTED_KINDS: Dict[str, Dict[str, str]] = {
     "identifier": {
         "io.l5d.ingress": _K8S, "io.l5d.k8s.istio": _K8S,
         "io.l5d.k8s.istio-ingress": _K8S,
+    },
+    "interpreter": {
+        "io.l5d.namerd": _NAMING, "io.l5d.mesh": _NAMING,
+        "io.l5d.fs": _NAMING, "io.l5d.k8s.configMap": _NAMING,
+        "io.l5d.k8s.istio": _NAMING,
     },
 }
 
@@ -674,6 +685,13 @@ class Linker:
         for i, raw in enumerate(telemetry or []):
             tcfg = _instantiate("telemeter", raw, f"telemetry[{i}]")
             self.telemeters.append(tcfg.mk(self.metrics, device=self.device))
+        # the control loop's reactor verifies generated overrides by
+        # symbolic delegation over THESE namers' prefixes; a linker with
+        # no local namers (remote namerd interpreter) passes None =
+        # unknown, which keeps cycle/shadow checks but not reachability
+        ctl = self._anomaly_control()
+        if ctl is not None:
+            ctl.set_namer_prefixes([p for p, _ in self.namers] or None)
 
         labels_seen: Dict[str, int] = {}
         for rspec in self.spec.routers:
@@ -728,6 +746,13 @@ class Linker:
             raise ConfigError(f"server port conflict: {ports}")
 
     # -- router assembly helpers ------------------------------------------
+    def _mk_interpreter(self, rspec: RouterSpec, label: str):
+        if rspec.interpreter is not None:
+            return _instantiate(
+                "interpreter", rspec.interpreter,
+                f"{label}.interpreter").mk(self.namers)
+        return ConfiguredDtabNamer(self.namers)
+
     def _mk_client_validator(self, label: str):
         def validate_client(spec: ClientSpec, var_names=frozenset()) -> None:
             if spec.failureAccrual is not None:
@@ -892,7 +917,7 @@ class Linker:
             ) from None
         base_dtab = Dtab.read(rspec.dtab) if rspec.dtab else Dtab.empty()
         prefix = Path.read(rspec.dstPrefix)
-        interpreter = ConfiguredDtabNamer(self.namers)
+        interpreter = self._mk_interpreter(rspec, label)
         engine = native.FastPathEngine()
         try:
             ports = [engine.listen(s.ip, s.port)
@@ -914,7 +939,7 @@ class Linker:
         identifier = self._mk_identifier(
             rspec, label, "identifier", "io.l5d.header.token",
             prefix, base_dtab)
-        interpreter = ConfiguredDtabNamer(self.namers)
+        interpreter = self._mk_interpreter(rspec, label)
         validate_svc = self._mk_svc_validator(label, "classifier")
 
         client_lookup = per_prefix_lookup(
@@ -949,7 +974,7 @@ class Linker:
                                              mk_policy())
 
             bal_kind = (cspec.loadBalancer or BalancerSpec()).kind
-            bal = mk_balancer(bal_kind, bound.addr, endpoint_factory)
+            bal = self._mk_balancer(bal_kind, bound.addr, endpoint_factory)
             filters: List[Any] = [
                 StatsFilter(metrics, "rt", label, "client", cid),
                 DstHeadersFilter(cid),
@@ -1014,7 +1039,7 @@ class Linker:
             idle_ttl=float(cache_cfg.get("idleTtlSecs", 600.0)),
             bind_timeout=rspec.bindingTimeoutMs / 1e3)
 
-        routing = RoutingService(identifier, binding)
+        routing = self._mk_routing(identifier, binding, base_dtab)
         # Stats outermost so they observe ErrorResponder's mapped statuses;
         # anomaly feature recorders tap the same final view.
         server_filters: List[Any] = [
@@ -1055,9 +1080,25 @@ class Linker:
                     f"{label}.addForwardedHeader: {e}") from None
             server_filters.append(AddForwardedHeaderFilter(by, for_))
         server_filters.append(ErrorResponder())
-        # INSIDE the responder: an expired deadline must map to 504
+        # INSIDE the responder: an expired deadline must map to 504, a
+        # shed to 503
         server_filters.append(ServerDeadlineFilter(
             metrics.scope("rt", label, "server", "deadline")))
+        ac = rspec.admissionControl
+        if ac is not None:
+            try:
+                admission = AdmissionControlFilter(
+                    ac.maxConcurrency, ac.maxPending,
+                    metrics.scope("rt", label, "server", "admission"))
+            except ValueError as e:
+                raise ConfigError(
+                    f"{label}.admissionControl: {e}") from None
+            # the control loop modulates this bound from score trends +
+            # the drift monitor (shed earlier when trouble is coming)
+            ctl = self._anomaly_control()
+            if ctl is not None:
+                ctl.register_admission(admission)
+            server_filters.append(admission)
         server_stack = filters_to_service(server_filters, routing)
 
         per_server_stack = self._per_server_stack_fn(
@@ -1086,19 +1127,75 @@ class Linker:
         tele = self._anomaly_telemeter()
         return tele.board if tele is not None else ScoreBoard()
 
+    def _anomaly_control(self):
+        """The jaxAnomaly telemeter's ControlLoop (None unless a
+        ``control:`` block is configured)."""
+        tele = self._anomaly_telemeter()
+        return getattr(tele, "control", None) if tele is not None else None
+
+    def _mk_routing(self, identifier, binding, base_dtab):
+        """Build a router's RoutingService, wired into the control
+        loop's partition-time override book when one exists: booked
+        overrides reach requests through the local-dtab seam, and the
+        failover binds they would route through are registered for
+        prewarming (a bind that first opens DURING a store partition
+        cannot resolve; a warm one holds its last-good state)."""
+        ctl = self._anomaly_control()
+        if ctl is None or getattr(ctl, "local_book", None) is None:
+            return RoutingService(identifier, binding)
+
+        def prewarm(cluster: str, target: str,
+                    _binding=binding, _base=base_dtab) -> None:
+            # the EXACT DstPath a booked `cluster => target` override
+            # produces at request time (single-entry book): same path,
+            # same base dtab, same single-dentry local dtab — so the
+            # prewarmed ServiceCache entry is the one requests hit
+            _binding.path_service(DstPath(
+                Path.read(cluster), _base,
+                Dtab.read(f"{cluster} => {target} ;")))
+
+        ctl.register_prewarm(prewarm)
+        return RoutingService(identifier, binding,
+                              local_dtab_fn=ctl.local_dtab_for)
+
+    def _mk_balancer(self, kind: str, addr, endpoint_factory):
+        """mk_balancer + the control loop's score weighting when
+        configured: replicas trending anomalous are multiplicatively
+        down-weighted inside the kind's own pick path, deprioritizing
+        BEFORE failure accrual would eject (control/balancer.py)."""
+        bal = mk_balancer(kind, addr, endpoint_factory)
+        ctl = self._anomaly_control()
+        if ctl is not None and ctl.weigher is not None:
+            bal = ScoreWeightedBalancer(bal, ctl.weigher)
+            ctl.register_balancer(bal)
+        return bal
+
     # -- lifecycle --------------------------------------------------------
     async def start(self) -> "Linker":
         for r in self.routers:
             await r.start()
+        # warm the failover binds while the store is reachable (the
+        # control loop re-touches them on its prewarm cadence)
+        ctl = self._anomaly_control()
+        if ctl is not None:
+            ctl.prewarm_failover_binds()
         return self
 
     async def close(self) -> None:
         for r in self.routers:
             await r.close()
+            # a remote interpreter's watch streams end with its router
+            closer = getattr(r.interpreter, "aclose", None)
+            if closer is not None:
+                await closer()
         for _, namer in self.namers:
             namer.close()
+        ctl = self._anomaly_control()
         for t in self.telemeters:
             t.close()
+        if ctl is not None:
+            # the reactor's store client (its namerd connection)
+            await ctl.aclose()
 
 
 def load_linker(text: str, device: DeviceLike = None) -> Linker:

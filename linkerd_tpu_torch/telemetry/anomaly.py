@@ -21,9 +21,10 @@ Native engine rows (a ``fastPath: true`` router's) arrive in
 ``native_ring``, drained by ``router.fastpath.FastPathController`` and
 featurized a block at a time by ``linerate.NativeFeaturizer``; rows the
 engine already scored in its data plane (``nativeTier: primary``) skip
-the device and fold straight into the board. The telemeter has no
-sidecar tier or control loop yet (ROADMAP Queue 1 item 4): its config
-refuses those keys by name.
+the device and fold straight into the board. A ``control:`` block builds
+the reactive control loop (``control/``) over the board; its ``run()``
+task rides beside the drain loop. The telemeter has no sidecar tier yet
+(ROADMAP Queue 1 item 4): its config refuses those keys by name.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import torch
 
 from linkerd_tpu_torch import DeviceLike, resolve_device
 from linkerd_tpu_torch.config import ConfigError, register
+from linkerd_tpu_torch.control.loop import ControlConfig
 from linkerd_tpu_torch.core.tasks import monitor
 from linkerd_tpu_torch.core.var import Var
 from linkerd_tpu_torch.distill import DistillConfig
@@ -691,7 +693,6 @@ REFUSED_KEYS = {
     "breakerFailures": "ROADMAP Queue 1 item 4 (the sidecar's breaker)",
     "breakerMinBackoffMs": "ROADMAP Queue 1 item 4 (the sidecar's breaker)",
     "breakerMaxBackoffMs": "ROADMAP Queue 1 item 4 (the sidecar's breaker)",
-    "control": "ROADMAP Queue 1 item 4 (the control: block)",
 }
 
 
@@ -735,6 +736,10 @@ class JaxAnomalyConfig:
     # drift-triggered distillation of per-route specialist heads (see
     # linkerd_tpu_torch/distill/)
     distill: Optional[DistillConfig] = None
+    # reactive control loop: score-weighted balancing, adaptive
+    # admission, anomaly-triggered dtab overrides (see
+    # linkerd_tpu_torch/control/)
+    control: Optional[ControlConfig] = None
 
     def __new__(cls, *args, **kwargs):
         refused = [k for k in kwargs if k in REFUSED_KEYS]
@@ -752,9 +757,9 @@ class JaxAnomalyConfig:
 
 class JaxAnomalyTelemeter(Telemeter):
     """The in-process anomaly telemeter on one device: the reference's
-    counterpart less the sidecar tiers and the control loop. The
-    scorer, lifecycle manager and distillation pipeline it builds run
-    on ``device`` (CUDA unless ``"cpu"`` is named)."""
+    counterpart less the sidecar tiers. The scorer, lifecycle manager
+    and distillation pipeline it builds run on ``device`` (CUDA unless
+    ``"cpu"`` is named); the control loop is device-free."""
 
     def __init__(self, cfg: JaxAnomalyConfig, metrics: MetricsTree,
                  scorer: Optional[Scorer] = None,
@@ -867,6 +872,20 @@ class JaxAnomalyTelemeter(Telemeter):
                        if self._lifecycle is not None else None),
                 quant=cfg.nativeQuant, device=self.device)
             self.distill.set_publisher(self.publish_bank_update)
+        # reactive control loop (score-weighted balancing / adaptive
+        # admission / mesh reactor); None when the block is absent. The
+        # Linker registers balancers + admission filters into it during
+        # router assembly and its run() task rides alongside ours.
+        self.control = None
+        if cfg.control is not None:
+            self.control = cfg.control.mk(
+                self.board, metrics,
+                drift=(self._lifecycle.drift
+                       if self._lifecycle is not None else None),
+                # cold-start guard: no actuation until the scorer has
+                # seen (and trained on) warmupBatches batches
+                ready_fn=lambda: (self._batches.value
+                                  >= self.cfg.control.warmupBatches))
 
     @property
     def lifecycle(self):
@@ -1111,6 +1130,8 @@ class JaxAnomalyTelemeter(Telemeter):
         phase-split timing pays for itself, so it is switched on —
         SAMPLED, so the serving path stays on the ring."""
         self._span_sink = tracer
+        if self.control is not None and tracer is not None:
+            self.control.set_tracer(tracer)
         if self._scorer is not None and tracer is not None:
             self._enable_sampled_timing(self._scorer)
 
@@ -1151,6 +1172,11 @@ class JaxAnomalyTelemeter(Telemeter):
                               "serving from fresh init")
         # initial publish: sinks hold the serving weights from the start
         await self.refresh_native_weights(scorer)
+        control_task = None
+        if self.control is not None:
+            control_task = asyncio.create_task(
+                self.control.run(), name="control-loop")
+            monitor(control_task, what="control-loop")
         try:
             if self.cfg.lineRate:
                 await self._line_rate_loop(scorer)
@@ -1158,6 +1184,10 @@ class JaxAnomalyTelemeter(Telemeter):
                 await self._interval_loop(scorer)
         except asyncio.CancelledError:
             pass
+        finally:
+            if control_task is not None:
+                control_task.cancel()
+                await asyncio.gather(control_task, return_exceptions=True)
 
     async def _maybe_lifecycle(self, last_cycle: float) -> float:
         lc_cfg = self.cfg.lifecycle
@@ -1624,6 +1654,8 @@ class JaxAnomalyTelemeter(Telemeter):
 
     def close(self) -> None:
         self._stop.set()
+        if self.control is not None:
+            self.control.close()
         if self._lifecycle is not None and self._scorer is not None:
             # best-effort shutdown snapshot: a restart must not silently
             # reset the model to random init. Saved as a candidate —

@@ -36,6 +36,12 @@ COPIES = (
     "router/failure_accrual.py", "protocol/tls.py",
     "protocol/http/server.py", "protocol/http/client.py",
     "protocol/http/identifiers.py", "protocol/http/filters.py",
+    # the control loop slice: delegation, namerd, its HTTP interpreter
+    # and the actuators
+    "namer/delegate.py", "namerd/__init__.py", "namerd/store.py",
+    "namerd/core.py", "namerd/http_api.py", "interpreter/namerd_http.py",
+    "control/__init__.py", "control/state.py", "control/balancer.py",
+    "control/admission.py",
 )
 
 # Modules that differ on purpose: reason, and the top-level names that
@@ -48,9 +54,11 @@ DIFFERENT = {
         {"_native", "_parse_head_bytes", "read_request"}),
     "config/parser.py": (
         "PyYAML is imported on the first non-JSON config, not at load, "
-        "so a host without it still takes JSON configs",
+        "so a host without it still takes JSON configs; a by-name "
+        "refusal (ConfigRefused) passes through the Optional branch of "
+        "_convert with its message",
         {"yaml", "_StrictLoader", "_strict_mapping", "_STRICT_LOADER",
-         "_strict_loader", "parse_config"}),
+         "_strict_loader", "parse_config", "ConfigRefused", "_convert"}),
     "router/tracing.py": (
         "partial: only TraceId, which the telemeter's scorer spans use; "
         "the trace filters wait for the tracer telemeters (ROADMAP "
@@ -82,6 +90,31 @@ DIFFERENT = {
          "score_test_bank", "score_test_blob", "score_test_delta",
          "stream_accum", "subprocess", "sys", "tenant_hash_native",
          "threading"}),
+    "control/reactor.py": (
+        "verify_override runs the port's own copy of l5dcheck's "
+        "check_override (control/verify.py): the reference's is in "
+        "tools/, which imports linkerd_tpu",
+        {"verify_override"}),
+    "control/loop.py": (
+        "single-instance mode: ControlConfig keeps every key and "
+        "default but refuses fleet and regionFailover by name "
+        "(ROADMAP Queue 1 item 14), so FleetConfig is not imported",
+        {"ControlConfig", "FleetConfig", "ConfigRefused",
+         "REFUSED_KEYS"}),
+    "interpreter/__init__.py": (
+        "exports the namerd HTTP interpreter; the mesh interpreter is "
+        "not ported (ROADMAP Queue 1 item 13)",
+        {"MeshClientInterpreter", "NamerdHttpInterpreter", "__all__"}),
+    "interpreter/mesh.py": (
+        "partial: Backoff alone, which the namerd HTTP interpreter "
+        "imports; MeshClientInterpreter is not ported (ROADMAP Queue 1 "
+        "item 13)", None),
+    "interpreter/configs.py": (
+        "the default and io.l5d.namerd.http kinds; the mesh, thrift "
+        "namerd, fs and configMap kinds are refused by the linker "
+        "(ROADMAP Queue 1 item 13)",
+        {"MeshClientInterpreter", "MeshInterpreterConfig",
+         "NamerdThriftInterpreterConfig", "Optional", "linkerd_tpu"}),
     "router/fastpath.py": (
         "the controller of one HTTP/1.1 engine: no tenant board and "
         "admission, stream sentinel, sharded workers or native TLS "
@@ -180,3 +213,47 @@ def test_difference_is_the_listed_one(rel):
     a, b = top_level(port), top_level(ref)
     differing = {n for n in set(a) | set(b) if a.get(n) != b.get(n)}
     assert differing == names
+
+
+# The port's copy of what the reactor's verify_override reaches in
+# l5dcheck (tools/analysis/semantic/dtab_check.py): these definitions,
+# and these methods of DtabAnalysis, are AST-equal to the original's.
+VERIFY = ("control/verify.py", "tools/analysis/semantic/dtab_check.py")
+VERIFY_NAMES = ("PROBE_SEG", "ProbeNamer", "probe_interpreter",
+                "probe_path_for", "terminals", "prefix_subsumes",
+                "dst_leaf_paths", "_dentry_anchor_map", "check_override")
+VERIFY_METHODS = ("__init__", "delegate", "dentry_outcomes")
+
+
+def _methods(tree: ast.Module, cls: str) -> dict:
+    node = next(n for n in tree.body
+                if isinstance(n, ast.ClassDef) and n.name == cls)
+    return {m.name: ast.dump(m) for m in node.body
+            if isinstance(m, ast.FunctionDef)}
+
+
+@pytest.mark.parametrize("name", VERIFY_NAMES + tuple(
+    f"DtabAnalysis.{m}" for m in VERIFY_METHODS))
+def test_verify_is_a_copy_of_dtab_check(name):
+    port = normalized(PORT / VERIFY[0])
+    ref = normalized(ROOT / VERIFY[1])
+    if name.startswith("DtabAnalysis."):
+        m = name.split(".", 1)[1]
+        assert _methods(port, "DtabAnalysis")[m] == \
+            _methods(ref, "DtabAnalysis")[m]
+        return
+    a, b = top_level(port), top_level(ref)
+    assert a[name] == b[name], f"control/verify.py: {name} differs"
+
+
+def test_verify_defines_only_the_copied_parts():
+    """Beside the copied definitions, control/verify.py defines only the
+    stand-ins for l5dcheck's Finding and ConfigSource."""
+    tree = normalized(PORT / VERIFY[0])
+    defined = {n.name for n in tree.body
+               if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    defined |= {t.id for n in tree.body if isinstance(n, ast.Assign)
+                for t in n.targets if isinstance(t, ast.Name)}
+    assert defined == set(VERIFY_NAMES) | {
+        "DtabAnalysis", "Finding", "ConfigSource"}
+    assert set(_methods(tree, "DtabAnalysis")) == set(VERIFY_METHODS)

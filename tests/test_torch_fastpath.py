@@ -13,7 +13,9 @@ router.
   engine as the reference's linker does through its engine (a cold
   host, an unknown host, a live rebind), the telemeter scoring every
   engine row (``nativeTier: off``) or receiving them pre-scored after
-  its initial publish (``nativeTier: primary``).
+  its initial publish (``nativeTier: primary``); bound through the
+  port's namerd (``interpreter: {kind: io.l5d.namerd.http}``), both
+  linkers install the route and move it on a namespace write.
 - The fastPath refusals of the reference (``service``, ``loggers``,
   ``admissionControl``, a server's ``timeoutMs``, ``compressionLevel``,
   ``workers`` without fastPath) raise the reference's own text, and a
@@ -48,6 +50,8 @@ from linkerd_tpu_torch.linker import load_linker
 from linkerd_tpu_torch.models.features import path_hash_cols
 from linkerd_tpu_torch.namer.core import ConfiguredDtabNamer
 from linkerd_tpu_torch.namer.fs import FsNamer
+from linkerd_tpu_torch.namerd import InMemoryDtabStore, Namerd
+from linkerd_tpu_torch.namerd.http_api import HttpControlService
 from linkerd_tpu_torch.protocol.http.message import Response
 from linkerd_tpu_torch.protocol.http.server import serve
 from linkerd_tpu_torch.router.fastpath import FastPathController
@@ -325,6 +329,58 @@ def test_linker_serves_as_the_reference(engines, tmp_path):
     assert got == want
     assert got[:3] == [(200, False, b"svc-a"), (400, True),
                        (200, False, b"svc-b")]
+
+
+async def namerd_scenario(load, disco, device_kw):
+    """A fastPath router with no dtab of its own, bound through the
+    port's namerd over ``io.l5d.namerd.http``: the first request installs
+    the route to ``web``; a write of the namespace that sends ``/svc/web``
+    to ``web-b`` moves it. Returns what each step answered."""
+    a, b = await downstream("svc-a"), await downstream("svc-b")
+    (disco / "web").write_text(f"127.0.0.1 {a.bound_port}\n")
+    (disco / "web-b").write_text(f"127.0.0.1 {b.bound_port}\n")
+    base = "/svc => /#/io.l5d.fs ;"
+    namerd = Namerd(InMemoryDtabStore({"default": Dtab.read(base)}),
+                    namers=[(Path.read("/io.l5d.fs"),
+                             FsNamer(str(disco), 0.05))])
+    srv = await serve(HttpControlService(namerd))
+    linker = load(linker_text(disco, dtab="", interpreter={
+        "kind": "io.l5d.namerd.http",
+        "dst": f"/$/inet/127.0.0.1/{srv.bound_port}",
+        "namespace": "default"}), **device_kw)
+    await bounded(linker.start())
+    port = linker.routers[0].server_ports[0]
+    out = []
+    try:
+        out.append(await http_get(port, "web"))
+        vd = await bounded(namerd.store.observe("default").to_future())
+        await namerd.store.update(
+            "default", Dtab.read(base + " /svc/web => /svc/web-b ;"),
+            vd.version)
+        for _ in range(200):
+            got = await http_get(port, "web")
+            if got[2] == b"svc-b":
+                break
+            await asyncio.sleep(0.02)
+        out.append(got)
+        out.append(type(linker.routers[0]).__name__)
+    finally:
+        await bounded(linker.close())
+        await bounded(srv.close())
+        await bounded(namerd.close())
+        await bounded(a.close())
+        await bounded(b.close())
+    return out
+
+
+def test_fastpath_binds_through_namerd(engines, tmp_path):
+    (tmp_path / "ref").mkdir()
+    (tmp_path / "port").mkdir()
+    want = run(namerd_scenario(ref_load_linker, tmp_path / "ref", {}))
+    got = run(namerd_scenario(load_linker, tmp_path / "port",
+                              {"device": "cpu"}))
+    assert got == want == [(200, False, b"svc-a"), (200, False, b"svc-b"),
+                           "_FastPathRouter"]
 
 
 async def drive(disco, telemetry, n=60, **router):

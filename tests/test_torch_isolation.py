@@ -1,5 +1,6 @@
 """The port stands alone: nothing under ``linkerd_tpu_torch/``, and not
-``chip_smoke.py``, imports JAX, optax, ml_dtypes or the JAX package.
+``chip_smoke.py``, imports JAX, optax, ml_dtypes, the JAX package or the
+repo's ``tools`` (which imports the JAX package).
 
 Checked twice: statically, over every import statement in the source;
 and by importing every port module in a fresh interpreter in which
@@ -16,7 +17,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "linkerd_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "optax", "ml_dtypes", "linkerd_tpu")
+# ``tools`` (the repo's analyzers) imports linkerd_tpu, so the port must
+# not reach it either
+BLOCKED = ("jax", "jaxlib", "optax", "ml_dtypes", "linkerd_tpu", "tools")
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

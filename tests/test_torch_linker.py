@@ -333,10 +333,8 @@ REFUSALS = {
             "streamScoring": "streamScoring: {}",
             "tenants": "tenants: {}",
             "tenantIdentifier": "tenantIdentifier: {kind: header}",
-            "admissionControl": "admissionControl: {maxConcurrency: 4}",
             "loggers": "loggers: [{kind: io.l5d.http.file, path: x}]",
             "httpAccessLog": "httpAccessLog: stdout",
-            "interpreter": "interpreter: {kind: io.l5d.namerd}",
         }[k] + "\n", k) for k in REFUSED_ROUTER_KEYS},
     **{f"protocol {p}": (f"routers:\n- protocol: {p}\n", f"protocol '{p}'")
        for p in REFUSED_PROTOCOLS},
@@ -368,12 +366,15 @@ REFUSALS = {
         " [/#/io.l5d.fs/x]\n", "announce"),
     **{f"{cat} kind {k}": (
         BASE + {"namer": f"namers:\n- kind: {k}\n",
-                "telemeter": f"telemetry:\n- kind: {k}\n",
-                "identifier": ""}[cat]
-        if cat != "identifier" else
-        f"routers:\n- protocol: http\n  identifier: {{kind: {k}}}\n",
+                "telemeter": f"telemetry:\n- kind: {k}\n"}[cat]
+        if cat in ("namer", "telemeter") else
+        f"routers:\n- protocol: http\n  {cat}: {{kind: {k}}}\n",
         repr(k))
        for cat, kinds in UNPORTED_KINDS.items() for k in kinds},
+    **{f"control {k}": (
+        BASE + f"telemetry:\n- kind: io.l5d.jaxAnomaly\n  control:\n"
+        f"    {k}: {{}}\n", repr(k))
+       for k in ("fleet", "regionFailover")},
 }
 
 
@@ -385,6 +386,37 @@ def test_refused_by_name(case):
     msg = str(e.value)
     assert name in msg and "not supported by the port yet" in msg and \
         "ROADMAP Queue 1 item" in msg, msg
+
+
+def test_admission_control_and_interpreter_load():
+    """``admissionControl`` and the two ported interpreter kinds load on
+    an http router; ``admissionControl`` on a fastPath router keeps the
+    reference's error."""
+    from linkerd_tpu_torch.interpreter.namerd_http import (
+        NamerdHttpInterpreter,
+    )
+    from linkerd_tpu_torch.namer.core import ConfiguredDtabNamer
+
+    linker = port_load_linker(
+        BASE + "  admissionControl: {maxConcurrency: 4, maxPending: 2}\n"
+        "  interpreter: {kind: io.l5d.namerd.http, "
+        "dst: /$/inet/127.0.0.1/4180, namespace: ns1}\n", device="cpu")
+    interp = linker.routers[0].interpreter
+    assert isinstance(interp, NamerdHttpInterpreter)
+    assert (interp.host, interp.port, interp.namespace) == (
+        "127.0.0.1", 4180, "ns1")
+    assert port_load_linker(
+        BASE + "  interpreter: {kind: default}\n",
+        device="cpu").routers[0].interpreter.__class__ is ConfiguredDtabNamer
+    flat = linker.metrics.flatten()
+    assert flat["rt/http/server/admission/limit"] == 4.0
+    assert flat["rt/http/server/admission/shed_total"] == 0
+    for pkg in ("ref", "port"):
+        with pytest.raises((ConfigError, RefConfigError),
+                           match="admissionControl is not supported with "
+                                 "fastPath: true"):
+            load(pkg, "routers:\n- protocol: http\n  fastPath: true\n"
+                      "  admissionControl: {maxConcurrency: 4}\n")
 
 
 def test_unported_kinds_are_the_reference_kinds():

@@ -952,8 +952,7 @@ BAD_CONFIGS = {
 }
 REFUSED = {"sidecarAddress": "127.0.0.1:9000", "sidecarTier": "primary",
            "scoreTimeoutMs": 100, "breakerFailures": 2,
-           "breakerMinBackoffMs": 10, "breakerMaxBackoffMs": 10,
-           "control": {}}
+           "breakerMinBackoffMs": 10, "breakerMaxBackoffMs": 10}
 
 
 @pytest.mark.parametrize(
