@@ -103,7 +103,9 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import os
 import shutil
+import signal
 import struct
 import subprocess
 import sys
@@ -2252,14 +2254,23 @@ def linker_backends(conn, dsts, flag, seed: int) -> None:
     asyncio.run(main())
 
 
-async def linker_connection(port: int, plan, out: dict, off: int) -> None:
+async def linker_connection(port, plan, out: dict, off: int) -> None:
     """One keep-alive connection sending ``plan``'s destinations in turn,
     each by its Host header; stores status, right replica, ms, the
-    monotonic instant it completed and who answered (``answerer``)."""
+    monotonic instant it completed and who answered (``answerer``).
+    ``port`` is a port, or ``(port, cafile)`` for a TLS connection
+    verifying the server as ``localhost`` against ``cafile``."""
+    import ssl
+
     from linkerd_tpu_torch.protocol.http.client import HttpClient
     from linkerd_tpu_torch.protocol.http.message import Request
 
-    client = HttpClient("127.0.0.1", port, max_connections=1)
+    tls = {}
+    if isinstance(port, tuple):
+        port, cafile = port
+        tls = dict(ssl_context=ssl.create_default_context(cafile=cafile),
+                   server_hostname="localhost")
+    client = HttpClient("127.0.0.1", port, max_connections=1, **tls)
     try:
         for i, d in enumerate(plan):
             req = Request(uri="/")
@@ -2325,10 +2336,11 @@ def linker_plans(rng, n: int):
     return np.array_split(rng.integers(TELE_ROUTES, size=n), LINKER_CONNS)
 
 
-async def linker_traffic(loads, port, plans) -> dict:
+async def linker_traffic(loads, port, plans, split: bool = False):
     """The load processes' share of ``plans`` at once, each plan to
     ``port`` (or to its own port, with a list); waits for every answer
-    off the event loop, so the router keeps serving."""
+    off the event loop, so the router keeps serving. With ``split``, also
+    each load process's answers apart."""
     loop = asyncio.get_running_loop()
     ports = port if isinstance(port, list) else [port] * len(plans)
     shares = np.array_split(np.arange(len(plans)), len(loads))
@@ -2339,7 +2351,7 @@ async def linker_traffic(loads, port, plans) -> dict:
     res = {k: np.concatenate([o[k] for o in outs])
            for k in ("dst", "status", "right", "ms", "t", "who")}
     res["wall"] = max(o["wall"] for o in outs)
-    return res
+    return (res, outs) if split else res
 
 
 def linker_traffic_checks(res: dict, what: str, faults_on: bool,
@@ -2693,10 +2705,14 @@ def linker_stages(linker) -> dict:
     """The router's own ms over the part (warm-up and window), from its
     metrics: the server's request latency and the stage timer's
     identification, binding, service and total, p50 and p99 each."""
-    flat = linker.metrics.flatten()
+    return stage_ms(linker.metrics.flatten(), "tele")
+
+
+def stage_ms(flat: dict, label: str) -> dict:
+    """``linker_stages`` of router ``label`` from flattened metrics."""
     out = {}
-    for name, key in (("server", "rt/tele/server/request_latency_ms"),
-                      *((s, f"rt/tele/stage/{s}_ms") for s in (
+    for name, key in (("server", f"rt/{label}/server/request_latency_ms"),
+                      *((s, f"rt/{label}/stage/{s}_ms") for s in (
                           "identification", "binding", "service",
                           "total"))):
         if f"{key}/p50" in flat:
@@ -2717,16 +2733,17 @@ def linker_endpoints(linker) -> dict:
 
 
 @contextlib.asynccontextmanager
-async def linker_topology(seed: int):
+async def linker_topology(seed: int, sizes=(LINKER_WARMUP, LINKER_WINDOW)):
     """Backends and load clients in child processes (spawn) and the fs
     namer's directory over them; yields ``(loads, flag, plans, disco)``
-    and stops every process after."""
+    (one plan of each of ``sizes`` requests) and stops every process
+    after."""
     import multiprocessing
 
     mp = multiprocessing.get_context("spawn")
     flag = mp.RawValue("b", 0)
     rng = np.random.default_rng(seed)
-    plans = (linker_plans(rng, LINKER_WARMUP), linker_plans(rng, LINKER_WINDOW))
+    plans = tuple(linker_plans(rng, n) for n in sizes)
     loop = asyncio.get_running_loop()
     procs, backs, loads = [], [], []
     try:
@@ -4007,6 +4024,542 @@ async def control_phase(seed: int = 12, dev: str = "cuda", linker_a=None):
     return res, a["launches"] + b["launches"]
 
 
+# The cli phase: the port as users start it. namerd through ``python -m
+# linkerd_tpu_torch.namerd``; linkerd through ``linkerd_tpu_torch.__main__
+# .main()`` in a child process on the card, with a cleartext and a TLS
+# server, the io.l5d.jaxAnomaly telemeter at the reference's defaults,
+# io.l5d.recentRequests, io.l5d.prometheus and io.l5d.zipkin (to a span
+# collector in this process), over the linker phase's topology. What the
+# phase reads of the router it reads from the admin server, the
+# collector, the load clients and the child's taps (``CliTap``).
+CLI_CALM = 4096            # calm requests, then
+CLI_FAULTED = 8192         # requests with faults on, both on both servers
+CLI_SAMPLE_RATE = 0.02     # recentRequests and zipkin, as BASELINE config 1
+CLI_BOOT_S = 300.0         # to the first /ping, a cold nvcc build included
+CLI_STOP_S = 10.0          # from SIGTERM to exit
+CLI_LABEL = "cli"
+CLI_COUNTERS = ("server/requests", "server/success", "server/failures",
+                "server/status/200", "server/status/503")
+CLI_TELE_COUNTERS = ("requests_total", "scored_total", "batches")
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def cli_certs(d: Path) -> tuple:
+    """A self-signed pair for ``localhost``, minted with the openssl CLI
+    as the reference's TLS tests mint theirs."""
+    if shutil.which("openssl") is None:
+        raise AssertionError("cli: no openssl CLI to mint the TLS "
+                             "server's certificate")
+    cert, key = d / "cert.pem", d / "key.pem"
+    subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+         "-keyout", str(key), "-out", str(cert), "-days", "2",
+         "-subj", "/CN=localhost",
+         "-addext", "subjectAltName=DNS:localhost,IP:127.0.0.1"],
+        check=True, capture_output=True)
+    return str(cert), str(key)
+
+
+def cli_config(namerd_port: int, collector_port: int, ports, admin: int,
+               cert: str, key: str) -> dict:
+    """The CLI's linker config: the linker phase's router bound through
+    namerd over ``io.l5d.namerd.http``, a cleartext and a TLS server,
+    the telemeter at the reference's defaults beside the recentRequests,
+    prometheus and zipkin telemeters; usage off (no network)."""
+    return {
+        "routers": [{
+            "protocol": "http", "label": CLI_LABEL,
+            "identifier": {"kind": "io.l5d.header.token"},
+            "interpreter": {"kind": "io.l5d.namerd.http",
+                            "dst": f"/$/inet/127.0.0.1/{namerd_port}",
+                            "namespace": "default"},
+            "servers": [{"port": ports[0]},
+                        {"port": ports[1],
+                         "tls": {"certPath": cert, "keyPath": key}}],
+            "client": {"failureAccrual": {"kind": "none"}}}],
+        "telemetry": [
+            {"kind": "io.l5d.jaxAnomaly"},
+            {"kind": "io.l5d.recentRequests",
+             "sampleRate": CLI_SAMPLE_RATE},
+            {"kind": "io.l5d.prometheus"},
+            {"kind": "io.l5d.zipkin", "port": collector_port,
+             "sampleRate": CLI_SAMPLE_RATE}],
+        "admin": {"port": admin},
+        "usage": {"enabled": False}}
+
+
+class CliTap:
+    """What the cli phase's linker child reads of its own telemeter,
+    installed on the classes before ``main()`` builds the linker: each
+    kernel step's inputs and output (held against the plain version
+    after the run), each score call's labels, scores and instant, the
+    host ms of each ``_score_and_publish``, and the telemeters."""
+
+    def __init__(self):
+        from linkerd_tpu_torch.telemetry import anomaly
+
+        self.steps, self.scored, self.publish_ms, self.teles = [], [], [], []
+        self.pending, self.cfg, self.boot = {}, None, {}
+        tap = self
+        cls, tcls = anomaly.InProcessScorer, anomaly.JaxAnomalyTelemeter
+        init, tinit, publish = cls.__init__, tcls.__init__, \
+            tcls._score_and_publish
+
+        def scorer_init(scorer, *a, **kw):
+            init(scorer, *a, **kw)
+            step, score = scorer._scorer, scorer.score
+            tap.cfg = scorer.cfg
+
+            def stepping(params, x, mu=None, var=None):
+                out = step(params, x, mu, var)
+                # a CPU step reads the ring's staging rows in place; a
+                # card step, a copy of them of its own
+                tap.steps.append((params, x if x.is_cuda else x.clone(),
+                                  mu, var, out))
+                return out
+
+            async def scoring(x):
+                s = await score(x)
+                labels, mask = tap.pending.pop(id(x), (None, None))
+                tap.scored.append((np.asarray(s), labels, mask,
+                                   time.monotonic()))
+                return s
+
+            scorer._scorer, scorer.score = stepping, scoring
+
+        def tele_init(tele, *a, **kw):
+            tinit(tele, *a, **kw)
+            tap.teles.append(tele)
+
+        async def publishing(tele, scorer, b):
+            tap.pending[id(b["x"])] = (b["labels"], b["mask"])
+            t0 = time.perf_counter()
+            try:
+                return await publish(tele, scorer, b)
+            finally:
+                tap.publish_ms.append((time.perf_counter() - t0) * 1e3)
+
+        cls.__init__, tcls.__init__ = scorer_init, tele_init
+        tcls._score_and_publish = publishing
+
+    def write(self, path: str, launches: int) -> None:
+        """The launches, steps, batches and scored rows, and each step's
+        kernel scores beside the plain version's on the same device
+        tensors, to ``path`` (npz)."""
+        import torch
+
+        from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores_plain
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        got, plain, cuda_steps = [], [], 0
+        for params, x, mu, var, out in self.steps:
+            cuda_steps += x.is_cuda
+            got.append(out.float().cpu().numpy())
+            plain.append(fused_anomaly_scores_plain(
+                params.params, x, self.cfg, mu, var).float().cpu().numpy())
+        (tele,) = self.teles
+        flat = tele.metrics.flatten()
+        rows = [(s, lab, m, t) for s, lab, m, t in self.scored
+                if lab is not None]
+        np.savez(
+            path, launches=launches, cuda_steps=cuda_steps,
+            boot=np.array([self.boot[k] for k in BOOT_MARKS]),
+            steps=len(self.steps), batches=flat["anomaly/batches"],
+            requests_total=flat["anomaly/requests_total"],
+            scored_total=flat["anomaly/scored_total"],
+            kernel=np.concatenate(got), plain=np.concatenate(plain),
+            scores=np.concatenate([s for s, _, _, _ in rows]),
+            labels=np.concatenate([lab for _, lab, _, _ in rows]),
+            mask=np.concatenate([m for _, _, m, _ in rows]),
+            t=np.concatenate([np.full(len(s), t) for s, _, _, t in rows]),
+            publish_ms=np.asarray(self.publish_ms))
+
+
+# instants the linker child notes on its way to serving (monotonic,
+# which the phase reads against its own clock)
+BOOT_MARKS = ("entered", "imported", "loading", "loaded")
+
+
+def cli_child(cfg_path: str, out_path: str, dev: str = "cuda") -> None:
+    """Child process: the linker CLI on the card, as ``python -m
+    linkerd_tpu_torch <cfg_path>`` runs it (with ``dev`` "cpu", as
+    ``--device cpu`` runs it), with ``CliTap`` installed before
+    ``main()``; on SIGTERM ``main()`` returns and the tap's readings go
+    to ``out_path``."""
+    boot = {"entered": time.monotonic()}
+    from linkerd_tpu_torch import __main__ as cli
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+
+    boot["imported"] = time.monotonic()
+    tap = CliTap()
+    fused_anomaly_scores.launches = 0
+    load = cli.load_linker
+
+    def loading(*a, **kw):
+        boot["loading"] = time.monotonic()
+        linker = load(*a, **kw)
+        boot["loaded"] = time.monotonic()
+        return linker
+
+    cli.load_linker = loading
+    sys.argv = ["linkerd_tpu_torch", cfg_path]
+    if dev == "cpu":
+        sys.argv[1:1] = ["--device", "cpu"]
+    cli.main()
+    tap.boot = boot
+    tap.write(out_path, fused_anomaly_scores.launches)
+
+
+async def http_get(port: int, path: str) -> tuple:
+    """(status, body) of one GET to 127.0.0.1:``port``."""
+    from linkerd_tpu_torch.protocol.http.client import HttpClient
+    from linkerd_tpu_torch.protocol.http.message import Request
+
+    client = HttpClient("127.0.0.1", port, max_connections=1)
+    try:
+        rsp = await client(Request(uri=path))
+        return rsp.status, rsp.body
+    finally:
+        await client.close()
+
+
+async def wait_ping(port: int, proc_alive, what: str,
+                    timeout: float = CLI_BOOT_S) -> float:
+    """ms until ``/ping`` on ``port`` answers pong; fails if
+    ``proc_alive()`` turns false or after ``timeout`` s."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if not proc_alive():
+            raise AssertionError(f"cli: {what} exited before serving")
+        try:
+            if await http_get(port, "/ping") == (200, b"pong"):
+                return (time.perf_counter() - t0) * 1e3
+        except OSError:
+            pass
+        await asyncio.sleep(0.05)
+    raise AssertionError(f"cli: no /ping from {what} after {timeout} s")
+
+
+async def wait_json(port: int, path: str, pred, what: str,
+                    timeout: float = LINKER_SETTLE_S) -> dict:
+    """Polls ``path`` every 50 ms until ``pred(body)`` holds."""
+    t0 = time.monotonic()
+    while True:
+        body = json.loads((await http_get(port, path))[1])
+        if pred(body):
+            return body
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"cli: {what} after {timeout} s: {body}")
+        await asyncio.sleep(0.05)
+
+
+async def wait_shipped(admin: int, spans: list,
+                       quiet_s: float = 2.0) -> dict:
+    """/tracer.json once the zipkin buffer is empty and the collector has
+    taken no span for ``quiet_s`` (two of the telemeter's 1 s flushes):
+    every span recorded has been shipped or dropped."""
+    t0 = last_t = time.monotonic()
+    last = -1
+    while True:
+        tracer = json.loads((await http_get(admin, "/tracer.json"))[1])
+        now = time.monotonic()
+        if len(spans) != last:
+            last, last_t = len(spans), now
+        if tracer["buffer_depth"] == 0 and now - last_t > quiet_s:
+            return tracer
+        if now - t0 > LINKER_SETTLE_S:
+            raise AssertionError(f"cli: spans still buffered after "
+                                 f"{LINKER_SETTLE_S} s: {tracer}")
+        await asyncio.sleep(0.05)
+
+
+def prometheus_values(text: str) -> dict:
+    """``name{labels}`` -> value of a Prometheus text scrape."""
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            name, _, value = ln.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def cli_checks(flat: dict, prom: dict, model: dict, board: dict,
+               recent: list, spans: list, sent: int) -> dict:
+    """The admin server's and the collector's readings against what was
+    sent: the router's request counter, the same counters in the
+    Prometheus scrape, every row scored, every destination on the board
+    with each faulted one above the calm median, sampled SERVER spans in
+    /requests.json, and scorer.batch spans with their device ms at the
+    collector."""
+    key = f"rt/{CLI_LABEL}/server/requests"
+    if flat.get(key) != sent:
+        raise AssertionError(f"cli: {key} = {flat.get(key)}, {sent} sent")
+    for c in CLI_COUNTERS + tuple(f"anomaly/{c}" for c in CLI_TELE_COUNTERS):
+        name = (f"anomaly_{c.split('/', 1)[1]}" if c.startswith("anomaly/")
+                else c.split("/", 1)[1].replace("/", "_")
+                + f'{{rt="{CLI_LABEL}"}}')
+        k = c if c.startswith("anomaly/") else f"rt/{CLI_LABEL}/{c}"
+        if prom.get(name) != flat[k]:
+            raise AssertionError(f"cli: prometheus {name} = "
+                                 f"{prom.get(name)}, metrics.json {flat[k]}")
+    if not (model["scored_fraction"] == 1.0 and model["requests_total"]
+            == model["scored_total"] == sent):
+        raise AssertionError(f"cli: /model.json {model}")
+    routes = tele_routes()
+    if sorted(board) != sorted(routes):
+        raise AssertionError(f"cli: /anomaly.json lists {sorted(board)}")
+    calm = float(np.median([board[d] for d in routes[TELE_FAULTED:]]))
+    low = {d: board[d] for d in routes[:TELE_FAULTED] if board[d] <= calm}
+    if low:
+        raise AssertionError(f"cli: faulted destinations at or under the "
+                             f"calm median {calm}: {low}")
+    if not recent or any(s["kind"] != "SERVER" for s in recent):
+        raise AssertionError(f"cli: /requests.json holds {len(recent)} "
+                             f"spans, not all SERVER")
+    batch = [s for s in spans if s["name"] == "scorer.batch"]
+    timed = [s for s in batch if "scorer.device_ms" in s["tags"]]
+    if not timed:
+        raise AssertionError(f"cli: {len(batch)} scorer.batch spans at "
+                             f"the collector, none with scorer.device_ms")
+    return {"board_faulted_min": min(board[d] for d in routes[:TELE_FAULTED]),
+            "board_calm_median": calm, "recent_requests": len(recent),
+            "spans_collected": len(spans), "scorer_batch_spans": len(batch),
+            "timed_batch_spans": len(timed),
+            "server_spans": sum(s["kind"] == "SERVER" for s in spans),
+            "device_ms_p50": float(np.median([float(
+                s["tags"]["scorer.device_ms"]) for s in timed]))}
+
+
+def cli_tap_checks(tap: dict, window_t: float, dev: str) -> dict:
+    """The child's tap: one kernel launch a scored batch (timed batches
+    included), every step on the card, kernel vs plain within the linker
+    phase's share; the window's AUC. (On the CPU: no launch, no step on
+    the card.)"""
+    from linkerd_tpu_torch.lifecycle.promote import auc
+
+    launches, steps, batches = (int(tap[k]) for k in ("launches", "steps",
+                                                       "batches"))
+    on_card = steps if dev == "cuda" else 0
+    if not (launches == int(tap["cuda_steps"]) == on_card
+            and steps == batches):
+        raise AssertionError(
+            f"cli: {launches} kernel launches, {steps} steps "
+            f"({int(tap['cuda_steps'])} on the card), {batches} batches")
+    gap = np.abs(tap["kernel"] - tap["plain"])
+    past = int((gap > ROW_TOL).sum())
+    print(f"cli: kernel vs plain max|diff| {gap.max():.3e}, {past} of "
+          f"{len(gap)} rows past {ROW_TOL}, {int((gap > 1e-3).sum())} past "
+          f"1e-3")
+    if past > ROW_SHARE * len(gap):
+        raise AssertionError(f"cli: kernel vs plain: {past} of {len(gap)} "
+                             f"rows past {ROW_TOL} > {ROW_SHARE:.0%}")
+    win = (tap["t"] >= window_t) & (tap["mask"] > 0)
+    pub = tap["publish_ms"]
+    return {"launches": launches, "batches": batches,
+            "kernel_vs_plain_max": float(gap.max()),
+            "rows_past_row_tol": past, "rows_past_1e-3":
+            int((gap > 1e-3).sum()), "rows": len(gap),
+            "window_rows": int(win.sum()),
+            "window_auc": auc(tap["labels"][win].tolist(),
+                              tap["scores"][win].tolist()),
+            "score_and_publish_p50_ms": float(np.percentile(pub, 50)),
+            "score_and_publish_p99_ms": float(np.percentile(pub, 99))}
+
+
+def stop_process(proc, what: str) -> dict:
+    """SIGTERM, then the exit code and ms to exit; fails unless 0 within
+    CLI_STOP_S. ``proc``: a Popen or a multiprocessing Process."""
+    t0 = time.perf_counter()
+    if hasattr(proc, "send_signal"):
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=CLI_STOP_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+    else:
+        proc.terminate()
+        proc.join(timeout=CLI_STOP_S)
+        rc = proc.exitcode
+    ms = (time.perf_counter() - t0) * 1e3
+    if rc != 0:
+        raise AssertionError(f"cli: {what} exit code {rc} {ms:.0f} ms "
+                             f"after SIGTERM")
+    return {"exit_code": rc, "stop_ms": ms}
+
+
+async def cli_phase(seed: int = 12, linker_a=None, dev: str = "cuda"):
+    """namerd and the linker CLI (spawned), the linker phase's backends
+    and load clients, a span collector here: a calm run, then a run with
+    faults on, each half through the TLS server; then the checks of
+    ``cli_checks`` on the admin server and the collector and of
+    ``cli_tap_checks`` on the child's readings, and both processes'
+    exits. ``linker_a``: the linker phase's part A on this host, printed
+    beside. Returns the results and the kernel's launches."""
+    import multiprocessing
+
+    from linkerd_tpu_torch.protocol.http.message import Response
+    from linkerd_tpu_torch.protocol.http.server import serve
+    from linkerd_tpu_torch.router.service import FnService
+
+    mp = multiprocessing.get_context("spawn")
+    spans = []
+
+    async def collect(req):
+        spans.extend(json.loads(req.body))
+        return Response(202)
+
+    res = {}
+    async with linker_topology(seed, (CLI_CALM, CLI_FAULTED)) as (
+            loads, flag, plans, disco):
+        work = Path(tempfile.mkdtemp(prefix="cli-"))
+        collector = await serve(FnService(collect))
+        namerd = child = None
+        try:
+            cert, key = cli_certs(work)
+            n_api, n_admin, admin = free_port(), free_port(), free_port()
+            ports = [free_port(), free_port()]
+            (work / "namerd.json").write_text(json.dumps({
+                "storage": {"kind": "io.l5d.inMemory", "namespaces": {
+                    "default": CONTROL_BASE_DTAB}},
+                "interfaces": [{"kind": "io.l5d.httpController",
+                                "port": n_api}],
+                "namers": [{"kind": "io.l5d.fs", "rootDir": str(disco)}],
+                "admin": {"port": n_admin}}))
+            (work / "linker.json").write_text(json.dumps(cli_config(
+                n_api, collector.bound_port, ports, admin, cert, key)))
+            with open(work / "namerd.log", "w") as log:
+                namerd = subprocess.Popen(
+                    [sys.executable, "-m", "linkerd_tpu_torch.namerd",
+                     str(work / "namerd.json")], cwd=ROOT, stdout=log,
+                    stderr=subprocess.STDOUT,
+                    env=dict(os.environ, PYTHONPATH=str(ROOT)))
+            await wait_ping(n_admin, lambda: namerd.poll() is None,
+                            "namerd", timeout=60.0)
+            child = mp.Process(target=cli_child, daemon=True, args=(
+                str(work / "linker.json"), str(work / "tap.npz"), dev))
+            spawned = time.monotonic()
+            child.start()
+            startup_ms = await wait_ping(admin, child.is_alive, "linkerd")
+            served = time.monotonic()
+            print(f"cli: linkerd CLI up (first /ping) after "
+                  f"{startup_ms:.1f} ms")
+            half = LINKER_CONNS // 2
+            targets = [ports[0]] * half + [(ports[1], cert)] * half
+            runs = {}
+            for name, plan, fault in (("calm", plans[0], 0),
+                                      ("faulted", plans[1], 1)):
+                flag.value = fault
+                if fault:
+                    window_t = time.monotonic()
+                both, outs = await linker_traffic(loads, targets, plan,
+                                                  split=True)
+                runs[name] = {
+                    server: linker_traffic_checks(
+                        out, f"cli {name} {server}", bool(fault))
+                    for server, out in zip(("cleartext", "tls"), outs)}
+                runs[name]["both"] = linker_traffic_checks(
+                    both, f"cli {name}", bool(fault))
+                # the rate over the run's second half of answers: the
+                # first carries the child's cold start
+                done = np.sort(both["t"])
+                runs[name]["both"]["second_half_requests_per_s"] = (
+                    len(done) - len(done) // 2) / (done[-1] - done[
+                        len(done) // 2 - 1])
+            flag.value = 0
+            sent = CLI_CALM + CLI_FAULTED
+            model = await wait_json(
+                admin, "/model.json", lambda m: m["scored_total"] ==
+                m["requests_total"] == sent, "every request scored")
+            tracer = await wait_shipped(admin, spans)
+            flat = json.loads((await http_get(
+                admin, "/admin/metrics.json"))[1])
+            t0 = time.perf_counter()
+            status, text = await http_get(admin, "/admin/metrics/prometheus")
+            scrape_ms = (time.perf_counter() - t0) * 1e3
+            board = json.loads((await http_get(admin, "/anomaly.json"))[1])
+            recent = json.loads((await http_get(admin, "/requests.json"))[1])
+            held = cli_checks(flat, prometheus_values(text.decode()), model,
+                              board["scores"], recent, spans, sent)
+            held["router_ms"] = stage_ms(flat, CLI_LABEL)
+            stops = {"linkerd": stop_process(child, "linkerd")}
+            stops["namerd"] = stop_process(namerd, "namerd")
+            tap = dict(np.load(work / "tap.npz"))
+            res.update(cli_tap_checks(tap, window_t, dev), **held)
+            marks = [spawned, *tap["boot"].tolist(), served]
+            res["boot_ms"] = {
+                f"{a}_to_{b}": (tb - ta) * 1e3 for a, b, ta, tb in zip(
+                    ("spawn",) + BOOT_MARKS, BOOT_MARKS + ("ping",),
+                    marks, marks[1:])}
+            res.update(startup_ms=startup_ms, runs=runs, stops=stops,
+                       prometheus_scrape_ms=scrape_ms,
+                       prometheus_lines=len(text.splitlines()),
+                       spans_sent=tracer["sent_spans"],
+                       spans_dropped=tracer["dropped_spans"],
+                       zipkin_posts=tracer["posts"],
+                       zipkin_failed_posts=tracer["failed_posts"])
+        finally:
+            for proc in (child, namerd):
+                if proc is None:
+                    continue
+                alive = (proc.poll() is None if hasattr(proc, "poll")
+                         else proc.is_alive())
+                if alive:
+                    proc.kill()
+                    (proc.wait if hasattr(proc, "poll") else proc.join)()
+            await collector.close()
+            shutil.rmtree(work, ignore_errors=True)
+    res["linker_a_same_host"] = None if linker_a is None else {
+        w: linker_a[w] for w in ("warmup", "window")}
+    print(f"cli, seed {seed}: {res['launches']} launches for "
+          f"{res['batches']} batches; kernel vs plain max|diff| "
+          f"{res['kernel_vs_plain_max']:.3e} ({res['rows_past_row_tol']} of "
+          f"{res['rows']} rows past {ROW_TOL}); window AUC "
+          f"{res['window_auc']:.4f}; board faulted min "
+          f"{res['board_faulted_min']:.4f} vs calm median "
+          f"{res['board_calm_median']:.4f}")
+    for name, r in res["runs"].items():
+        for server in ("cleartext", "tls", "both"):
+            s = r[server]
+            print(f"cli {name} {server}: {s['requests_per_s']:.0f} "
+                  f"requests/s, p50 {s['p50_ms']:.3f} ms, p99 "
+                  f"{s['p99_ms']:.3f} ms (calm p50 {s['calm_p50_ms']:.3f}, "
+                  f"p99 {s['calm_p99_ms']:.3f})" + (
+                      f"; second half {s['second_half_requests_per_s']:.0f}"
+                      f" requests/s" if server == "both" else ""))
+    if linker_a is not None:
+        for w in ("warmup", "window"):
+            t = linker_a[w]
+            print(f"linker A {w} on this host: {t['requests_per_s']:.0f} "
+                  f"requests/s, p50 {t['p50_ms']:.3f} ms, p99 "
+                  f"{t['p99_ms']:.3f} ms")
+    print("cli: startup " + ", ".join(f"{k} {v:.1f} ms"
+                                      for k, v in res["boot_ms"].items()))
+    print("cli: the router's own ms (p50/p99) over both runs: " + ", ".join(
+        f"{k} {v['p50']:.3f}/{v['p99']:.3f}"
+        for k, v in res["router_ms"].items()))
+    print(f"cli: _score_and_publish p50 {res['score_and_publish_p50_ms']:.3f}"
+          f" ms p99 {res['score_and_publish_p99_ms']:.3f} ms; spans sent "
+          f"{res['spans_sent']}, dropped {res['spans_dropped']} "
+          f"({res['zipkin_posts']} posts, {res['zipkin_failed_posts']} "
+          f"failed); prometheus scrape {res['prometheus_scrape_ms']:.3f} ms "
+          f"({res['prometheus_lines']} lines); /requests.json "
+          f"{res['recent_requests']} spans; stops "
+          + ", ".join(f"{k} {v['stop_ms']:.0f} ms"
+                      for k, v in res["stops"].items()))
+    return res, res["launches"]
+
+
 # The witness of the kernel's sums (``--witness``): on a phase's window
 # rows, an "exact" forward in float64 with the kernel's rounding points
 # (the float64 sum of bf16 products rounded once to bf16, the bf16 bias
@@ -4373,8 +4926,51 @@ BREAKDOWN = {
 CHECKS = ("kernel", "served")  # what --mutants runs on every mutant
 LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker,
                                 # fastpath and control phases
-PHASES = ("telemeter", "linker", "fastpath",
-          "control")  # --check and --mutant take these too
+PHASES = ("telemeter", "linker", "fastpath", "control",
+          "cli")  # --check and --mutant take these too
+# Broken copies of the port that the cli phase's checks must catch, one
+# a family: (file, text found once, its replacement) edits. The tracer
+# not installed; the router's request counter not incremented for a
+# 5xx; /anomaly.json serving the board as it stood at startup; the TLS
+# server's requests not counted.
+STATS_APPLY = ("    async def apply(self, req: Request, service: Service) "
+               "-> Response:\n"
+               "        self._requests.incr()\n"
+               "        t0 = time.monotonic()\n"
+               "        try:\n"
+               "            rsp = await service(req)\n"
+               "        except BaseException:\n"
+               "            self._failures.incr()\n")
+CLI_MUTANTS = {
+    "no_tracer": [(
+        "linkerd_tpu_torch/linker.py",
+        "        self.tracer = BroadcastTracer(tracers) if tracers else "
+        "NullTracer()\n",
+        "        self.tracer = NullTracer()\n")],
+    "uncounted_request": [(
+        "linkerd_tpu_torch/router/routing.py", STATS_APPLY,
+        STATS_APPLY.replace(
+            "        self._requests.incr()\n", "").replace(
+            "            rsp = await service(req)\n",
+            "            rsp = await service(req)\n"
+            "            if rsp.status < 500:\n"
+            "                self._requests.incr()\n"))],
+    "stale_board": [(
+        "linkerd_tpu_torch/telemetry/anomaly.py",
+        "        async def anomaly_json(req: Request) -> Response:\n"
+        "            return json_response({\n"
+        "                \"scores\": self.board.scores.sample(),\n",
+        "        stale = dict(self.board.scores.sample())\n\n"
+        "        async def anomaly_json(req: Request) -> Response:\n"
+        "            return json_response({\n"
+        "                \"scores\": stale,\n")],
+    "tls_uncounted": [(
+        "linkerd_tpu_torch/linker.py",
+        "            HttpServer(per_server_stack(s), s.ip, s.port,\n",
+        "            HttpServer(per_server_stack(s) if s.tls is None else "
+        "filters_to_service([f for f in server_filters if not "
+        "isinstance(f, StatsFilter)], routing), s.ip, s.port,\n")],
+}
 
 
 def run_check(which: str) -> int:
@@ -4389,7 +4985,7 @@ def run_check(which: str) -> int:
         check_kernel(cfg, rng)
     elif which == "served":
         asyncio.run(drive_service(cfg, rng))
-    elif which in ("linker", "fastpath", "control"):
+    elif which in ("linker", "fastpath", "control", "cli"):
         from linkerd_tpu_torch import native
         from linkerd_tpu_torch.native import _build as native_build
         from linkerd_tpu_torch.ops import _build
@@ -4399,7 +4995,7 @@ def run_check(which: str) -> int:
             native.ensure_built()
             native_build.build("h2bench")
         phase = {"linker": linker_phase, "fastpath": fastpath_phase,
-                 "control": control_phase}[which]
+                 "control": control_phase, "cli": cli_phase}[which]
         res, _ = asyncio.run(phase())
         name, _, limit = card_line().partition(",")
         print(json.dumps({which: res, "card": name.strip(),
@@ -4412,13 +5008,22 @@ def run_check(which: str) -> int:
 def copy_with(tmp: Path, name: str, line: str, replacement: str) -> Path:
     """A copy of this checkout under ``tmp/name`` whose kernel source
     has ``line`` (found exactly once) replaced."""
+    return copy_with_edits(tmp, name, [(KERNEL_SOURCE, line, replacement)])
+
+
+def copy_with_edits(tmp: Path, name: str, edits) -> Path:
+    """A copy of this checkout under ``tmp/name`` with each ``(file,
+    text, replacement)`` of ``edits`` made (``text`` found exactly once
+    in ``file``)."""
     shutil.copytree(ROOT, tmp / name, ignore=shutil.ignore_patterns(
-        "_build", "_tree", ".git", "__pycache__"))
-    src = tmp / name / KERNEL_SOURCE
-    text = src.read_text()
-    if text.count(line) != 1:
-        raise AssertionError(f"{name}: line not found once: {line}")
-    src.write_text(text.replace(line, replacement))
+        "_build", "_tree", ".git", "__pycache__", "chiprun_out"))
+    for rel, line, replacement in edits:
+        src = tmp / name / rel
+        text = src.read_text()
+        if text.count(line) != 1:
+            raise AssertionError(f"{name}: text not found once in {rel}: "
+                                 f"{line}")
+        src.write_text(text.replace(line, replacement))
     return tmp / name
 
 
@@ -4443,7 +5048,10 @@ def check_mutant(name: str, which: str) -> int:
     fail by its own assertion."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        copy_with(tmp, name, *MUTANTS[name])
+        if name in CLI_MUTANTS:
+            copy_with_edits(tmp, name, CLI_MUTANTS[name])
+        else:
+            copy_with(tmp, name, *MUTANTS[name])
         _, _, rc, last = run_mutant(name, which, tmp)
     print(f"mutant {name}, {which} check: "
           f"{'caught' if caught(rc, last) else 'MISSED'}: {last}")
@@ -4460,6 +5068,8 @@ def check_mutants() -> int:
         tmp = Path(tmp)
         for name, (line, broken) in MUTANTS.items():
             copy_with(tmp, name, line, broken)
+        for name, edits in CLI_MUTANTS.items():
+            copy_with_edits(tmp, name, edits)
         # kernel checks in parallel (each builds its mutant), then the
         # served checks on the built libraries
         with ThreadPoolExecutor(len(MUTANTS)) as pool:
@@ -4467,7 +5077,8 @@ def check_mutants() -> int:
                                     MUTANTS))
         results += [run_mutant(n, "served", tmp) for n in MUTANTS]
         results += [run_mutant(LINKER_MUTANT, phase, tmp)
-                    for phase in ("linker", "fastpath", "control")]
+                    for phase in ("linker", "fastpath", "control", "cli")]
+        results += [run_mutant(name, "cli", tmp) for name in CLI_MUTANTS]
     missed = []
     for name, which, rc, last in results:
         print(f"mutant {name}, {which} check: "
@@ -4620,8 +5231,8 @@ def main() -> int:
     if len(args) == 2 and args[0] == "--check" and \
             args[1] in CHECKS + PHASES:
         return run_check(args[1])
-    if len(args) == 3 and args[0] == "--mutant" and args[1] in MUTANTS \
-            and args[2] in CHECKS + PHASES:
+    if len(args) == 3 and args[0] == "--mutant" and \
+            args[1] in (*MUTANTS, *CLI_MUTANTS) and args[2] in CHECKS + PHASES:
         return check_mutant(args[1], args[2])
     if args:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
@@ -4687,6 +5298,7 @@ def main() -> int:
     fastpath, fastpath_launches = asyncio.run(fastpath_phase())
     control, control_launches = asyncio.run(control_phase(
         linker_a=linker["part_a"]))
+    cli, cli_launches = asyncio.run(cli_phase(linker_a=linker["part_a"]))
     telemeter["recorder"] = recorder_us()
     print(f"recorder filter: {telemeter['recorder']['recorder_us']:.2f} us "
           f"a request, the downstream alone "
@@ -4716,7 +5328,8 @@ def main() -> int:
                                   telemeter=telemeter_launches,
                                   linker=linker_launches,
                                   fastpath=fastpath_launches,
-                                  control=control_launches),
+                                  control=control_launches,
+                                  cli=cli_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -4741,6 +5354,8 @@ def main() -> int:
     print(json.dumps({"fastpath": fastpath, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"control": control, "card": name.strip(),
+                      "power_limit": limit.strip()}))
+    print(json.dumps({"cli": cli, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,7 +19,7 @@ import json
 import typing
 from typing import Any, Dict, List, Optional, Type, TypeVar, Union, get_args, get_origin
 
-from linkerd_tpu_torch.config.registry import ConfigError, lookup
+from linkerd_tpu_torch.config.registry import ConfigError, kinds, lookup
 from linkerd_tpu_torch.config.types import HostAndPort, Port
 
 T = TypeVar("T")
@@ -181,6 +181,29 @@ def instantiate(category: str, data: Dict[str, Any], path: str = "") -> Any:
         raise ConfigError(f"{path}: missing 'kind' discriminator")
     cls = lookup(category, kind)
     return instantiate_as(cls, data, path or kind)
+
+
+def refusal(what: str, item: str) -> ConfigError:
+    """The port's refusal of what the reference takes: ``what`` is not
+    supported yet and comes with ROADMAP ``item``."""
+    return ConfigError(
+        f"{what} is not supported by the port yet: it comes with {item}")
+
+
+def instantiate_ported(category: str, raw: Any, where: str,
+                       unported: Dict[str, str]) -> Any:
+    """``instantiate`` that refuses by name a kind of ``unported`` (the
+    reference's kinds the port has not ported yet, each with its ROADMAP
+    item), and lists those kinds among the known ones when a kind is in
+    neither package, as the reference's registry would."""
+    kind = raw.get("kind") if isinstance(raw, dict) else None
+    if kind in unported:
+        raise refusal(f"{where}: {category} kind {kind!r}", unported[kind])
+    if kind and unported and kind not in kinds(category):
+        known = sorted(set(kinds(category)) | set(unported))
+        raise ConfigError(
+            f"unknown {category} kind {kind!r}; known kinds: {known}")
+    return instantiate(category, raw, where)
 
 
 def instantiate_list(category: str, data: Any, path: str = "") -> List[Any]:

@@ -10,7 +10,11 @@ The port's linker builds HTTP routers with the ``io.l5d.fs`` namer (plus
 the in-process ``/$/inet`` and status utility namers), bound in process
 or through namerd's HTTP API (``interpreter: {kind:
 io.l5d.namerd.http}``), and the ``io.l5d.jaxAnomaly`` telemeter, whose
-scorer runs on ``device``. The telemeter's ``control:`` block closes the
+scorer runs on ``device``, beside the metric-exporter and tracer
+telemeters (``telemetry/exporters.py``), whose tracers are broadcast to
+every router's trace filters and to the anomaly telemeter's scorer
+spans. Servers and clients of a Python router take ``tls``. The
+telemeter's ``control:`` block closes the
 loop on routing: the linker wraps each balancer in the control loop's
 score weigher, registers each router's ``admissionControl`` filter for
 adaptive admission, and routes through the reactor's override book. A
@@ -24,15 +28,18 @@ at load rather than serving without it.
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from linkerd_tpu_torch import DeviceLike, resolve_device
 from linkerd_tpu_torch.config import (
-    ConfigError, instantiate, kinds, parse_config,
+    ConfigError, instantiate, parse_config,
 )
 from linkerd_tpu_torch.control.balancer import ScoreWeightedBalancer
-from linkerd_tpu_torch.config.parser import instantiate_as
+from linkerd_tpu_torch.config.parser import (
+    instantiate_as, instantiate_ported, refusal as _refusal,
+)
 from linkerd_tpu_torch.core import Dtab, Path
 from linkerd_tpu_torch.core.addr import Address, BoundName
 from linkerd_tpu_torch.core.pathmatcher import PathMatcher
@@ -68,16 +75,22 @@ from linkerd_tpu_torch.router.service import (
     FnService, Service, filters_to_service,
 )
 from linkerd_tpu_torch.router.stages import StageTimerFilter
+from linkerd_tpu_torch.router.tracing import (
+    ClientTraceFilter, ServerTraceFilter,
+)
 from linkerd_tpu_torch.telemetry.anomaly import (
     JaxAnomalyTelemeter, ScoreBoard,
 )
 from linkerd_tpu_torch.telemetry.metrics import MetricsTree
+from linkerd_tpu_torch.telemetry.telemeter import BroadcastTracer, NullTracer
 
 # The port's plugins register into its own registry when imported: the
 # identifiers, classifiers, failure accrual kinds and the telemeter by
-# the imports above, the fs namer and the interpreter kinds here.
+# the imports above, the fs namer, the interpreter kinds and the
+# exporter telemeters here.
 import linkerd_tpu_torch.interpreter.configs  # noqa: F401
 import linkerd_tpu_torch.namer.fs  # noqa: F401
+import linkerd_tpu_torch.telemetry.exporters  # noqa: F401
 
 DEFAULT_ADMIN_PORT = 9990  # ref: Linker.scala:37
 
@@ -88,12 +101,7 @@ _NATIVE_TLS = "ROADMAP Queue 1 item 4 (the native engines: native TLS)"
 _GUARD = ("ROADMAP Queue 1 item 4 (the native engines: connectionGuard "
           "and streamScoring)")
 _PROTOCOLS = "ROADMAP Queue 1 item 12 (h2/gRPC, then thrift/mux)"
-_TLS = "ROADMAP Queue 1 item 9 (TLS)"
 _EDGE = "ROADMAP Queue 1 item 10 (tenants and loggers)"
-_ADMIN = ("ROADMAP Queue 1 item 7 (the CLI, the admin server and the "
-          "metric exporters)")
-_TRACING = ("ROADMAP Queue 1 item 8 (router/tracing.py with the tracer "
-            "telemeters)")
 _ANNOUNCERS = "ROADMAP Queue 1 item 11 (the announcers)"
 _K8S = "ROADMAP Queue 1 item 5 (the namers of the fault benchmarks)"
 _NAMING = ("ROADMAP Queue 1 item 13 (the other namers, transformers and "
@@ -125,12 +133,7 @@ UNPORTED_KINDS: Dict[str, Dict[str, str]] = {
         "io.l5d.marathon": _NAMING, "io.l5d.rewrite": _NAMING,
         "io.l5d.serversets": _NAMING, "io.l5d.zkLeader": _NAMING,
     },
-    "telemeter": {
-        "io.l5d.zipkin": _TRACING, "io.l5d.tracelog": _TRACING,
-        "io.l5d.recentRequests": _TRACING,
-        "io.l5d.prometheus": _ADMIN, "io.l5d.influxdb": _ADMIN,
-        "io.l5d.statsd": _ADMIN, "io.l5d.istio": _K8S,
-    },
+    "telemeter": {"io.l5d.istio": _K8S},
     "identifier": {
         "io.l5d.ingress": _K8S, "io.l5d.k8s.istio": _K8S,
         "io.l5d.k8s.istio-ingress": _K8S,
@@ -143,24 +146,9 @@ UNPORTED_KINDS: Dict[str, Dict[str, str]] = {
 }
 
 
-def _refusal(what: str, item: str) -> ConfigError:
-    return ConfigError(
-        f"{what} is not supported by the port yet: it comes with {item}")
-
-
 def _instantiate(category: str, raw: Any, where: str) -> Any:
-    """``instantiate`` that refuses a reference kind the port has not
-    ported by name, and lists those kinds among the known ones when a
-    kind is in neither package, as the reference's registry would."""
-    kind = raw.get("kind") if isinstance(raw, dict) else None
-    unported = UNPORTED_KINDS.get(category, {})
-    if kind in unported:
-        raise _refusal(f"{where}: {category} kind {kind!r}", unported[kind])
-    if kind and unported and kind not in kinds(category):
-        known = sorted(set(kinds(category)) | set(unported))
-        raise ConfigError(
-            f"unknown {category} kind {kind!r}; known kinds: {known}")
-    return instantiate(category, raw, where)
+    return instantiate_ported(category, raw, where,
+                              UNPORTED_KINDS.get(category, {}))
 
 
 
@@ -637,15 +625,27 @@ class _FastPathRouter(Router):
 
 class Linker:
     """The reference's ``Linker`` for HTTP/1.1 routers, with its
-    telemeters built on ``device``."""
+    telemeters built on ``device``. ``config_dict`` and ``config_text``
+    are what the admin server's ``/config.json`` serves."""
 
-    def __init__(self, spec: LinkerSpec, device: DeviceLike = None):
+    def __init__(self, spec: LinkerSpec, device: DeviceLike = None,
+                 config_dict: Any = None,
+                 config_text: Optional[str] = None):
         self.spec = spec
         self.device = resolve_device(device)
+        self.config_dict = config_dict
+        self.config_text = config_text
         self.metrics = MetricsTree()
         self.namers: List[Tuple[Path, Namer]] = []
         self.routers: List[Router] = []
         self.telemeters: List[Any] = []
+        self.tracer: Any = NullTracer()
+        # what /tenants.json and /streams.json read: empty while
+        # ``tenants`` and ``streamScoring`` are refused (ROADMAP Queue 1
+        # items 10 and 4), so both answer {} as the reference does on
+        # such a config
+        self.tenant_views: List[Tuple[str, Any, Any]] = []
+        self.stream_sentinels: List[Tuple[str, Any]] = []
         try:
             self._build()
         except BaseException:
@@ -684,7 +684,13 @@ class Linker:
                 "telemetry: expected a list of telemeter configs")
         for i, raw in enumerate(telemetry or []):
             tcfg = _instantiate("telemeter", raw, f"telemetry[{i}]")
-            self.telemeters.append(tcfg.mk(self.metrics, device=self.device))
+            # the exporter telemeters are device-free copies whose mk
+            # takes the metrics tree alone
+            if "device" in inspect.signature(tcfg.mk).parameters:
+                self.telemeters.append(
+                    tcfg.mk(self.metrics, device=self.device))
+            else:
+                self.telemeters.append(tcfg.mk(self.metrics))
         # the control loop's reactor verifies generated overrides by
         # symbolic delegation over THESE namers' prefixes; a linker with
         # no local namers (remote namerd interpreter) passes None =
@@ -692,6 +698,17 @@ class Linker:
         ctl = self._anomaly_control()
         if ctl is not None:
             ctl.set_namer_prefixes([p for p, _ in self.namers] or None)
+        # broadcast tracer over all telemeter tracers (ref:
+        # linkerd_tpu/linker.py:652-662, Linker.scala:152-157)
+        tracers = [t.tracer for t in self.telemeters if t.tracer is not None]
+        self.tracer = BroadcastTracer(tracers) if tracers else NullTracer()
+        if tracers:
+            # span-producing telemeters (the anomaly micro-batcher emits
+            # scorer spans) get the assembled sink; with no tracer
+            # configured they stay silent
+            for t in self.telemeters:
+                if hasattr(t, "set_tracer"):
+                    t.set_tracer(self.tracer)
 
         labels_seen: Dict[str, int] = {}
         for rspec in self.spec.routers:
@@ -726,8 +743,6 @@ class Linker:
                 if value is not None and value is not False:
                     raise _refusal(f"{label}.{key}", item)
             for i, s in enumerate(rspec.servers or []):
-                if s.tls is not None:
-                    raise _refusal(f"{label}.servers[{i}].tls", _TLS)
                 if s.compressionLevel is None:
                     continue
                 if not -1 <= s.compressionLevel <= 9:
@@ -765,7 +780,7 @@ class Linker:
                         f"{spec.loadBalancer.kind!r} "
                         f"(known: {sorted(BALANCER_KINDS)})")
             if spec.tls is not None:
-                raise _refusal(f"{label}.client.tls", _TLS)
+                spec.tls.validate(var_names)
         return validate_client
 
     def _mk_policy_factory_fn(self, label: str):
@@ -958,16 +973,24 @@ class Linker:
 
                 return FnService(const_status)
             cid = bound.id_.show.lstrip("/").replace("/", ".") or "client"
-            cspec, _ = client_lookup(bound.id_)
+            cspec, cvars = client_lookup(bound.id_)
             mk_policy = mk_policy_factory(cspec)
             ep_wrap, extra_filters = self._client_stack_extras(
                 cspec, label, cid)
+
+            # client TLS with the path's captures substituted into the
+            # commonName (ref: linkerd_tpu/linker.py:1842-1852)
+            ssl_ctx = sni = None
+            if cspec.tls is not None:
+                sni = cspec.tls.server_hostname(cvars)
+                ssl_ctx = cspec.tls.mk_context(sni)
 
             def endpoint_factory(addr: Address) -> Service:
                 client: Service = HttpClient(
                     addr.host, addr.port,
                     max_connections=cspec.hostConnectionPool,
-                    connect_timeout=cspec.connectTimeoutMs / 1e3)
+                    connect_timeout=cspec.connectTimeoutMs / 1e3,
+                    ssl_context=ssl_ctx, server_hostname=sni)
                 # per-endpoint accrual (ref: FailureAccrualFactory sits below
                 # the balancer in the client stack, Router.scala:318)
                 return FailureAccrualService(ep_wrap(client),
@@ -985,6 +1008,9 @@ class Linker:
                 ClientDeadlineFilter(),
             ]
             filters.extend(extra_filters)
+            # (ref: linkerd_tpu/linker.py:1877-1879)
+            if not isinstance(self.tracer, NullTracer):
+                filters.append(ClientTraceFilter(self.tracer, cid))
             metrics.scope("rt", label, "client", cid).gauge(
                 "endpoints", fn=lambda b=bal: b.size)
             # Prune this client's metrics subtree on eviction so gauges
@@ -1041,12 +1067,18 @@ class Linker:
 
         routing = self._mk_routing(identifier, binding, base_dtab)
         # Stats outermost so they observe ErrorResponder's mapped statuses;
-        # anomaly feature recorders tap the same final view.
+        # anomaly feature recorders tap the same final view. The stage
+        # timer sits just inside the trace filter so span tags see the
+        # completed per-stage totals (ref: linkerd_tpu/linker.py:1938-1949).
         server_filters: List[Any] = [
             StageTimerFilter(metrics, "rt", label),
             StatsFilter(metrics, "rt", label, "server"),
             StatusCodeStatsFilter(metrics, "rt", label, "server"),
         ]
+        if not isinstance(self.tracer, NullTracer):
+            # only pay per-request span construction when a sink exists
+            server_filters.insert(
+                0, ServerTraceFilter(self.tracer, label, rspec.sampleRate))
         for t in self.telemeters:
             if hasattr(t, "recorder"):
                 server_filters.append(t.recorder())
@@ -1107,6 +1139,7 @@ class Linker:
         servers = [
             HttpServer(per_server_stack(s), s.ip, s.port,
                        max_concurrency=s.maxConcurrentRequests,
+                       ssl_context=(s.tls.mk_context() if s.tls else None),
                        compression_level=s.compressionLevel)
             for s in (rspec.servers or [ServerSpec()])
         ]
@@ -1201,4 +1234,5 @@ class Linker:
 def load_linker(text: str, device: DeviceLike = None) -> Linker:
     """Parse a YAML/JSON config into an (unstarted) Linker whose
     telemeters run on ``device``: CUDA unless ``"cpu"`` is named."""
-    return Linker(parse_linker_spec(text), device=device)
+    return Linker(parse_linker_spec(text), device=device,
+                  config_dict=parse_config(text), config_text=text)

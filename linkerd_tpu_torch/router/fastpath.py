@@ -350,6 +350,12 @@ class FastPathController:
             if copied or short:
                 t.native_committed(copied, dropped=short)
 
+    def streams_snapshot(self) -> dict:
+        """/streams.json body (ref: linkerd_tpu/router/fastpath.py:363):
+        the port's engine has no stream table and no sentinel while
+        ``streamScoring`` is refused (ROADMAP Queue 1 item 4)."""
+        return {"enabled": False}
+
     async def close(self) -> None:
         # detach the task list BEFORE awaiting: a start() interleaving
         # with the cancel waits would otherwise have its fresh loops

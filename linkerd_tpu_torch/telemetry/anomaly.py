@@ -32,7 +32,6 @@ from __future__ import annotations
 import asyncio
 import collections
 import contextlib
-import json
 import logging
 import threading
 import time
@@ -675,24 +674,12 @@ class InProcessScorer(Scorer):
         self._dispatcher.close()
 
 
-def json_response(data: Any, status: int = 200) -> Response:
-    """A JSON admin response, as the reference's admin server renders
-    one."""
-    rsp = Response(status=status, body=json.dumps(data, indent=2).encode())
-    rsp.headers.set("Content-Type", "application/json")
-    return rsp
-
-
 # Keys of the reference's ``io.l5d.jaxAnomaly`` block that the port does
 # not take yet, with the ROADMAP item that brings each. A config naming
 # one is refused, not quietly served without it.
 REFUSED_KEYS = {
     "sidecarAddress": "ROADMAP Queue 1 item 4 (sidecar tiering)",
     "sidecarTier": "ROADMAP Queue 1 item 4 (sidecar tiering)",
-    "scoreTimeoutMs": "ROADMAP Queue 1 item 4 (the sidecar's breaker)",
-    "breakerFailures": "ROADMAP Queue 1 item 4 (the sidecar's breaker)",
-    "breakerMinBackoffMs": "ROADMAP Queue 1 item 4 (the sidecar's breaker)",
-    "breakerMaxBackoffMs": "ROADMAP Queue 1 item 4 (the sidecar's breaker)",
 }
 
 
@@ -727,6 +714,14 @@ class JaxAnomalyConfig:
     # without a lifecycle: block, the online-trained model is
     # re-exported on this cadence (seconds; 0 disables)
     nativeRefreshS: float = 30.0
+    # the sidecar's per-call deadline and breaker: the reference reads
+    # them only with a sidecarAddress (linkerd_tpu/telemetry/anomaly.py:
+    # 1222-1250), which the port refuses, so here they are taken and
+    # inert, as the reference leaves them without one
+    scoreTimeoutMs: int = 2000
+    breakerFailures: int = 3
+    breakerMinBackoffMs: int = 500
+    breakerMaxBackoffMs: int = 30000
     # ScoreBoard staleness TTL: stale scores decay to neutral so a dead
     # scorer can't pin accrual policy
     scoreTtlSecs: float = 30.0
@@ -1615,6 +1610,8 @@ class JaxAnomalyTelemeter(Telemeter):
             g.set(score)
 
     def admin_handlers(self):
+        from linkerd_tpu_torch.admin.server import json_response
+
         async def anomaly_json(req: Request) -> Response:
             return json_response({
                 "scores": self.board.scores.sample(),
@@ -1625,8 +1622,21 @@ class JaxAnomalyTelemeter(Telemeter):
         async def model_json(req: Request) -> Response:
             return json_response(self.model_state())
 
-        return [("/anomaly.json", anomaly_json),
-                ("/model.json", model_json)]
+        handlers = [("/anomaly.json", anomaly_json),
+                    ("/model.json", model_json)]
+        if self.control is not None:
+            # (ref: linkerd_tpu/telemetry/anomaly.py:1801-1810; the fleet
+            # handlers come with control.fleet, ROADMAP Queue 1 item 14)
+            async def control_json(req: Request) -> Response:
+                st = self.control.status()
+                # the control loop actuates on scores; surface WHICH
+                # tier produced them (and which model version/CRC the
+                # engines are serving) next to the actuation state
+                st["native_tier"] = self.native_tier_state()
+                return json_response(st)
+
+            handlers.append(("/control.json", control_json))
+        return handlers
 
     def model_state(self) -> dict:
         """Model-lifecycle state for /model.json: version, step, last

@@ -42,6 +42,11 @@ COPIES = (
     "namerd/core.py", "namerd/http_api.py", "interpreter/namerd_http.py",
     "control/__init__.py", "control/state.py", "control/balancer.py",
     "control/admission.py",
+    # the CLI slice: tracing, the exporter and usage telemeters, the
+    # admin server and namerd's admin pages
+    "router/tracing.py", "telemetry/exporters.py", "telemetry/usage.py",
+    "admin/__init__.py", "admin/server.py", "admin/dashboard.py",
+    "namerd/admin_pages.py",
 )
 
 # Modules that differ on purpose: reason, and the top-level names that
@@ -56,13 +61,32 @@ DIFFERENT = {
         "PyYAML is imported on the first non-JSON config, not at load, "
         "so a host without it still takes JSON configs; a by-name "
         "refusal (ConfigRefused) passes through the Optional branch of "
-        "_convert with its message",
+        "_convert with its message; refusal and instantiate_ported "
+        "refuse the reference's kinds the port has not ported by name, "
+        "for the linker and namerd",
         {"yaml", "_StrictLoader", "_strict_mapping", "_STRICT_LOADER",
-         "_strict_loader", "parse_config", "ConfigRefused", "_convert"}),
-    "router/tracing.py": (
-        "partial: only TraceId, which the telemeter's scorer spans use; "
-        "the trace filters wait for the tracer telemeters (ROADMAP "
-        "Queue 1 item 8)", None),
+         "_strict_loader", "parse_config", "ConfigRefused", "_convert",
+         "refusal", "instantiate_ported", "ConfigError", "kinds",
+         "lookup"}),
+    "admin/handlers.py": (
+        "no /config-check.json: the reference's runs l5dcheck from "
+        "tools/, which imports the JAX package (ROADMAP Queue 1 item 16)",
+        {"mk_config_check_handler", "linkerd_admin_handlers"}),
+    "__main__.py": (
+        "--device: the telemeters run on the CUDA device unless "
+        "--device cpu is given, and with no CUDA device the CLI exits "
+        "non-zero instead of serving; its logger and usage line name "
+        "the port",
+        {"USAGE", "amain", "parse_args", "main", "log", "List", "Optional",
+         "Tuple"}),
+    "namerd/config.py": (
+        "the in-memory and fs stores and the HTTP control interface; "
+        "the mesh and thrift interfaces and namerd/stores.py's kinds "
+        "are refused by name (ROADMAP Queue 1 items 12 and 15)", None),
+    "namerd/__main__.py": (
+        "runs the port's namerd/config.py, which refuses the mesh and "
+        "thrift interfaces and the remote stores by name; its logger "
+        "and usage line name the port", {"log", "main"}),
     "linker.py": (
         "the protocol: http subset, with a device for the telemeters and "
         "by-name refusals of what is not ported", None),

@@ -350,11 +350,16 @@ REFUSALS = {
            ("client.tls", "  client:\n    tls: {}\n"))},
     "fastPath on h2": ("routers:\n- protocol: h2\n  fastPath: true\n",
                        "fastPath on protocol 'h2'"),
+    # TLS is served on a Python router; on a fastPath router it stays
+    # refused, on any server and in any per-prefix client block
     "server tls": (
-        "routers:\n- protocol: http\n  servers:\n  - port: 0\n    tls:\n"
-        "      certPath: c\n      keyPath: k\n", "servers[0].tls"),
+        "routers:\n- protocol: http\n  fastPath: true\n  servers:\n"
+        "  - port: 0\n  - port: 0\n    tls:\n      certPath: c\n"
+        "      keyPath: k\n", "servers[1].tls"),
     "client tls": (
-        BASE + "  client:\n    tls: {commonName: x}\n", "client.tls"),
+        "routers:\n- protocol: http\n  fastPath: true\n  client:\n"
+        "    kind: io.l5d.static\n    configs:\n    - prefix: /svc\n"
+        "      tls: {commonName: x}\n", "client.tls"),
     "namer transformers": (
         BASE + "namers:\n- kind: io.l5d.fs\n  rootDir: .\n  transformers:"
         "\n  - kind: io.l5d.localhost\n", "transformers"),
@@ -428,6 +433,28 @@ def test_unported_kinds_are_the_reference_kinds():
         assert not set(port_kinds(cat)) & set(unported)
 
 
+PORTED_TELEMETERS = ("io.l5d.zipkin", "io.l5d.tracelog",
+                     "io.l5d.recentRequests", "io.l5d.prometheus",
+                     "io.l5d.influxdb", "io.l5d.statsd")
+
+
+@pytest.mark.parametrize("kind", PORTED_TELEMETERS)
+def test_ported_telemeter_kind_loads(kind):
+    """The exporter and tracer telemeters, refused until they were
+    ported, load in both packages to equal configs; the tracers among
+    them are broadcast to the router's trace filters."""
+    text = BASE + f"telemetry:\n- kind: {kind}\n"
+    linkers = [load(pkg, text) for pkg in ("ref", "port")]
+    (r,), (p,) = (lk.telemeters for lk in linkers)
+    assert type(p).__name__ == type(r).__name__
+    assert vars(getattr(p, "cfg", p)).keys() == vars(
+        getattr(r, "cfg", r)).keys()
+    for lk in linkers:
+        assert (type(lk.tracer).__name__ == "BroadcastTracer") == (
+            kind in ("io.l5d.zipkin", "io.l5d.tracelog",
+                     "io.l5d.recentRequests"))
+
+
 def test_admin_and_usage_parse_but_need_a_router():
     for text in ("admin: {port: 9990}", "usage: {enabled: false}"):
         with pytest.raises(ConfigError, match="at least one router"):
@@ -480,18 +507,50 @@ namers:
 """
 
 
-def port_scoring_e2e(disco):
+class ScriptedClock:
+    """A scripted ``time`` module for the port's telemeter: ``monotonic``
+    reads ``now``, which the backend moves by a latency drawn from a
+    seed (``step``: the fault window's 40 ms plus jitter, else about 1
+    ms); ``time`` is the real clock. The recorded rows, and so the model
+    trained on them, are then the same in every run."""
+
+    def __init__(self, now=1000.0, seed=0):
+        self.now = now
+        self.rng = np.random.default_rng(seed)
+
+    def step(self, fault: bool) -> None:
+        ms = (40.0 + self.rng.uniform(0.0, 2.0) if fault
+              else self.rng.gamma(2.0, 0.5))
+        self.now += ms / 1e3
+
+    def monotonic(self):
+        return self.now
+
+    @staticmethod
+    def time():
+        return __import__("time").time()
+
+
+def port_scoring_e2e(disco, clock=None):
     """The reference's end-to-end protocol (tests/test_anomaly.py) on
     the port's linker: returns the scored fraction, the board before and
     after the fault window, the window's AUC, its rows and the scorer's
-    snapshot with the port's scores of them."""
+    snapshot with the port's scores of them. With ``clock`` (the port
+    telemeter's scripted clock) each request takes the latency its
+    window stands for on that clock."""
     injector = FaultInjector(FaultSpec(error_rate=0.9, latency_ms=40.0))
 
     async def backend(req: Request) -> Response:
         return Response(200, body=b"x" * 200)
 
+    async def advance(req: Request, svc) -> Response:
+        if clock is not None:
+            clock.step(injector.active)
+        return await svc(req)
+
     async def go():
-        d = await serve(injector.and_then(FnService(backend)))
+        d = await serve(FnService(lambda req: advance(
+            req, injector.and_then(FnService(backend)))))
         (disco / "web").write_text(f"127.0.0.1 {d.bound_port}\n")
         linker = port_load_linker(TELE_CONFIG.format(disco=disco),
                                   device="cpu")
@@ -550,11 +609,17 @@ def jax_scores(snap, x: np.ndarray) -> np.ndarray:
     return np.asarray(compiled(params, z))
 
 
-def test_end_to_end_scoring_and_auc_on_the_port(tmp_path):
+def test_end_to_end_scoring_and_auc_on_the_port(tmp_path, monkeypatch):
+    """Rows recorded under the scripted clock: their latency features,
+    and so the model and the rows the bf16 bounds hold, do not change
+    with the host's timing."""
+    from linkerd_tpu_torch.telemetry import anomaly as port_anomaly
+    clock = ScriptedClock()
+    monkeypatch.setattr(port_anomaly, "time", clock)
     disco = tmp_path / "disco"
     disco.mkdir()
     fraction, baseline, anomalous, x, labels, scores, snap = \
-        port_scoring_e2e(disco)
+        port_scoring_e2e(disco, clock)
     assert fraction == 1.0
     assert anomalous > baseline
     mask = [(lab, s) for lab, s in zip(labels, scores) if lab is not None]

@@ -960,10 +960,21 @@ REFUSED = {"sidecarAddress": "127.0.0.1:9000", "sidecarTier": "primary",
 def test_config_errors_match_reference(case, tmp_path):
     if case.startswith("refused:"):
         key = case.split(":", 1)[1]
-        with pytest.raises(ConfigError, match=f"'{key}'.*ROADMAP Queue 1"):
-            port.JaxAnomalyConfig(**{key: REFUSED[key]})
         assert key in {f.name for f in
                        dataclasses.fields(ref.JaxAnomalyConfig)}
+        if key in port.REFUSED_KEYS:
+            with pytest.raises(ConfigError,
+                               match=f"'{key}'.*ROADMAP Queue 1"):
+                port.JaxAnomalyConfig(**{key: REFUSED[key]})
+            return
+        # the sidecar's breaker keys are refused no more: with no
+        # sidecarAddress the reference takes them and leaves them
+        # inert, and so does the port
+        got = port.JaxAnomalyConfig(**{key: REFUSED[key]})
+        want = ref.JaxAnomalyConfig(**{key: REFUSED[key]})
+        assert getattr(got, key) == getattr(want, key) == REFUSED[key]
+        port.JaxAnomalyTelemeter(got, metrics.MetricsTree(),
+                                 device="cpu").close()
         return
     kw = dict(BAD_CONFIGS[case])
     mk = {"distill": lambda pkg: (RefDistillConfig if pkg == "ref"
@@ -997,7 +1008,7 @@ def test_config_keys_and_defaults_match_reference():
     assert lookup("telemeter", "io.l5d.jaxAnomaly") is port.JaxAnomalyConfig
     assert port.JaxAnomalyConfig.kind == "io.l5d.jaxAnomaly"
     with pytest.raises(ConfigError, match="unknown telemeter kind"):
-        lookup("telemeter", "io.l5d.prometheus")
+        lookup("telemeter", "io.l5d.istio")
 
 
 def test_cuda_by_default(snap, tmp_path):
