@@ -7,9 +7,11 @@
     python3 chip_smoke.py --check telemeter  # the telemeter phase alone
     python3 chip_smoke.py --check linker     # the linker phase alone
     python3 chip_smoke.py --check fastpath   # the fastpath phase alone
+    python3 chip_smoke.py --check fastpath_d # its part D alone
     python3 chip_smoke.py --check control    # the control phase alone
     python3 chip_smoke.py --mutant one_rounding telemeter  # one mutant, one check
     python3 chip_smoke.py --witness  # the kernel's sums against exact ones
+    python3 chip_smoke.py --repeat-control-a 16  # control part A, 16 times
 
 Builds every CUDA kernel of the scoring path, and the native engine
 (``native/`` through ``linkerd_tpu_torch/native/_build.py``), from the
@@ -61,7 +63,16 @@ telemeter's blob published into the engine, which scores the rows in
 its data plane: its share of the window, its scores against the native
 evaluator and the float32 plain forward, and against the kernel), part
 C with no telemetry block, beside the window's traffic sent straight to
-the backends; and its times. Then the control phase: the same topology
+the backends, and part D: a router with ``workers: 4``, a cleartext and
+a native-TLS server, ``connectionGuard`` and ``streamScoring``, the
+telemeter at ``nativeTier: off`` (every worker accepted connections and
+the merged stats equal the workers' sum, ``worker/<i>`` exported, the
+engine's TLS handshakes equal the TLS connections and the answers equal
+the cleartext ones, slow clients closed within the header budget, 101
+tunnels counted and their kind-2 sample rows in the engine's tables, the
+sentinel and the telemeter's batches alike, one launch a batch of at
+most 1,024 rows, kernel and board against plain); and its times. Then
+the control phase: the same topology
 with the router bound through the port's namerd (a spawned process) over
 ``io.l5d.namerd.http``, ``admissionControl`` on the router and the
 telemeter's ``control:`` block: part A (faults on one replica of each
@@ -81,15 +92,22 @@ Imports nothing of JAX.
 
 ``--mutants`` builds deliberately broken copies of the kernel in a
 temporary copy of the port and runs the kernel and served checks
-against each, and the linker, fastpath and control phases against
-``LINKER_MUTANT``, in a fresh interpreter; it fails unless every check
-fails on its mutant.
+against each, and the linker, fastpath, control and cli phases against
+``LINKER_MUTANT``, the cli phase against ``CLI_MUTANTS`` and part D
+against ``FASTPATH_MUTANTS`` (the sharded engine's stats merge and
+feature drain reading worker 0 alone), in a fresh interpreter; it fails
+unless every check fails on its mutant.
 
 ``--witness`` runs the linker phase's part A and, on its window rows,
 holds the kernel, the plain version and a variant of the kernel that
 sums each k16 step's product in a fresh fragment against an exact
 forward (float64 sums, the kernel's rounding points), layer by layer,
 and times the kernel against that variant.
+
+``--repeat-control-a N`` runs the control phase's part A N times over
+one topology and prints each run's weight margins (the faulted
+replicas' weights under every calm replica's: averaged to the drain as
+the check reads them, at the worst instant before it, and after it).
 
 ``--sweep`` builds variants of the kernel in temporary copies and times
 each at ``TIMED_ROWS``, one after another on this card: the row tiles
@@ -3223,15 +3241,374 @@ async def direct_traffic(loads, disco: Path, n: int) -> dict:
     return linker_traffic_checks(res, "direct", False)
 
 
-async def fastpath_phase(seed: int = 12, dev: str = "cuda"):
+# Part D: the sharded, TLS, guarded and streaming engine. The same
+# topology and a calm run of LINKER_WARMUP requests through a fastPath
+# router with ``workers: 4``, a cleartext and a native-TLS server (half
+# the connections each), ``connectionGuard`` and ``streamScoring``, the
+# telemeter at ``nativeTier: off`` with training off (every row scored
+# by the kernel under one model); beside that traffic, slow clients that
+# send half a head and wait, 101 tunnels to an echo upstream, and probes
+# of one single-replica destination through both servers.
+SHARD_WORKERS = 4
+SHARD_SLOW = 8                # slow clients
+SHARD_HEADER_BUDGET_MS = 1000
+SHARD_TUNNEL_IDLE_MS = 2000
+SHARD_TUNNELS = 8
+SHARD_TUNNEL_S = 3.0          # each tunnel exchanges frames this long
+SHARD_SAMPLE_FRAMES = 8
+SHARD_PROBES = 8              # answers compared, cleartext against TLS
+SHARD_LABEL = "shard"
+
+
+def shard_config(disco: Path, cert: str, key: str) -> str:
+    return json.dumps({
+        "routers": [{
+            "protocol": "http", "label": SHARD_LABEL, "fastPath": True,
+            "workers": SHARD_WORKERS, "dtab": "/svc => /#/io.l5d.fs ;",
+            "servers": [{"port": 0}, {"port": 0, "tls": {
+                "certPath": cert, "keyPath": key}}],
+            "connectionGuard": {"headerBudgetMs": SHARD_HEADER_BUDGET_MS,
+                                "tunnelIdleMs": SHARD_TUNNEL_IDLE_MS},
+            "streamScoring": {"action": "observe",
+                              "sampleEveryFrames": SHARD_SAMPLE_FRAMES}}],
+        "namers": [{"kind": "io.l5d.fs", "rootDir": str(disco)}],
+        "telemetry": [{"kind": "io.l5d.jaxAnomaly", "trainEveryBatches": 0,
+                       "reconWeight": 1.0, "nativeTier": "off"}]})
+
+
+def tunnel_child(conn) -> None:
+    """Child process: an upstream that answers a 101 upgrade, then
+    echoes each chunk as ``echo:<chunk>``; on each ``(port, n, seconds)``
+    from ``conn``, ``n`` tunnels through the router at ``port`` (Host
+    ``ws``), each exchanging frames for ``seconds``; sends back each
+    tunnel's echoed rounds (or its error). ``None`` ends it."""
+    async def on_conn(reader, writer):
+        try:
+            await reader.readuntil(b"\r\n\r\n")
+            writer.write(b"HTTP/1.1 101 Switching Protocols\r\n"
+                         b"Upgrade: echo\r\nConnection: Upgrade\r\n\r\n")
+            await writer.drain()
+            while chunk := await reader.read(65536):
+                writer.write(b"echo:" + chunk)
+                await writer.drain()
+        except (ConnectionError, asyncio.IncompleteReadError):
+            pass
+        finally:
+            writer.close()
+
+    async def one(port: int, seconds: float) -> int:
+        r, w = await asyncio.open_connection("127.0.0.1", port)
+        try:
+            w.write(b"GET /ws HTTP/1.1\r\nHost: ws\r\nConnection: Upgrade"
+                    b"\r\nUpgrade: echo\r\n\r\n")
+            head = await asyncio.wait_for(r.readuntil(b"\r\n\r\n"), 10)
+            if b" 101 " not in head.split(b"\r\n")[0]:
+                raise AssertionError(f"no upgrade: {head!r}")
+            rounds, t0 = 0, time.monotonic()
+            while time.monotonic() - t0 < seconds:
+                payload = b"%08d" % rounds + b"x" * 56
+                w.write(payload)
+                await w.drain()
+                got = await asyncio.wait_for(
+                    r.readexactly(5 + len(payload)), 10)
+                if got != b"echo:" + payload:
+                    raise AssertionError(f"tunnel echoed {got!r}")
+                rounds += 1
+                await asyncio.sleep(0.01)
+            return rounds
+        finally:
+            w.close()
+
+    async def main():
+        srv = await asyncio.start_server(on_conn, "127.0.0.1", 0)
+        conn.send(srv.sockets[0].getsockname()[1])
+        loop = asyncio.get_running_loop()
+        while (msg := await loop.run_in_executor(None, conn.recv)) \
+                is not None:
+            port, n, seconds = msg
+            res = await asyncio.gather(*(one(port, seconds)
+                                         for _ in range(n)),
+                                       return_exceptions=True)
+            conn.send([r if isinstance(r, int) else repr(r) for r in res])
+        srv.close()
+
+    asyncio.run(main())
+
+
+async def slow_client(port: int) -> float:
+    """Half a request head, then wait: seconds until the router closes
+    the connection."""
+    r, w = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        w.write(b"GET / HTTP/1.1\r\nHost: tele-")
+        await w.drain()
+        t0 = time.monotonic()
+        rest = await asyncio.wait_for(r.read(), LINKER_SETTLE_S)
+        if rest:
+            raise AssertionError(f"shard D: a slow client got {rest!r}")
+        return time.monotonic() - t0
+    finally:
+        w.close()
+
+
+async def raw_answer(port: int, host: str, cafile=None) -> bytes:
+    """The bytes of one GET's answer on a fresh connection (TLS against
+    ``cafile`` as ``localhost``), with ``Connection: close``."""
+    import ssl
+
+    ctx = ssl.create_default_context(cafile=cafile) if cafile else None
+    r, w = await asyncio.open_connection(
+        "127.0.0.1", port, ssl=ctx,
+        server_hostname="localhost" if ctx else None)
+    try:
+        w.write(f"GET / HTTP/1.1\r\nHost: {host}\r\n"
+                f"Connection: close\r\n\r\n".encode())
+        await w.drain()
+        return await asyncio.wait_for(r.read(), 30)
+    finally:
+        w.close()
+
+
+def shard_worker_checks(stats: dict, flat: dict) -> dict:
+    """Every worker accepted connections and the merged view equals the
+    sum of the workers; ``rt/<label>/fastpath/worker/<i>/*`` exported
+    for each."""
+    workers = stats["workers"]
+    accepted = [int(w["accepted"]) for w in workers]
+    requests = [sum(int(r["requests"]) for r in w["routes"].values())
+                for w in workers]
+    merged = sum(int(r["requests"]) for r in stats["routes"].values())
+    if len(workers) != SHARD_WORKERS or min(accepted) <= 0:
+        raise AssertionError(f"shard D: workers accepted {accepted}")
+    if stats["accepted"] != sum(accepted) or merged != sum(requests):
+        raise AssertionError(
+            f"shard D: merged accepted {stats['accepted']}, requests "
+            f"{merged}; the workers' {accepted}, {requests}")
+    for host, r in stats["routes"].items():
+        parts = sum(int(w["routes"].get(host, {}).get("requests", 0))
+                    for w in workers)
+        if int(r["requests"]) != parts or sum(r["hist"]) != parts:
+            raise AssertionError(f"shard D: route {host} merged {r} vs "
+                                 f"the workers' {parts}")
+    exported = [flat.get(f"rt/{SHARD_LABEL}/fastpath/worker/{i}/accepted")
+                for i in range(SHARD_WORKERS)]
+    if exported != accepted:
+        raise AssertionError(f"shard D: exported worker/<i>/accepted "
+                             f"{exported} vs {accepted}")
+    return {"accepted": accepted, "requests": requests,
+            "merged_requests": merged}
+
+
+async def fastpath_part_d(loads, flag, plans, disco: Path, dev: str):
+    """Part D over ``linker_topology``: returns its results and the
+    kernel's launches while its traffic ran."""
+    import multiprocessing
+
+    from linkerd_tpu_torch.core.tasks import monitor
+    from linkerd_tpu_torch.linker import load_linker
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+    from linkerd_tpu_torch.telemetry.linerate import (
+        NATIVE_COL_KIND, NATIVE_KIND_TUNNEL,
+    )
+
+    mp = multiprocessing.get_context("spawn")
+    work = Path(tempfile.mkdtemp(prefix="shard-"))
+    ours, theirs = mp.Pipe()
+    child = mp.Process(target=tunnel_child, args=(theirs,), daemon=True)
+    child.start()
+    loop = asyncio.get_running_loop()
+    linker = task = None
+    try:
+        ws_port = await loop.run_in_executor(None, ours.recv)
+        (disco / "ws").write_text(f"127.0.0.1 {ws_port}\n")
+        # one replica of a calm destination: its answers are the same
+        # bytes whichever server carries the request
+        calm = (disco / f"tele-{TELE_ROUTES - 1:02d}").read_text()
+        (disco / "tele-ident").write_text(calm.splitlines()[0] + "\n")
+        cert, key = cli_certs(work)
+        linker = load_linker(shard_config(disco, cert, key), device=dev)
+        router = linker.routers[0]
+        if type(router).__name__ != "_FastPathRouter":
+            raise AssertionError("shard D: the router stepped back to the "
+                                 "Python data plane")
+        ctl = router.controller
+        await linker.start()
+        clear, tls = router.server_ports
+        tele = linker.telemeters[0]
+        tap = FastPathTap(tele)
+        snap = tele._scorer.snapshot()  # training off: the one model
+        task = monitor(asyncio.create_task(tele.run()),
+                       what=f"telemeter-{type(tele).__name__}")
+        half = LINKER_CONNS // 2
+        targets = [clear] * half + [(tls, cert)] * half
+        fused_anomaly_scores.launches = 0
+        flag.value = 0
+        slow = [asyncio.ensure_future(slow_client(clear))
+                for _ in range(SHARD_SLOW)]
+        ours.send((clear, SHARD_TUNNELS, SHARD_TUNNEL_S))
+        tunnels = loop.run_in_executor(None, ours.recv)
+        t0 = time.perf_counter()
+        both, outs = await linker_traffic(loads, targets, plans[0],
+                                          split=True)
+        wall = time.perf_counter() - t0
+        rounds = await tunnels
+        closed_s = await asyncio.gather(*slow)
+        probes = []
+        for i in range(SHARD_PROBES + 1):  # the first installs the route
+            pair = (await raw_answer(clear, "tele-ident"),
+                    await raw_answer(tls, "tele-ident", cert))
+            if i:
+                probes.append(pair)
+        sent = len(both["ms"]) + 2 * (SHARD_PROBES + 1)
+        # every tunnel has closed: the engines' tables hold each one's
+        # samples, and each sample is a row on its way to the ring
+        streams = ctl.engine.streams()
+        samples = sum(int(e["samples"]) for w in streams["workers"]
+                      for e in w["by_stream"].values())
+        await tap.settle(tele, task, sent + samples, "D")
+        launches = fused_anomaly_scores.launches
+        ctl._export_stats()
+        stats = ctl.engine.stats()
+        flat = linker.metrics.flatten()
+        sentinel = ctl.stream_sentinel.snapshot()
+    finally:
+        if task is not None:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        if linker is not None:
+            await linker.close()
+        try:
+            ours.send(None)
+        except OSError:
+            pass
+        child.join(timeout=10)
+        if child.is_alive():
+            child.terminate()
+            child.join()
+        shutil.rmtree(work, ignore_errors=True)
+
+    out = {"wall_s": wall, "traffic": {
+        server: linker_traffic_checks(res, f"shard D {server}", False)
+        for server, res in zip(("cleartext", "tls"), outs)}}
+    out["traffic"]["both"] = linker_traffic_checks(both, "shard D", False)
+    # where the run's time went: its slowest answer, and the rate over
+    # its second half of answers (the first carries the cold misses)
+    done, mid = np.sort(both["t"]), len(both["t"]) // 2
+    out["traffic"]["both"].update(
+        max_ms=float(both["ms"].max()),
+        second_half_requests_per_s=(len(done) - mid) / (
+            done[-1] - done[mid - 1]))
+    out["workers"] = shard_worker_checks(stats, flat)
+    if out["workers"]["merged_requests"] != sent:
+        raise AssertionError(f"shard D: {sent} requests sent, the engine "
+                             f"served {out['workers']['merged_requests']}")
+    # TLS: the engine terminated every TLS connection itself
+    tls_conns = half + SHARD_PROBES + 1
+    out["tls"] = {k: int(stats["tls"][k]) for k in (
+        "handshakes", "failures", "alpn_http1")}
+    if out["tls"]["handshakes"] != tls_conns or out["tls"]["failures"]:
+        raise AssertionError(f"shard D: {out['tls']} for {tls_conns} TLS "
+                             f"connections")
+    bad = [p for p in probes if p[0] != p[1] or not p[0].startswith(
+        b"HTTP/1.1 200")]
+    if bad:
+        raise AssertionError(f"shard D: cleartext and TLS answers differ: "
+                             f"{bad[0]}")
+    budget = SHARD_HEADER_BUDGET_MS / 1e3 + 1.0
+    guard = stats["guard"]
+    out["guard"] = {"slowloris_closed": int(guard["slowloris_closed"]),
+                    "slow_closed_after_s": sorted(closed_s)}
+    if guard["slowloris_closed"] < SHARD_SLOW or max(closed_s) > budget:
+        raise AssertionError(f"shard D: slow clients {out['guard']}, "
+                             f"budget {budget} s")
+    # tunnels: opened, counted, sampled into kind-2 rows that reach the
+    # sentinel and the telemeter's batches alike
+    errs = [r for r in rounds if not isinstance(r, int) or r <= 0]
+    rows = np.concatenate(tap.raw)
+    kind2 = int((rows[:, NATIVE_COL_KIND] == NATIVE_KIND_TUNNEL).sum())
+    sent_samples = sum(int(e["samples"])
+                       for e in sentinel["by_stream"].values())
+    out["streams"] = {
+        "tunnels_opened": int(streams["tunnels_opened"]),
+        "tunnel_rounds": rounds, "engine_samples": samples,
+        "kind2_rows_drained": kind2, "sentinel_samples": sent_samples,
+        "sentinel_streams": sentinel["count"],
+        "exported_tunnels_opened": flat.get(
+            f"rt/{SHARD_LABEL}/fastpath/streams/tunnels_opened")}
+    if errs or out["streams"]["tunnels_opened"] != SHARD_TUNNELS or \
+            out["streams"]["exported_tunnels_opened"] != SHARD_TUNNELS:
+        raise AssertionError(f"shard D: tunnels {out['streams']}")
+    if not kind2 or not kind2 == samples == sent_samples:
+        raise AssertionError(f"shard D: kind-2 rows {out['streams']}")
+    # every row drained (requests and samples), scored, one launch a batch
+    total = flat["anomaly/requests_total"]
+    scored = flat["anomaly/scored_total"]
+    drops = flat["anomaly/native_ring_dropped"]
+    if total != len(rows) or scored != total or drops or \
+            total != sent + samples or stats.get("features_dropped"):
+        raise AssertionError(
+            f"shard D: {len(rows)} rows drained, {total} counted, {scored} "
+            f"scored, {drops} dropped; {sent} requests + {samples} samples")
+    with_device = sum(len(b["x"]) > 0 for b in tap.batches)
+    sizes = batch_sizes(tap)
+    expect = 0 if dev == "cpu" else with_device
+    if launches != expect or len(tap.scored) != with_device or \
+            sizes["max"] > TELE_BATCH:
+        raise AssertionError(
+            f"shard D: {launches} launches, {with_device} batches with "
+            f"device rows, {len(tap.scored)} score calls, sizes {sizes}")
+    # each score call's rows against the plain version of the one model
+    # (the tap holds each call's rows with its scores, so the check does
+    # not depend on how the fan-in interleaved the workers' rows)
+    x = np.concatenate([xx for xx, _ in tap.scored])
+    got = np.concatenate([s for _, s in tap.scored])
+    plain = plain_scores(snap, x, dev)
+    cuts = np.cumsum([len(xx) for xx, _ in tap.scored])[:-1]
+    board_gap = fastpath_board_check(tele, tap, 0, np.split(plain, cuts))
+    if board_gap > TOL:
+        raise AssertionError(f"shard D: board off the plain fold by "
+                             f"{board_gap} > {TOL}")
+    gap = linker_gap_report(got, plain, x, snap, np.zeros(len(got)), dev,
+                            what="shard D")
+    pub = np.asarray(tap.publish_ms)
+    out.update(launches=launches, batches=flat["anomaly/batches"],
+               batches_with_device_rows=with_device, batch_sizes=sizes,
+               rows=len(rows), requests=sent,
+               board_vs_plain_fold_max=board_gap, kernel_vs_plain=gap,
+               kernel_vs_plain_max=gap["kernel_vs_plain_max"],
+               score_and_publish_p50_ms=float(np.percentile(pub, 50)),
+               score_and_publish_p99_ms=float(np.percentile(pub, 99)))
+    print(f"fastpath D: {SHARD_WORKERS} workers accepted "
+          f"{out['workers']['accepted']} (merged {stats['accepted']}), "
+          f"served {out['workers']['requests']}; {out['tls']['handshakes']} "
+          f"TLS handshakes for {tls_conns} connections; slow clients closed "
+          f"after {min(closed_s):.3f}-{max(closed_s):.3f} s "
+          f"(guard {guard['slowloris_closed']}); {SHARD_TUNNELS} tunnels, "
+          f"{sum(rounds)} rounds, {kind2} kind-2 rows (engine {samples}, "
+          f"sentinel {sent_samples}); {len(rows)} rows, {launches} launches "
+          f"for {with_device} batches (max {sizes['max']} rows), board vs "
+          f"plain fold {board_gap:.3e}")
+    for server, t in out["traffic"].items():
+        print(f"fastpath D {server}: {t['requests_per_s']:.0f} requests/s, "
+              f"p50 {t['p50_ms']:.3f} ms, p99 {t['p99_ms']:.3f} ms" + (
+                  f", max {t['max_ms']:.3f} ms; second half "
+                  f"{t['second_half_requests_per_s']:.0f} requests/s"
+                  if server == "both" else ""))
+    return out, launches
+
+async def fastpath_phase(seed: int = 12, dev: str = "cuda",
+                         parts=("A", "B", "C", "D")):
     """Parts A (nativeTier off: training during the warm-up, every row
     through the kernel), B (nativeTier primary, a fit every 8 batches in
     the warm-up: rows scored in the engine) and C (no telemetry block),
-    and the window's traffic straight to the backends, over
+    and the window's traffic straight to the backends, then part D (the
+    sharded, TLS, guarded and streaming engine), over
     ``linker_topology``. Returns the results and the kernel's launches
-    on parts A and B."""
+    on parts A, B and D (with ``parts=("D",)``, part D's alone)."""
     res = {}
     async with linker_topology(seed) as (loads, flag, plans, disco):
+        if parts == ("D",):
+            return await fastpath_part_d(loads, flag, plans, disco, dev)
         res["part_a"], la = await fastpath_part(
             "A", fastpath_config(disco, "off", 1), loads, flag, plans,
             disco, dev)
@@ -3242,6 +3619,8 @@ async def fastpath_phase(seed: int = 12, dev: str = "cuda"):
             "C", fastpath_config(disco, None, 0), loads, flag, plans, disco,
             dev)
         res["direct"] = await direct_traffic(loads, disco, LINKER_WINDOW)
+        res["part_d"], ld = await fastpath_part_d(loads, flag, plans, disco,
+                                                  dev)
     a, b, c, d = (res[k] for k in ("part_a", "part_b", "no_telemetry",
                                    "direct"))
     print(f"fastpath, seed {seed}: part A {a['launches']} launches for "
@@ -3266,7 +3645,7 @@ async def fastpath_phase(seed: int = 12, dev: str = "cuda"):
     print(f"direct to the backends: {d['requests_per_s']:.0f} requests/s, "
           f"p50 {d['p50_ms']:.3f} ms, p99 {d['p99_ms']:.3f} ms; fastpath C "
           f"window calm p99 {c['window']['calm_p99_ms']:.3f} ms")
-    return res, a["launches"] + b["launches"]
+    return res, a["launches"] + b["launches"] + ld
 
 
 # The control phase: the linker phase's topology with the router bound
@@ -3320,6 +3699,17 @@ CONTROL_FIT_EVERY = 8     # the second warm-up's cadence: the reference's
 # publish, revert, reject or governor transition between the guard's
 # lift and the fault.
 CONTROL_WARMUP_BATCHES = 150
+# Part A's weights: the balancers' view is read this often while the
+# window runs, and averaged from the window's median answer to the drain
+# (its first connection done). At one instant the frozen model's view
+# of calm replicas swings with the host's pace, most of all in the drain,
+# where a few connections remain: read after it, the faulted replicas
+# ranked above a calm one in 1 of 16 runs of ``--repeat-control-a 16``,
+# averaged in none, the margin 0.204-0.858 (on an NVIDIA H100 80GB HBM3
+# host; PERF.md §6).
+CONTROL_WEIGHT_SAMPLE_S = 0.1
+CONTROL_STEADY_SAMPLES = 10
+CONTROL_READ_FOLDS = 20
 CONTROL_KEYS = ("intervalMs", "weightThreshold", "weightFloor",
                 "admissionThreshold", "admissionFloor", "enterThreshold",
                 "exitThreshold", "quorum", "cooldownS", "warmupBatches")
@@ -3638,12 +4028,66 @@ def replica_hostports(disco: Path) -> dict:
     return out
 
 
-def weighting_checks(res: dict, ctl, disco: Path) -> dict:
+class WeightSampler:
+    """Part A: the control loop's per-endpoint weights (``status()``),
+    read every CONTROL_WEIGHT_SAMPLE_S while the window's traffic runs,
+    each beside its monotonic instant."""
+
+    def __init__(self, ctl):
+        self.samples = []
+        self._task = asyncio.create_task(self._run(ctl))
+
+    async def _run(self, ctl):
+        while True:
+            self.samples.append((time.monotonic(),
+                                 ctl.status()["endpoint_weights"]))
+            await asyncio.sleep(CONTROL_WEIGHT_SAMPLE_S)
+
+    async def close(self):
+        self._task.cancel()
+        await asyncio.gather(self._task, return_exceptions=True)
+
+
+def steady_weights(res: dict, plans, samples) -> list:
+    """The weight samples from the window's median answer to the instant
+    its first connection finished its plan (the drain starts there:
+    fewer connections, another pace). ``res`` holds the answers in
+    ``plans``' order."""
+    offs = np.cumsum([0] + [len(p) for p in plans])
+    drain = min(float(res["t"][a:b].max())
+                for a, b in zip(offs[:-1], offs[1:]))
+    steady = [w for t, w in samples
+              if np.median(res["t"]) <= t <= drain]
+    if len(steady) < CONTROL_STEADY_SAMPLES:
+        raise AssertionError(f"control A: {len(steady)} weight samples "
+                             f"before the drain, under "
+                             f"{CONTROL_STEADY_SAMPLES}")
+    return steady
+
+
+def calm_score_p50(tap, start: int) -> dict:
+    """How the model reads calm destinations: the median score of their
+    rows in the warm-up's last CONTROL_READ_FOLDS folds and in the
+    window (the folds from ``start``)."""
+    calm = set(tele_routes()[TELE_FAULTED:])
+
+    def p50(folds):
+        return float(np.median(np.concatenate([
+            np.asarray(s)[[d in calm for d in dsts]]
+            for dsts, s, _ in folds])))
+
+    return {"warmup_end": p50(tap.folds[:start][-CONTROL_READ_FOLDS:]),
+            "window": p50(tap.folds[start:])}
+
+
+def weighting_checks(res: dict, ctl, disco: Path, plans,
+                     samples) -> dict:
     """Part A: each faulted replica's share of its destination over the
     second half of the window well below a half, and its requests over
     the window above 0; each calm
     destination's replicas near an even split; the control loop's
-    weights down on the faulted replicas alone."""
+    weights, averaged over the second half up to the drain
+    (``steady_weights``), down on the faulted replicas alone."""
     half = res["t"] >= np.median(res["t"])
     second = {k: v[half] for k, v in res.items() if k != "wall"}
     faulted = range(TELE_FAULTED)
@@ -3653,11 +4097,19 @@ def weighting_checks(res: dict, ctl, disco: Path) -> dict:
     calm_shares = replica_shares(res, calm)
     counts = {d: int(((res["dst"] == d) & (res["who"] == 0)).sum())
               for d in faulted}
-    weights = ctl.status()["endpoint_weights"]
+    steady = steady_weights(res, plans, samples)
+    n_steady = len(steady)
+    weights = {hp: float(np.mean([w[hp] for w in steady]))
+               for hp in steady[-1]}
+    end = ctl.status()["endpoint_weights"]
     where = replica_hostports(disco)
     sick = {hp: w for hp, w in weights.items()
             if where[hp][0] < TELE_FAULTED and where[hp][1] == 0}
     rest = [w for hp, w in weights.items() if hp not in sick]
+
+    def margin(w: dict) -> float:
+        return min(v for hp, v in w.items() if hp not in sick) - max(
+            w[hp] for hp in sick)
     out = {"faulted_replica_share": {f"tele-{d:02d}": whole[d]
                                      for d in faulted},
            "faulted_replica_share_second_half": {
@@ -3667,15 +4119,29 @@ def weighting_checks(res: dict, ctl, disco: Path) -> dict:
            "calm_replica0_share_min": min(calm_shares.values()),
            "calm_replica0_share_max": max(calm_shares.values()),
            "faulted_replica_weights": sorted(sick.values()),
-           "other_weights_min": min(rest)}
+           "other_weights_min": min(rest),
+           "steady_weight_samples": n_steady,
+           "weight_margin": margin(weights),
+           "instant_weight_margin_min": min(margin(w) for w in steady),
+           "end_weight_margin": margin(end),
+           "end_faulted_replica_weights": sorted(end[hp] for hp in sick),
+           "end_other_weights_min": min(w for hp, w in end.items()
+                                        if hp not in sick)}
     print("control A: faulted replicas' share of their destination "
           + ", ".join(f"tele-{d:02d} {whole[d]:.3f} (second half "
                       f"{late[d]:.3f}, {counts[d]} requests)"
                       for d in faulted)
           + f"; calm replica 0 share {out['calm_replica0_share_min']:.3f}"
-          f"-{out['calm_replica0_share_max']:.3f}")
+          f"-{out['calm_replica0_share_max']:.3f}; weights over "
+          f"{n_steady} samples to the drain: faulted "
+          + ", ".join(f"{w:.3f}" for w in out["faulted_replica_weights"])
+          + f", others from {out['other_weights_min']:.3f} (after the "
+          f"drain: faulted up to "
+          f"{max(out['end_faulted_replica_weights']):.3f}, others from "
+          f"{out['end_other_weights_min']:.3f})")
     if len(sick) != TELE_FAULTED or not max(sick.values()) < min(rest):
-        raise AssertionError(f"control A: status weights {weights}")
+        raise AssertionError(f"control A: mean weights to the drain "
+                             f"{weights}")
     if not all(late[d] < 0.25 and counts[d] > 0 for d in faulted):
         raise AssertionError(
             f"control A: faulted replicas' share {late} (second half), "
@@ -3831,7 +4297,11 @@ async def control_part(part: str, text: str, loads, flag, plans, disco,
             tele.cfg.trainEveryBatches = 0
             snap = tele._scorer.snapshot()
             flag.value = 2
-            window = await linker_traffic(loads, port, plans[1])
+            sampler = WeightSampler(ctl)
+            try:
+                window = await linker_traffic(loads, port, plans[1])
+            finally:
+                await sampler.close()
             flag.value = 0
             ev = None
         else:
@@ -3873,7 +4343,9 @@ async def control_part(part: str, text: str, loads, flag, plans, disco,
                 status["admission"]["factor"]:
             raise AssertionError(f"{what}: status {status}")
         if part == "A":
-            out.update(weighting_checks(window, ctl, disco))
+            out.update(weighting_checks(window, ctl, disco, plans[1],
+                                        sampler.samples))
+            out["calm_score_p50"] = calm_score_p50(tap, start)
             out.update(publishes=0, reverts=0, rejects=0, flaps=0)
             if status["actuators"]["mesh_reactor"] or counters:
                 raise AssertionError(f"{what}: a reactor without failover")
@@ -3932,17 +4404,15 @@ async def control_part(part: str, text: str, loads, flag, plans, disco,
         await linker.close()
 
 
-async def control_phase(seed: int = 12, dev: str = "cuda", linker_a=None):
-    """Parts A (balancer weighting, no failover map) and B (the reactor)
-    over ``linker_topology`` with the failover clusters and the port's
-    namerd in spawned processes. ``linker_a``: the linker phase's part A
-    on this host, printed beside. Returns the results and the kernel's
-    launches on both parts."""
+@contextlib.asynccontextmanager
+async def control_topology(seed: int):
+    """``linker_topology`` with the failover clusters and the port's
+    namerd in spawned processes; yields ``(loads, flag, plans, disco,
+    namerd_port)`` and stops every process after."""
     import multiprocessing
 
     mp = multiprocessing.get_context("spawn")
     loop = asyncio.get_running_loop()
-    res = {}
     async with linker_topology(seed) as (loads, flag, plans, disco):
         procs, conns = [], []
         try:
@@ -3962,12 +4432,7 @@ async def control_phase(seed: int = 12, dev: str = "cuda", linker_a=None):
             procs.append(p)
             conns.append(ours)
             namerd_port = await loop.run_in_executor(None, ours.recv)
-            res["part_a"], la = await control_part(
-                "A", control_config(namerd_port, False), loads, flag, plans,
-                disco, namerd_port, dev)
-            res["part_b"], lb = await control_part(
-                "B", control_config(namerd_port, True), loads, flag, plans,
-                disco, namerd_port, dev)
+            yield loads, flag, plans, disco, namerd_port
         finally:
             for conn in conns:
                 try:
@@ -3979,6 +4444,22 @@ async def control_phase(seed: int = 12, dev: str = "cuda", linker_a=None):
                 if p.is_alive():
                     p.terminate()
                     p.join()
+
+
+async def control_phase(seed: int = 12, dev: str = "cuda", linker_a=None):
+    """Parts A (balancer weighting, no failover map) and B (the reactor)
+    over ``control_topology``. ``linker_a``: the linker phase's part A
+    on this host, printed beside. Returns the results and the kernel's
+    launches on both parts."""
+    res = {}
+    async with control_topology(seed) as (loads, flag, plans, disco,
+                                          namerd_port):
+        res["part_a"], la = await control_part(
+            "A", control_config(namerd_port, False), loads, flag, plans,
+            disco, namerd_port, dev)
+        res["part_b"], lb = await control_part(
+            "B", control_config(namerd_port, True), loads, flag, plans,
+            disco, namerd_port, dev)
     a, b = res["part_a"], res["part_b"]
     res["linker_a_same_host"] = None if linker_a is None else {
         w: linker_a[w] for w in ("warmup", "window")}
@@ -4102,17 +4583,22 @@ class CliTap:
     installed on the classes before ``main()`` builds the linker: each
     kernel step's inputs and output (held against the plain version
     after the run), each score call's labels, scores and instant, the
-    host ms of each ``_score_and_publish``, and the telemeters."""
+    host ms of each ``_score_and_publish``, the telemeters, and the
+    kernel steps of the scorer's warm-up (``run()`` builds the scorer on
+    a worker thread and warms it before the first batch) with the instant
+    it ended."""
 
     def __init__(self):
         from linkerd_tpu_torch.telemetry import anomaly
 
         self.steps, self.scored, self.publish_ms, self.teles = [], [], [], []
         self.pending, self.cfg, self.boot = {}, None, {}
+        self.warming, self.warmup_steps, self.warm_at = False, 0, None
         tap = self
         cls, tcls = anomaly.InProcessScorer, anomaly.JaxAnomalyTelemeter
         init, tinit, publish = cls.__init__, tcls.__init__, \
             tcls._score_and_publish
+        warmup = cls.warmup
 
         def scorer_init(scorer, *a, **kw):
             init(scorer, *a, **kw)
@@ -4125,6 +4611,7 @@ class CliTap:
                 # card step, a copy of them of its own
                 tap.steps.append((params, x if x.is_cuda else x.clone(),
                                   mu, var, out))
+                tap.warmup_steps += tap.warming
                 return out
 
             async def scoring(x):
@@ -4148,8 +4635,16 @@ class CliTap:
             finally:
                 tap.publish_ms.append((time.perf_counter() - t0) * 1e3)
 
+        async def warming(scorer, *a, **kw):
+            tap.warming = True
+            try:
+                return await warmup(scorer, *a, **kw)
+            finally:
+                tap.warming, tap.warm_at = False, time.monotonic()
+
         cls.__init__, tcls.__init__ = scorer_init, tele_init
         tcls._score_and_publish = publishing
+        cls.warmup = warming
 
     def write(self, path: str, launches: int) -> None:
         """The launches, steps, batches and scored rows, and each step's
@@ -4175,7 +4670,9 @@ class CliTap:
         np.savez(
             path, launches=launches, cuda_steps=cuda_steps,
             boot=np.array([self.boot[k] for k in BOOT_MARKS]),
-            steps=len(self.steps), batches=flat["anomaly/batches"],
+            warm_at=np.nan if self.warm_at is None else self.warm_at,
+            steps=len(self.steps), warmup_steps=self.warmup_steps,
+            batches=flat["anomaly/batches"],
             requests_total=flat["anomaly/requests_total"],
             scored_total=flat["anomaly/scored_total"],
             kernel=np.concatenate(got), plain=np.concatenate(plain),
@@ -4343,19 +4840,20 @@ def cli_checks(flat: dict, prom: dict, model: dict, board: dict,
 
 def cli_tap_checks(tap: dict, window_t: float, dev: str) -> dict:
     """The child's tap: one kernel launch a scored batch (timed batches
-    included), every step on the card, kernel vs plain within the linker
-    phase's share; the window's AUC. (On the CPU: no launch, no step on
-    the card.)"""
+    included) and a step of the scorer's warm-up, every step on the card,
+    kernel vs plain within the linker phase's share; the window's AUC.
+    (On the CPU: no launch, no step on the card.)"""
     from linkerd_tpu_torch.lifecycle.promote import auc
 
-    launches, steps, batches = (int(tap[k]) for k in ("launches", "steps",
-                                                       "batches"))
+    launches, steps, warm, batches = (int(tap[k]) for k in (
+        "launches", "steps", "warmup_steps", "batches"))
     on_card = steps if dev == "cuda" else 0
     if not (launches == int(tap["cuda_steps"]) == on_card
-            and steps == batches):
+            and steps - warm == batches and warm > 0):
         raise AssertionError(
             f"cli: {launches} kernel launches, {steps} steps "
-            f"({int(tap['cuda_steps'])} on the card), {batches} batches")
+            f"({int(tap['cuda_steps'])} on the card, {warm} of the "
+            f"warm-up), {batches} batches")
     gap = np.abs(tap["kernel"] - tap["plain"])
     past = int((gap > ROW_TOL).sum())
     print(f"cli: kernel vs plain max|diff| {gap.max():.3e}, {past} of "
@@ -4367,6 +4865,7 @@ def cli_tap_checks(tap: dict, window_t: float, dev: str) -> dict:
     win = (tap["t"] >= window_t) & (tap["mask"] > 0)
     pub = tap["publish_ms"]
     return {"launches": launches, "batches": batches,
+            "warmup_launches": warm if dev == "cuda" else 0,
             "kernel_vs_plain_max": float(gap.max()),
             "rows_past_row_tol": past, "rows_past_1e-3":
             int((gap > 1e-3).sum()), "rows": len(gap),
@@ -4472,10 +4971,11 @@ async def cli_phase(seed: int = 12, linker_a=None, dev: str = "cuda"):
                     both, f"cli {name}", bool(fault))
                 # the rate over the run's second half of answers: the
                 # first carries the child's cold start
-                done = np.sort(both["t"])
+                done, mid = np.sort(both["t"]), len(both["t"]) // 2
+                runs[name]["both"]["first_half_requests_per_s"] = (
+                    mid - 1) / (done[mid - 1] - done[0])
                 runs[name]["both"]["second_half_requests_per_s"] = (
-                    len(done) - len(done) // 2) / (done[-1] - done[
-                        len(done) // 2 - 1])
+                    len(done) - mid) / (done[-1] - done[mid - 1])
             flag.value = 0
             sent = CLI_CALM + CLI_FAULTED
             model = await wait_json(
@@ -4501,6 +5001,10 @@ async def cli_phase(seed: int = 12, linker_a=None, dev: str = "cuda"):
                 f"{a}_to_{b}": (tb - ta) * 1e3 for a, b, ta, tb in zip(
                     ("spawn",) + BOOT_MARKS, BOOT_MARKS + ("ping",),
                     marks, marks[1:])}
+            # the scorer is built and warmed off the router's loop: the
+            # first /ping does not wait for it
+            res["ping_to_scorer_warm_ms"] = (float(tap["warm_at"])
+                                             - served) * 1e3
             res.update(startup_ms=startup_ms, runs=runs, stops=stops,
                        prometheus_scrape_ms=scrape_ms,
                        prometheus_lines=len(text.splitlines()),
@@ -4535,7 +5039,8 @@ async def cli_phase(seed: int = 12, linker_a=None, dev: str = "cuda"):
                   f"requests/s, p50 {s['p50_ms']:.3f} ms, p99 "
                   f"{s['p99_ms']:.3f} ms (calm p50 {s['calm_p50_ms']:.3f}, "
                   f"p99 {s['calm_p99_ms']:.3f})" + (
-                      f"; second half {s['second_half_requests_per_s']:.0f}"
+                      f"; first half {s['first_half_requests_per_s']:.0f}, "
+                      f"second half {s['second_half_requests_per_s']:.0f}"
                       f" requests/s" if server == "both" else ""))
     if linker_a is not None:
         for w in ("warmup", "window"):
@@ -4544,7 +5049,10 @@ async def cli_phase(seed: int = 12, linker_a=None, dev: str = "cuda"):
                   f"requests/s, p50 {t['p50_ms']:.3f} ms, p99 "
                   f"{t['p99_ms']:.3f} ms")
     print("cli: startup " + ", ".join(f"{k} {v:.1f} ms"
-                                      for k, v in res["boot_ms"].items()))
+                                      for k, v in res["boot_ms"].items())
+          + f"; the scorer warm {res['ping_to_scorer_warm_ms']:.1f} ms "
+          f"after the first /ping ({res['warmup_launches']} warm-up "
+          f"launches)")
     print("cli: the router's own ms (p50/p99) over both runs: " + ", ".join(
         f"{k} {v['p50']:.3f}/{v['p99']:.3f}"
         for k, v in res["router_ms"].items()))
@@ -4926,8 +5434,9 @@ BREAKDOWN = {
 CHECKS = ("kernel", "served")  # what --mutants runs on every mutant
 LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker,
                                 # fastpath and control phases
-PHASES = ("telemeter", "linker", "fastpath", "control",
-          "cli")  # --check and --mutant take these too
+PHASES = ("telemeter", "linker", "fastpath", "fastpath_d", "control",
+          "cli")  # --check and --mutant take these too (fastpath_d: the
+                  # fastpath phase's part D alone)
 # Broken copies of the port that the cli phase's checks must catch, one
 # a family: (file, text found once, its replacement) edits. The tracer
 # not installed; the router's request counter not incremented for a
@@ -4973,6 +5482,23 @@ CLI_MUTANTS = {
 }
 
 
+# Broken copies of the sharded engine's fan-in that part D must catch:
+# the merged stats keeping worker 0's snapshot alone, and the feature
+# drain reading worker 0's rows alone.
+FASTPATH_MUTANTS = {
+    "merge_worker0": [(
+        "linkerd_tpu_torch/native/__init__.py",
+        "    if not snaps:\n        return {}\n    out: dict = "
+        "{\"routes\": {}}\n",
+        "    if not snaps:\n        return {}\n    snaps = snaps[:1]\n"
+        "    out: dict = {\"routes\": {}}\n")],
+    "drain_worker0": [(
+        "linkerd_tpu_torch/native/__init__.py",
+        "        for h in self._es:\n            if total >= len(out):\n",
+        "        for h in self._es[:1]:\n            if total >= len(out):\n")],
+}
+
+
 def run_check(which: str) -> int:
     """One agreement check alone (or the telemeter or linker phase), against the
     kernel this checkout builds: exits non-zero with an AssertionError
@@ -4985,16 +5511,17 @@ def run_check(which: str) -> int:
         check_kernel(cfg, rng)
     elif which == "served":
         asyncio.run(drive_service(cfg, rng))
-    elif which in ("linker", "fastpath", "control", "cli"):
+    elif which in ("linker", "fastpath", "fastpath_d", "control", "cli"):
         from linkerd_tpu_torch import native
         from linkerd_tpu_torch.native import _build as native_build
         from linkerd_tpu_torch.ops import _build
 
         _build.build("score_mlp")  # before the event loop serves
-        if which == "fastpath":
+        if which.startswith("fastpath"):
             native.ensure_built()
             native_build.build("h2bench")
         phase = {"linker": linker_phase, "fastpath": fastpath_phase,
+                 "fastpath_d": lambda: fastpath_phase(parts=("D",)),
                  "control": control_phase, "cli": cli_phase}[which]
         res, _ = asyncio.run(phase())
         name, _, limit = card_line().partition(",")
@@ -5003,6 +5530,43 @@ def run_check(which: str) -> int:
     else:
         asyncio.run(telemeter_phase(cfg))
     return 0
+
+
+def repeat_control_a(n: int, seed: int = 12) -> int:
+    """The control phase's part A ``n`` times over one
+    ``control_topology``: one line of weight margins a run, then their
+    spread; non-zero if a run failed."""
+    from linkerd_tpu_torch.ops import _build
+
+    _build.build("score_mlp")  # before the event loop serves
+    print(card_line())
+    keys = ("weight_margin", "instant_weight_margin_min",
+            "end_weight_margin", "steady_weight_samples", "calm_score_p50")
+
+    async def runs():
+        out = []
+        async with control_topology(seed) as (loads, flag, plans, disco,
+                                              namerd_port):
+            for i in range(n):
+                try:
+                    res, _ = await control_part(
+                        "A", control_config(namerd_port, False), loads,
+                        flag, plans, disco, namerd_port, "cuda")
+                except AssertionError as e:
+                    out.append({"run": i, "failed": str(e)[:300]})
+                else:
+                    out.append({"run": i, **{k: res[k] for k in keys}})
+                print(json.dumps(out[-1]), flush=True)
+        return out
+
+    out = asyncio.run(runs())
+    ok = [r for r in out if "failed" not in r]
+    print(json.dumps({"runs": n, "passed": len(ok), **{
+        k: [min(r[k] for r in ok), max(r[k] for r in ok)] if ok else None
+        for k in keys[:3]}, "instant_inverted": sum(
+            r["instant_weight_margin_min"] <= 0 for r in ok),
+        "end_inverted": sum(r["end_weight_margin"] <= 0 for r in ok)}))
+    return 0 if len(ok) == n else 1
 
 
 def copy_with(tmp: Path, name: str, line: str, replacement: str) -> Path:
@@ -5048,8 +5612,9 @@ def check_mutant(name: str, which: str) -> int:
     fail by its own assertion."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        if name in CLI_MUTANTS:
-            copy_with_edits(tmp, name, CLI_MUTANTS[name])
+        if name in CLI_MUTANTS or name in FASTPATH_MUTANTS:
+            copy_with_edits(tmp, name, {**CLI_MUTANTS,
+                                        **FASTPATH_MUTANTS}[name])
         else:
             copy_with(tmp, name, *MUTANTS[name])
         _, _, rc, last = run_mutant(name, which, tmp)
@@ -5068,7 +5633,7 @@ def check_mutants() -> int:
         tmp = Path(tmp)
         for name, (line, broken) in MUTANTS.items():
             copy_with(tmp, name, line, broken)
-        for name, edits in CLI_MUTANTS.items():
+        for name, edits in {**CLI_MUTANTS, **FASTPATH_MUTANTS}.items():
             copy_with_edits(tmp, name, edits)
         # kernel checks in parallel (each builds its mutant), then the
         # served checks on the built libraries
@@ -5079,6 +5644,8 @@ def check_mutants() -> int:
         results += [run_mutant(LINKER_MUTANT, phase, tmp)
                     for phase in ("linker", "fastpath", "control", "cli")]
         results += [run_mutant(name, "cli", tmp) for name in CLI_MUTANTS]
+        results += [run_mutant(name, "fastpath_d", tmp)
+                    for name in FASTPATH_MUTANTS]
     missed = []
     for name, which, rc, last in results:
         print(f"mutant {name}, {which} check: "
@@ -5228,11 +5795,15 @@ def main() -> int:
         return run_timing(check=args == ["--time"])
     if args == ["--witness"]:
         return run_witness()
+    if len(args) == 2 and args[0] == "--repeat-control-a" and \
+            args[1].isdigit():
+        return repeat_control_a(int(args[1]))
     if len(args) == 2 and args[0] == "--check" and \
             args[1] in CHECKS + PHASES:
         return run_check(args[1])
     if len(args) == 3 and args[0] == "--mutant" and \
-            args[1] in (*MUTANTS, *CLI_MUTANTS) and args[2] in CHECKS + PHASES:
+            args[1] in (*MUTANTS, *CLI_MUTANTS, *FASTPATH_MUTANTS) and \
+            args[2] in CHECKS + PHASES:
         return check_mutant(args[1], args[2])
     if args:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)

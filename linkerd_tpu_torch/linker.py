@@ -19,8 +19,10 @@ loop on routing: the linker wraps each balancer in the control loop's
 score weigher, registers each router's ``admissionControl`` filter for
 adaptive admission, and routes through the reactor's override book. A
 ``fastPath: true`` router is served by the native HTTP/1.1 engine, built
-from the repository's ``native/`` sources, with one worker; its rows
-feed the telemeter's native ring. What the reference's linker also
+from the repository's ``native/`` sources: ``workers`` sharded epoll
+workers, native TLS on its servers and toward its endpoints,
+``connectionGuard`` and ``streamScoring``; its rows feed the
+telemeter's native ring. What the reference's linker also
 takes is refused by name with the ROADMAP item that brings it
 (``REFUSED_ROUTER_KEYS``, ``UNPORTED_KINDS``): a config naming one fails
 at load rather than serving without it.
@@ -29,6 +31,7 @@ at load rather than serving without it.
 from __future__ import annotations
 
 import inspect
+import logging
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -92,14 +95,12 @@ import linkerd_tpu_torch.interpreter.configs  # noqa: F401
 import linkerd_tpu_torch.namer.fs  # noqa: F401
 import linkerd_tpu_torch.telemetry.exporters  # noqa: F401
 
+log = logging.getLogger(__name__)
+
 DEFAULT_ADMIN_PORT = 9990  # ref: Linker.scala:37
 
 # The ROADMAP items (Queue 1) that bring what this linker refuses.
-_WORKERS = "ROADMAP Queue 1 item 4 (the native engines: sharded workers)"
 _H2_ENGINE = "ROADMAP Queue 1 item 4 (the native engines: the h2 engine)"
-_NATIVE_TLS = "ROADMAP Queue 1 item 4 (the native engines: native TLS)"
-_GUARD = ("ROADMAP Queue 1 item 4 (the native engines: connectionGuard "
-          "and streamScoring)")
 _PROTOCOLS = "ROADMAP Queue 1 item 12 (h2/gRPC, then thrift/mux)"
 _EDGE = "ROADMAP Queue 1 item 10 (tenants and loggers)"
 _ANNOUNCERS = "ROADMAP Queue 1 item 11 (the announcers)"
@@ -109,10 +110,8 @@ _NAMING = ("ROADMAP Queue 1 item 13 (the other namers, transformers and "
 
 # Router keys the reference takes and the port does not yet, each with
 # the item that brings it. A key counts as given when it is not None and
-# not False. (``workers`` other than 1 is refused with ``_WORKERS``.)
+# not False.
 REFUSED_ROUTER_KEYS: Dict[str, str] = {
-    "connectionGuard": _GUARD,
-    "streamScoring": _GUARD,
     "tenants": _EDGE,
     "tenantIdentifier": _EDGE,
     "loggers": _EDGE,
@@ -640,11 +639,16 @@ class Linker:
         self.routers: List[Router] = []
         self.telemeters: List[Any] = []
         self.tracer: Any = NullTracer()
-        # what /tenants.json and /streams.json read: empty while
-        # ``tenants`` and ``streamScoring`` are refused (ROADMAP Queue 1
-        # items 10 and 4), so both answer {} as the reference does on
-        # such a config
+        # concatenated trustCerts bundles for native client TLS contexts
+        self._trust_bundles: List[str] = []
+        # what /tenants.json reads: empty while ``tenants`` is refused
+        # (ROADMAP Queue 1 item 10), so it answers {} as the reference
+        # does on such a config
         self.tenant_views: List[Tuple[str, Any, Any]] = []
+        # per-router Python-plane stream sentinels for /streams.json:
+        # [(label, StreamSentinel)] — fastPath routers surface theirs
+        # through FastPathController.streams_snapshot instead (the port
+        # has no Python h2 plane to hold one yet)
         self.stream_sentinels: List[Tuple[str, Any]] = []
         try:
             self._build()
@@ -655,6 +659,7 @@ class Linker:
                 t.close()
             for _, namer in self.namers:
                 namer.close()
+            self._close_trust_bundles()
             raise
 
     # -- assembly ---------------------------------------------------------
@@ -727,15 +732,6 @@ class Linker:
             labels_seen[label] = n + 1
             if n:
                 label = f"{label}-{n}"
-            if rspec.workers is not None:
-                if not rspec.fastPath:
-                    raise ConfigError(
-                        f"{label}: workers requires fastPath: true (the "
-                        f"sharded epoll workers are the native engines; "
-                        f"the asyncio data plane is single-loop)")
-                if rspec.workers != 1:
-                    raise _refusal(f"{label}.workers: {rspec.workers}",
-                                   _WORKERS)
             if rspec.fastPath:
                 self._check_fastpath_spec(rspec, label)
             for key, item in REFUSED_ROUTER_KEYS.items():
@@ -872,20 +868,50 @@ class Linker:
 
         return per_server
 
+    def _fastpath_client_tls(self, rspec: RouterSpec,
+                             label: str) -> Optional[TlsClientConfig]:
+        """The router-wide client.tls block for a fastPath router, or
+        None. The native engine originates TLS per-endpoint with the
+        route authority as SNI/verified name, so only the router-wide
+        subset is honored: disableValidation + trustCerts. Per-prefix
+        (io.l5d.static) TLS, commonName templates, and clientAuth have
+        no native seam — refuse them rather than silently downgrade."""
+        raw = rspec.client
+        if not isinstance(raw, dict):
+            return None
+        if raw.get("kind") == "io.l5d.static":
+            if any(isinstance(c, dict) and "tls" in c
+                   for c in (raw.get("configs") or [])):
+                raise ConfigError(
+                    f"{label}: per-prefix client.tls (io.l5d.static) is "
+                    f"not supported with fastPath: true")
+            return None
+        if "tls" not in raw:
+            return None
+        spec = instantiate_as(TlsClientConfig, raw["tls"] or {},
+                              f"{label}.client.tls")
+        if spec.clientAuth is not None:
+            raise ConfigError(
+                f"{label}.client.tls: clientAuth is not supported with "
+                f"fastPath: true")
+        if spec.commonName is not None:
+            raise ConfigError(
+                f"{label}.client.tls: commonName is not supported with "
+                f"fastPath: true (the native engine verifies each "
+                f"endpoint against its route authority)")
+        return spec
+
     def _check_fastpath_spec(self, rspec: RouterSpec, label: str) -> None:
         """Refuse config the native engine cannot honor — silently
         dropping an operator's TLS or policy block would be worse than
-        failing the load. TLS on a fastPath server or client is refused
-        by name until the engine's TLS is bound; the rest is the
-        reference's own refusals, word for word."""
+        failing the load; the reference's own refusals, word for
+        word."""
+        self._fastpath_client_tls(rspec, label)  # raises on bad subsets
         for i, srv in enumerate(rspec.servers or []):
-            if srv.tls is not None:
-                raise _refusal(f"{label}.servers[{i}].tls", _NATIVE_TLS)
-        raw = rspec.client
-        if isinstance(raw, dict) and ("tls" in raw or any(
-                isinstance(c, dict) and "tls" in c
-                for c in (raw.get("configs") or []))):
-            raise _refusal(f"{label}.client.tls", _NATIVE_TLS)
+            if srv.tls is not None and srv.tls.caCertPath:
+                raise ConfigError(
+                    f"{label}.servers[{i}].tls: caCertPath (client-cert "
+                    f"verification) is not supported with fastPath: true")
         if rspec.service:
             raise ConfigError(
                 f"{label}: service policy (classifier/retries/timeout) "
@@ -914,41 +940,180 @@ class Linker:
                     f"supported with fastPath: true (the native engine "
                     f"proxies bodies byte-for-byte)")
 
+    @staticmethod
+    def _resolve_workers(rspec: RouterSpec, label: str) -> int:
+        """The ``workers`` knob -> a concrete shard count: None -> 1
+        (bit-compatible single engine), 0 -> auto = min(4, hw cores),
+        N -> N (validated)."""
+        raw = rspec.workers
+        if raw is None:
+            return 1
+        from linkerd_tpu_torch import native
+        n = int(raw)
+        if n == 0:
+            n = native.auto_workers()
+        if not 1 <= n <= native.FastPathEngine.MAX_WORKERS:
+            raise ConfigError(
+                f"{label}.workers must be 0 (auto) or in "
+                f"1..{native.FastPathEngine.MAX_WORKERS}, got {raw}")
+        return n
+
     def _mk_fastpath_router(self, rspec: RouterSpec,
-                            label: str) -> Router:
-        """An http router served by the native engine (fastPath: true),
-        one worker. The engine owns the listeners and the request hot
-        loop; naming, stats, and anomaly features flow through
-        FastPathController. The router's client and identifier blocks
-        are not read (the engine routes by Host), as in the reference."""
+                            label: str) -> Optional[Router]:
+        """An http router served by the native engine (fastPath: true).
+        The engine owns the listeners and the request hot loop; naming,
+        stats, and anomaly features flow through FastPathController. It
+        terminates and originates TLS natively (tls_engine.h memory-BIO
+        pump) when the OpenSSL runtime is present. The router's client
+        and identifier blocks are not read (the engine routes by Host),
+        as in the reference.
+
+        Returns None when the spec needs TLS but the OpenSSL runtime
+        could not be loaded — the caller then assembles the Python
+        router, which serves TLS on its own data plane."""
         from linkerd_tpu_torch import native
         from linkerd_tpu_torch.router.fastpath import FastPathController
 
-        try:
+        try:  # (the spec was checked before the by-name refusals)
             native.ensure_built()
         except (RuntimeError, OSError, AttributeError) as e:
             raise ConfigError(
                 f"{label}: fastPath requires the native library ({e})"
             ) from None
+        workers = self._resolve_workers(rspec, label)
+        specs = rspec.servers or [ServerSpec()]
+        client_tls = self._fastpath_client_tls(rspec, label)
+        tls_servers = [s for s in specs if s.tls is not None]
+        if (tls_servers or client_tls is not None) \
+                and not native.FastPathEngine.tls_runtime_available():
+            log.warning(
+                "%s: fastPath TLS requested but the OpenSSL runtime is "
+                "unavailable natively; serving this router on the "
+                "Python data plane instead", label)
+            return None
+        # one accept-leg identity per engine: distinct cert pairs across
+        # a router's servers have no native seam
+        pairs = {(s.tls.certPath, s.tls.keyPath) for s in tls_servers}
+        if len(pairs) > 1:
+            raise ConfigError(
+                f"{label}: fastPath servers must share one TLS "
+                f"cert/key pair (got {len(pairs)} distinct pairs)")
         base_dtab = Dtab.read(rspec.dtab) if rspec.dtab else Dtab.empty()
         prefix = Path.read(rspec.dstPrefix)
         interpreter = self._mk_interpreter(rspec, label)
-        engine = native.FastPathEngine()
+        engine = native.FastPathEngine(workers=workers)
         try:
-            ports = [engine.listen(s.ip, s.port)
-                     for s in rspec.servers or [ServerSpec()]]
+            sentinel = self._configure_engine(
+                engine, rspec, label, tls_servers, client_tls)
+            ports = [engine.listen_tls(s.ip, s.port) if s.tls is not None
+                     else engine.listen(s.ip, s.port) for s in specs]
         except BaseException:
             engine.close()
             raise
         ctl = FastPathController(
             engine, interpreter, base_dtab, prefix, label, self.metrics,
-            telemeters=self.telemeters)
+            telemeters=self.telemeters, stream_sentinel=sentinel)
         return _FastPathRouter(rspec, label, ctl, ports,
                                interpreter=interpreter)
 
+    def _configure_engine(self, engine, rspec: RouterSpec, label: str,
+                          tls_servers, client_tls):
+        """The engine's TLS identity and client TLS, its connection
+        guard and its stream sentinel, before it starts; returns the
+        Python sentinel that mirrors the engine's sample rows (None
+        without ``streamScoring``)."""
+        if tls_servers:
+            tls = tls_servers[0].tls
+            if not tls.certPath or not tls.keyPath:
+                raise ConfigError(
+                    f"{label}.servers[].tls needs certPath and keyPath")
+            try:
+                engine.set_tls(tls.certPath, tls.keyPath)
+            except OSError as e:
+                raise ConfigError(f"{label}.servers[].tls: {e}") from None
+        if client_tls is not None:
+            ca = self._trust_bundle(client_tls.trustCerts, label)
+            try:
+                engine.set_client_tls(
+                    verify=not client_tls.disableValidation, ca_path=ca)
+            except OSError as e:
+                raise ConfigError(f"{label}.client.tls: {e}") from None
+        guard = rspec.connectionGuard
+        if guard is not None:
+            guard.validate(f"{label}.connectionGuard")
+            engine.set_guard(
+                header_budget_ms=guard.headerBudgetMs,
+                body_stall_ms=guard.bodyStallMs,
+                accept_burst=guard.acceptBurst,
+                accept_window_ms=guard.acceptWindowMs,
+                max_hs_inflight=guard.maxHandshakesInflight)
+            if guard.tunnelIdleMs or guard.tunnelMaxBytes:
+                engine.set_tunnel_guard(idle_ms=guard.tunnelIdleMs,
+                                        max_bytes=guard.tunnelMaxBytes)
+        if rspec.streamScoring is None:
+            return None
+        ss = rspec.streamScoring
+        ss.validate(f"{label}.streamScoring")
+        engine.set_stream_cfg(
+            enabled=True,
+            sample_every_frames=ss.sampleEveryFrames,
+            min_gap_ms=ss.minGapMs, table_cap=ss.tableCap,
+            enter=ss.enter, exit=ss.exit, quorum=ss.quorum,
+            dwell_ms=ss.dwellMs, action=ss.action)
+        # the native plane actuates in-flight (tunnel close); the
+        # Python sentinel mirrors the drained sample rows for the admin
+        # view and any drain/quota escalation — observe mode so sick
+        # streams are never shot twice
+        from linkerd_tpu_torch.streams import StreamSentinel
+        return StreamSentinel(
+            enter=ss.enter, exit=ss.exit, quorum=ss.quorum,
+            dwell_s=ss.dwellMs / 1000.0, table_cap=ss.tableCap,
+            action="observe")
+
+    def _trust_bundle(self, trust_certs: List[str],
+                      label: str) -> Optional[str]:
+        """trustCerts -> one CA file for the native client context (the
+        OpenSSL API takes a single location): pass-through for one path,
+        concatenated bundle (linker-owned tempfile) for several, None
+        (default roots) for none."""
+        if not trust_certs:
+            return None
+        if len(trust_certs) == 1:
+            return trust_certs[0]
+        import tempfile
+        # binary passthrough: distro bundles and `openssl -text` output
+        # carry non-ASCII preamble bytes OpenSSL happily skips
+        bundle = tempfile.NamedTemporaryFile(
+            mode="wb", suffix=".pem", prefix="l5d-trust-", delete=False)
+        try:
+            for path in trust_certs:
+                with open(path, "rb") as fh:
+                    bundle.write(fh.read())
+                    bundle.write(b"\n")
+        except OSError as e:
+            raise ConfigError(f"{label}.client.tls.trustCerts: {e}") \
+                from None
+        finally:
+            bundle.close()
+        self._trust_bundles.append(bundle.name)
+        return bundle.name
+
+    def _close_trust_bundles(self) -> None:
+        import os
+        for path in self._trust_bundles:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+        self._trust_bundles.clear()
+
     def _mk_http_router(self, rspec: RouterSpec, label: str) -> Router:
         if rspec.fastPath:
-            return self._mk_fastpath_router(rspec, label)
+            router = self._mk_fastpath_router(rspec, label)
+            if router is not None:
+                return router
+            # TLS requested but no native OpenSSL runtime: fall through
+            # to the Python data plane (graceful gate)
         base_dtab = Dtab.read(rspec.dtab) if rspec.dtab else Dtab.empty()
         prefix = Path.read(rspec.dstPrefix)
         identifier = self._mk_identifier(
@@ -1112,6 +1277,7 @@ class Linker:
                     f"{label}.addForwardedHeader: {e}") from None
             server_filters.append(AddForwardedHeaderFilter(by, for_))
         server_filters.append(ErrorResponder())
+        self._check_python_edge(rspec, label)
         # INSIDE the responder: an expired deadline must map to 504, a
         # shed to 503
         server_filters.append(ServerDeadlineFilter(
@@ -1146,6 +1312,28 @@ class Linker:
         return Router(rspec, label, server_stack, binding, servers,
                       interpreter=interpreter,
                       identifier=identifier)
+
+    @staticmethod
+    def _check_python_edge(rspec: RouterSpec, label: str) -> None:
+        """The reference's checks of a router on the Python data plane
+        (its ``_edge_resilience_filters``): the connection guard and the
+        sharded workers live in the native engine."""
+        if rspec.connectionGuard is not None:
+            raise ConfigError(
+                f"{label}: connectionGuard requires fastPath: true "
+                f"(the defenses live in the native engines)")
+        if rspec.workers is not None:
+            if not rspec.fastPath:
+                raise ConfigError(
+                    f"{label}: workers requires fastPath: true (the "
+                    f"sharded epoll workers are the native engines; "
+                    f"the asyncio data plane is single-loop)")
+            # fastPath requested but the router fell back to the Python
+            # data plane (no native TLS runtime): the knob is inert
+            # there, which the operator should see but not die on
+            log.warning(
+                "%s: workers is ignored on the Python data-plane "
+                "fallback (no native TLS runtime)", label)
 
     def _anomaly_telemeter(self) -> Optional[JaxAnomalyTelemeter]:
         """The configured jaxAnomaly telemeter, or None."""
@@ -1226,6 +1414,7 @@ class Linker:
         ctl = self._anomaly_control()
         for t in self.telemeters:
             t.close()
+        self._close_trust_bundles()
         if ctl is not None:
             # the reactor's store client (its namerd connection)
             await ctl.aclose()

@@ -1,6 +1,7 @@
 """ctypes binding of the native engine: counterpart of
-``linkerd_tpu/native/__init__.py`` for the HTTP/1.1 engine with one
-worker and the in-data-plane scorer.
+``linkerd_tpu/native/__init__.py`` for the HTTP/1.1 engine (sharded
+workers, native TLS, the connection guard and the stream sentinel) and
+the in-data-plane scorer.
 
 The library is built from the repository's ``native/`` sources by
 ``_build`` at first use. There is no pure-Python fallback: a build or
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import json
 import logging
+import os
 import threading
 from typing import List, Optional, Tuple
 
@@ -109,7 +111,25 @@ def _declare_scorer(cdll: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint32]
 
 
+def _declare_tls(cdll: ctypes.CDLL) -> None:
+    """The HTTP/1.1 engine's TLS exports."""
+    cdll.fp_tls_runtime_available.restype = ctypes.c_int
+    cdll.fp_tls_runtime_available.argtypes = []
+    cdll.fp_set_tls.restype = ctypes.c_int
+    cdll.fp_set_tls.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                ctypes.c_char_p, ctypes.c_char_p,
+                                ctypes.c_char_p, ctypes.c_size_t]
+    cdll.fp_listen_tls.restype = ctypes.c_int
+    cdll.fp_listen_tls.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                   ctypes.c_int]
+    cdll.fp_set_client_tls.restype = ctypes.c_int
+    cdll.fp_set_client_tls.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                       ctypes.c_int, ctypes.c_char_p,
+                                       ctypes.c_char_p, ctypes.c_size_t]
+
+
 def _declare_fastpath(cdll: ctypes.CDLL) -> None:
+    _declare_tls(cdll)
     cdll.fp_create.restype = ctypes.c_void_p
     cdll.fp_create.argtypes = []
     cdll.fp_start.restype = ctypes.c_int
@@ -117,6 +137,14 @@ def _declare_fastpath(cdll: ctypes.CDLL) -> None:
     cdll.fp_listen.restype = ctypes.c_int
     cdll.fp_listen.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
                                ctypes.c_int]
+    cdll.fp_listen_shared.restype = ctypes.c_int
+    cdll.fp_listen_shared.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                      ctypes.c_int]
+    cdll.fp_listen_tls_shared.restype = ctypes.c_int
+    cdll.fp_listen_tls_shared.argtypes = [ctypes.c_void_p,
+                                          ctypes.c_char_p, ctypes.c_int]
+    cdll.fp_attach_slab.restype = ctypes.c_int
+    cdll.fp_attach_slab.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     cdll.fp_set_route.restype = ctypes.c_int
     cdll.fp_set_route.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
                                   ctypes.c_char_p]
@@ -134,16 +162,165 @@ def _declare_fastpath(cdll: ctypes.CDLL) -> None:
                                        ctypes.c_long]
     cdll.fp_shutdown.restype = None
     cdll.fp_shutdown.argtypes = [ctypes.c_void_p]
+    # connection guard, stream sentinel (per-stream scoring cadence and
+    # hysteresis, the /streams.json snapshot, the mid-stream RST queue)
+    # and the byte-tunnel budgets
+    cdll.fp_set_guard.restype = ctypes.c_int
+    cdll.fp_set_guard.argtypes = [ctypes.c_void_p] + [ctypes.c_long] * 6
+    cdll.fp_set_stream_cfg.restype = ctypes.c_int
+    cdll.fp_set_stream_cfg.argtypes = [
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        ctypes.c_long, ctypes.c_double, ctypes.c_double, ctypes.c_long,
+        ctypes.c_long, ctypes.c_long]
+    cdll.fp_streams_json.restype = ctypes.c_long
+    cdll.fp_streams_json.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                     ctypes.c_size_t]
+    cdll.fp_rst_stream.restype = ctypes.c_int
+    cdll.fp_rst_stream.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
+    cdll.fp_set_tunnel_guard.restype = ctypes.c_int
+    cdll.fp_set_tunnel_guard.argtypes = \
+        [ctypes.c_void_p, ctypes.c_long, ctypes.c_long]
+    cdll.l5d_stream_accum.restype = ctypes.c_long
+    cdll.l5d_stream_accum.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float), ctypes.c_long,
+        ctypes.POINTER(ctypes.c_float)]
+
+
+def auto_workers() -> int:
+    """The ``workers: 0`` auto-size rule — one definition shared by
+    the linker's knob resolution and l5dcheck's ``fastpath-workers``
+    rule: min(4, hw cores)."""
+    return min(4, os.cpu_count() or 1)
+
+
+def _sum_hists(a, b):
+    if not a:
+        return list(b)
+    if not b:
+        return list(a)
+    return [int(x) + int(y) for x, y in zip(a, b)]
+
+
+def _merge_worker_stats(snaps: List[dict], n_workers: int) -> dict:
+    """Merge N per-worker engine stats snapshots into one router-level
+    view — the merge-at-scrape rule: the hot path never shares a
+    counter; the control plane adds the per-core slabs up here, once a
+    second. Counters and histograms sum; shared-slab scorer fields
+    (weights/version/crc/swaps/retries live in the ONE process-wide
+    slab) are taken from the first worker; per-tenant score EWMAs
+    average weighted by each worker's scored count."""
+    if not snaps:
+        return {}
+    out: dict = {"routes": {}}
+    for key in ("accepted", "features_dropped"):
+        out[key] = sum(int(s.get(key, 0)) for s in snaps)
+    for s in snaps:
+        for host, r in (s.get("routes") or {}).items():
+            m = out["routes"].get(host)
+            if m is None:
+                out["routes"][host] = dict(r)
+                continue
+            for k in ("requests", "success", "f4xx", "f5xx",
+                      "conn_fail"):
+                m[k] = int(m.get(k, 0)) + int(r.get(k, 0))
+            m["hist"] = _sum_hists(m.get("hist") or [],
+                                   r.get("hist") or [])
+    tls_snaps = [s["tls"] for s in snaps if s.get("tls")]
+    if tls_snaps:
+        tls = {k: sum(int(t.get(k, 0)) for t in tls_snaps)
+               for k in ("handshakes", "failures", "resumed", "alpn_h2",
+                         "alpn_http1", "upstream_handshakes",
+                         "upstream_resumed", "upstream_failures")}
+        tls["enabled"] = any(t.get("enabled") for t in tls_snaps)
+        tls["client_enabled"] = any(t.get("client_enabled")
+                                    for t in tls_snaps)
+        out["tls"] = tls
+    guard_snaps = [s["guard"] for s in snaps if s.get("guard")]
+    if guard_snaps:
+        keys = set()
+        for g in guard_snaps:
+            keys.update(g)
+        out["guard"] = {k: sum(int(g.get(k, 0)) for g in guard_snaps)
+                        for k in keys}
+    tn_snaps = [s["tenants"] for s in snaps if s.get("tenants")]
+    if tn_snaps:
+        by: dict = {}
+        for tn in tn_snaps:
+            for thash, t in (tn.get("by_tenant") or {}).items():
+                m = by.get(thash)
+                if m is None:
+                    by[thash] = dict(t)
+                    continue
+                # score_ewma: scored-weighted mean across workers
+                w_old, w_new = int(m.get("scored", 0)), int(
+                    t.get("scored", 0))
+                if w_old + w_new > 0:
+                    m["score_ewma"] = (
+                        float(m.get("score_ewma", 0.0)) * w_old
+                        + float(t.get("score_ewma", 0.0)) * w_new
+                    ) / (w_old + w_new)
+                for k in ("requests", "shed", "errors", "scored",
+                          "inflight"):
+                    m[k] = int(m.get(k, 0)) + int(t.get(k, 0))
+                # per-worker quota splits are equal; fold to the max
+                # here (-1 = unlimited wins), scaled back to the
+                # global cap below
+                qa, qb = int(m.get("quota", -1)), int(t.get("quota", -1))
+                m["quota"] = -1 if (qa < 0 or qb < 0) else max(qa, qb)
+        # quota: report the GLOBAL cap, per-worker split x the TRUE
+        # worker count (not a sum over the workers whose bounded-LRU
+        # stats table still happens to hold the tenant, nor over the
+        # scrapes that succeeded this tick — quota maps survive stats
+        # eviction, so every worker enforces the same split even when
+        # only some reported the tenant)
+        for t in by.values():
+            q = int(t.get("quota", -1))
+            if q >= 0:
+                t["quota"] = q * n_workers
+        out["tenants"] = {
+            "count": len(by),
+            "evicted": sum(int(t.get("evicted", 0)) for t in tn_snaps),
+            "by_tenant": by,
+        }
+    ns_snaps = [s["native_scorer"] for s in snaps
+                if s.get("native_scorer")]
+    if ns_snaps:
+        ns = dict(ns_snaps[0])  # slab fields (version/crc/generation/
+        # heads/swaps/delta_swaps/retries): shared, identical
+        ns["scored"] = sum(int(x.get("scored", 0)) for x in ns_snaps)
+        ns["specialist_scored"] = sum(
+            int(x.get("specialist_scored", 0)) for x in ns_snaps)
+        ns["unscored"] = sum(int(x.get("unscored", 0)) for x in ns_snaps)
+        hist = ns_snaps[0].get("score_ns_hist") or []
+        for x in ns_snaps[1:]:
+            hist = _sum_hists(hist, x.get("score_ns_hist") or [])
+        ns["score_ns_hist"] = hist
+        out["native_scorer"] = ns
+    return out
 
 
 class FastPathEngine:
-    """Handle on the native epoll proxy data plane (native/fastpath.cpp),
-    one worker.
+    """Handle on the native epoll proxy data plane (native/fastpath.cpp).
 
     Python is the control plane: it binds listeners before start(), then
     installs/updates concrete routes (host -> [(ip, port), ...]) as the
     naming system publishes address changes, and periodically drains route
-    misses, stats, and per-request feature rows."""
+    misses, stats, and per-request feature rows.
+
+    Multi-core sharding (``workers`` > 1): N per-core C++ engine
+    instances, each with its own epoll loop, upstream pools, and
+    stats/guard slabs; ``listen()`` binds every worker to the SAME port
+    via SO_REUSEPORT so the kernel distributes connections — no shared
+    counters on the hot path. Control-plane calls (routes, TLS, guards)
+    broadcast to all workers; drains fan in; ``stats()`` merges the
+    per-worker slabs at scrape time and carries the raw per-worker
+    snapshots under ``workers``. The scorer's double-buffered weight
+    slab becomes ONE process-wide slab shared read-only across workers
+    (attached before start), so a single ``publish_weights`` flips every
+    core to the new blob atomically. ``workers=1`` is byte-for-byte the
+    single engine: the legacy (non-REUSEPORT) bind, the embedded slab,
+    and the unmerged stats shape."""
 
     # engine feature-row width: route_id, latency_ms, status, req_b,
     # rsp_b, ts_s, score, scored, tenant, kind, stream, frame_seq
@@ -153,11 +330,30 @@ class FastPathEngine:
     # 2 = tunnel sample; stream is the 24-bit stream key for kind > 0
     # rows, frame_seq the frame count at sample time)
     FEATURE_DIM = 12
+    # ALPN preference list the engine's TLS contexts advertise/offer
+    _ALPN = "http/1.1"
 
-    def __init__(self):
+    MAX_WORKERS = 64
+
+    def __init__(self, workers: int = 1):
         cdll = lib()
+        workers = int(workers)
+        if not 1 <= workers <= self.MAX_WORKERS:
+            raise ValueError(
+                f"workers must be in 1..{self.MAX_WORKERS}, got {workers}")
         self._lib = cdll
-        self._e = cdll.fp_create()
+        self.workers = workers
+        self._es = [cdll.fp_create() for _ in range(workers)]
+        self._e = self._es[0]  # single-worker compat handle
+        # multi-worker: ONE process-wide weight slab, shared read-only
+        # by every worker's epoll thread — one publish fans out to all
+        # cores atomically (freed in close(), after every worker's loop
+        # thread has joined)
+        self._slab = None
+        if workers > 1:
+            self._slab = cdll.l5d_slab_create()
+            for h in self._es:
+                cdll.fp_attach_slab(h, self._slab)
         self._started = False
         self._closed = False
         self._miss_buf = ctypes.create_string_buffer(64 * 1024)
@@ -167,17 +363,84 @@ class FastPathEngine:
                           * (self._feat_rows * self.FEATURE_DIM))()
 
     def listen(self, ip: str, port: int) -> int:
-        """Bind a listener; returns the bound port. Call before start()."""
+        """Bind a listener; returns the bound port. Call before start().
+        With ``workers`` > 1 every worker binds the same port via
+        SO_REUSEPORT (the first worker resolves port 0 to a concrete
+        port; the rest join it)."""
         assert not self._started
-        got = self._lib.fp_listen(self._e, ip.encode(), port)
+        if self.workers == 1:
+            got = self._lib.fp_listen(self._e, ip.encode(), port)
+            if got < 0:
+                raise OSError(f"fastpath listen {ip}:{port} failed")
+            return got
+        return self._listen_all(self._lib.fp_listen_shared, ip, port)
+
+    def _listen_all(self, fn, ip: str, port: int) -> int:
+        got = fn(self._es[0], ip.encode(), port)
         if got < 0:
             raise OSError(f"fastpath listen {ip}:{port} failed")
+        for h in self._es[1:]:
+            if fn(h, ip.encode(), got) < 0:
+                raise OSError(
+                    f"fastpath shared listen {ip}:{got} failed")
         return got
+
+    @classmethod
+    def tls_runtime_available(cls) -> bool:
+        """True when the engine could dlopen the OpenSSL runtime (TLS
+        termination/origination available natively)."""
+        return bool(lib().fp_tls_runtime_available())
+
+    def set_tls(self, cert_path: str, key_path: str) -> None:
+        """Install the accept-leg TLS context (PEM cert chain + key).
+        Call before start(); listeners bound with listen_tls() then
+        terminate TLS with this identity (ALPN http/1.1)."""
+        assert not self._started
+        err = ctypes.create_string_buffer(512)
+        for h in self._es:
+            rc = self._lib.fp_set_tls(h, cert_path.encode(),
+                                      key_path.encode(),
+                                      self._ALPN.encode(), err, len(err))
+            if rc != 0:
+                raise OSError(
+                    f"fastpath TLS config failed: "
+                    f"{err.value.decode('latin-1') or 'unknown error'}")
+
+    def listen_tls(self, ip: str, port: int) -> int:
+        """Bind a TLS-terminating listener (requires set_tls first);
+        returns the bound port. Call before start(). Multi-worker
+        engines share the port via SO_REUSEPORT like listen()."""
+        assert not self._started
+        if self.workers == 1:
+            got = self._lib.fp_listen_tls(self._e, ip.encode(), port)
+            if got < 0:
+                raise OSError(f"fastpath TLS listen {ip}:{port} failed")
+            return got
+        return self._listen_all(self._lib.fp_listen_tls_shared, ip, port)
+
+    def set_client_tls(self, verify: bool = True,
+                       ca_path: Optional[str] = None) -> None:
+        """Originate TLS to every upstream endpoint (router-wide
+        client.tls). The route authority is sent as SNI and, when
+        ``verify`` is set, pinned against the peer certificate;
+        ``ca_path`` replaces the default trust roots. Call before
+        start()."""
+        assert not self._started
+        err = ctypes.create_string_buffer(512)
+        for h in self._es:
+            rc = self._lib.fp_set_client_tls(
+                h, self._ALPN.encode(), 1 if verify else 0,
+                ca_path.encode() if ca_path else None, err, len(err))
+            if rc != 0:
+                raise OSError(
+                    f"fastpath client TLS config failed: "
+                    f"{err.value.decode('latin-1') or 'unknown error'}")
 
     def start(self) -> None:
         if not self._started:
-            if self._lib.fp_start(self._e) != 0:
-                raise RuntimeError("fastpath thread start failed")
+            for h in self._es:
+                if self._lib.fp_start(h) != 0:
+                    raise RuntimeError("fastpath thread start failed")
             self._started = True
 
     @staticmethod
@@ -187,75 +450,64 @@ class FastPathEngine:
         return host.encode("latin-1", "replace").lower()
 
     def set_route(self, host: str, endpoints: List[Tuple[str, int]]) -> None:
+        # Broadcast in WORKER ORDER, always: each worker assigns route
+        # ids by install order, so identical broadcast order keeps ids
+        # in lockstep across workers — feature rows drained from any
+        # worker then attribute to the same dst path.
         eps = " ".join(f"{ip}:{port}" for ip, port in endpoints) + " "
-        self._lib.fp_set_route(self._e, self._key(host), eps.encode())
+        for h in self._es:
+            self._lib.fp_set_route(h, self._key(host), eps.encode())
 
-    def set_route_feature(self, host: str, col: int, sign: float) -> bool:
-        """Install the dst-path feature-hash (column, sign) for a route
-        so the in-engine scorer can featurize its rows; call after
-        set_route. Returns False while the route does not exist."""
-        return self._lib.fp_set_route_feature(
-            self._e, self._key(host), int(col), float(sign)) == 0
+    def set_guard(self, header_budget_ms: int = 10_000,
+                  body_stall_ms: int = 30_000, accept_burst: int = 0,
+                  accept_window_ms: int = 1000,
+                  max_hs_inflight: int = 0,
+                  tenant_cap: int = 1024) -> None:
+        """Connection-plane defense knobs (call before start()): the
+        slowloris header/body budgets, the per-source accept throttle,
+        TLS handshake-churn backpressure, and the tenant-stats LRU
+        bound. 0 disables an individual defense."""
+        assert not self._started
+        for h in self._es:
+            rc = self._lib.fp_set_guard(
+                h, int(header_budget_ms), int(body_stall_ms),
+                int(accept_burst), int(accept_window_ms),
+                int(max_hs_inflight), int(tenant_cap))
+            if rc != 0:
+                raise ValueError("guard config rejected")
 
-    def set_route_hash(self, host: str, rhash: int) -> bool:
-        """Install a route's specialist-bank key (FNV-1a of the bound
-        dst path, ``lifecycle.export.route_hash``); call after
-        set_route. Until this lands the route's rows score on the
-        bank's base model. Returns False while the route does not
-        exist."""
-        return self._lib.fp_set_route_hash(
-            self._e, self._key(host), int(rhash) & 0xFFFFFFFF) == 0
+    STREAM_ACTIONS = {"observe": 0, "rst": 1}
 
-    def publish_weights(self, blob: bytes) -> None:
-        """Hot-swap the in-engine scorer's weights from a versioned
-        blob — a v1 model or a v2 specialist bank
-        (lifecycle/export.export_weight_blob / export_bank_blob).
-        Raises ValueError on a rejected blob (bad magic/CRC/geometry);
-        the data plane never pauses — scoring flips to the new weights
-        per-row."""
-        if self._closed:
-            # a stale sink calling into a freed C++ engine would be a
-            # native use-after-free, not a catchable Python error
-            raise RuntimeError("engine is closed")
-        err = ctypes.create_string_buffer(256)
-        rc = self._lib.fp_publish_weights(self._e, blob, len(blob), err,
-                                          len(err))
-        if rc != 0:
-            raise ValueError(
-                f"weight blob rejected: "
-                f"{err.value.decode('latin-1') or 'unknown error'}")
+    def set_stream_cfg(self, enabled: bool = True,
+                       sample_every_frames: int = 8,
+                       min_gap_ms: int = 10, table_cap: int = 4096,
+                       enter: float = 0.8, exit: float = 0.5,
+                       quorum: int = 3, dwell_ms: int = 1000,
+                       action: str = "rst") -> None:
+        """Stream-sentinel knobs (call before start()): per-stream
+        scoring cadence (every N frames, min gap between samples), the
+        bounded stream-table cap, and the native hysteresis governor
+        mirroring control.state.HysteresisGovernor (0 < exit < enter
+        <= 1, quorum consecutive samples, dwell after a transition).
+        ``action`` "rst" sheds a sick tunnel in-engine (closes it);
+        "observe" only records transitions."""
+        assert not self._started
+        a = self.STREAM_ACTIONS.get(action)
+        if a is None:
+            raise ValueError(f"unknown stream action {action!r}")
+        for h in self._es:
+            rc = self._lib.fp_set_stream_cfg(
+                h, 1 if enabled else 0, int(sample_every_frames),
+                int(min_gap_ms), int(table_cap), float(enter),
+                float(exit), int(quorum), int(dwell_ms), a)
+            if rc != 0:
+                raise ValueError("stream config rejected")
 
-    def publish_delta(self, blob: bytes) -> None:
-        """Apply a per-route delta patch (``L5DWTD01``) to the ACTIVE
-        bank — generation-fenced: raises ValueError when the patch was
-        built against a different bank generation (the caller falls
-        back to a full publish), when it removes an absent head, or on
-        any corruption."""
-        if self._closed:
-            raise RuntimeError("engine is closed")
-        err = ctypes.create_string_buffer(256)
-        rc = self._lib.fp_publish_delta(self._e, blob, len(blob), err,
-                                        len(err))
-        if rc != 0:
-            raise ValueError(
-                f"delta blob rejected: "
-                f"{err.value.decode('latin-1') or 'unknown error'}")
-
-    def remove_route(self, host: str) -> None:
-        self._lib.fp_remove_route(self._e, self._key(host))
-
-    def drain_misses(self) -> List[str]:
-        n = self._lib.fp_drain_misses(self._e, self._miss_buf,
-                                      len(self._miss_buf))
-        if n <= 0:
-            return []
-        return self._miss_buf.value.decode("latin-1").split("\n")[:n]
-
-    def stats(self) -> dict:
-        """Engine stats snapshot (``{}`` when it cannot be read)."""
+    def _json_one(self, fn, handle) -> dict:
+        """One engine's JSON document from ``fn`` (stats or streams),
+        growing the buffer as needed; ``{}`` when it cannot be read."""
         for _ in range(6):
-            n = self._lib.fp_stats_json(self._e, self._stats_buf,
-                                        len(self._stats_buf))
+            n = fn(handle, self._stats_buf, len(self._stats_buf))
             if n == -2:  # buffer too small: grow (capped at 64MB)
                 if len(self._stats_buf) >= 64 << 20:
                     log.warning("fastpath stats exceed 64MB; dropping")
@@ -268,15 +520,184 @@ class FastPathEngine:
             return json.loads(self._stats_buf.value.decode("latin-1"))
         return {}
 
+    def streams(self) -> dict:
+        """Stream-table snapshot (/streams.json shape). Multi-worker
+        engines carry per-worker snapshots under ``workers`` — stream
+        keys are per-worker sequences, so by_stream maps must not be
+        merged across workers — with engine-wide counters summed."""
+        fn = self._lib.fp_streams_json
+        if self.workers == 1:
+            return self._json_one(fn, self._e)
+        snaps = [self._json_one(fn, h) for h in self._es]
+        out: dict = {"enabled": any(s.get("enabled") for s in snaps)}
+        for k in ("count", "evicted", "sick_transitions", "rst_sent",
+                  "tunnels_opened", "tunnel_idle_closed",
+                  "tunnel_bytes_closed"):
+            out[k] = sum(int(s.get(k, 0)) for s in snaps)
+        out["workers"] = snaps
+        return out
+
+    def rst_stream(self, skey: int, worker: Optional[int] = None) -> None:
+        """Queue a mid-stream shed by 24-bit stream key (the ``stream``
+        column of kind > 0 feature rows): the engine's loop thread
+        closes the tunnel. Keys are per-worker sequences — pass
+        ``worker`` when the engine is sharded; a broadcast would shed
+        whatever stream holds that key on EVERY worker."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        handles = self._es if worker is None \
+            else [self._es[int(worker)]]
+        for h in handles:
+            self._lib.fp_rst_stream(h, int(skey) & 0xFFFFFF)
+
+    def set_tunnel_guard(self, idle_ms: int = 0,
+                         max_bytes: int = 0) -> None:
+        """Byte-tunnel budgets (call before start()): zero-activity
+        window and lifetime byte cap for CONNECT / 101-upgrade tunnels.
+        0 disables the individual cap. Enforced even when stream
+        scoring is off — these are connection-plane defenses like the
+        slowloris budgets."""
+        assert not self._started
+        for h in self._es:
+            if self._lib.fp_set_tunnel_guard(h, int(idle_ms),
+                                             int(max_bytes)) != 0:
+                raise ValueError("tunnel guard config rejected")
+
+    def set_route_feature(self, host: str, col: int, sign: float) -> bool:
+        """Install the dst-path feature-hash (column, sign) for a route
+        so the in-engine scorer can featurize its rows; call after
+        set_route. Returns False while the route does not exist (on
+        any worker — set_route broadcasts, so all workers agree)."""
+        ok = True
+        for h in self._es:
+            if self._lib.fp_set_route_feature(
+                    h, self._key(host), int(col), float(sign)) != 0:
+                ok = False
+        return ok
+
+    def set_route_hash(self, host: str, rhash: int) -> bool:
+        """Install a route's specialist-bank key (FNV-1a of the bound
+        dst path, ``lifecycle.export.route_hash``); call after
+        set_route. Until this lands the route's rows score on the
+        bank's base model. Returns False while the route does not
+        exist on some worker."""
+        ok = True
+        for h in self._es:
+            if self._lib.fp_set_route_hash(
+                    h, self._key(host), int(rhash) & 0xFFFFFFFF) != 0:
+                ok = False
+        return ok
+
+    def publish_weights(self, blob: bytes) -> None:
+        """Hot-swap the in-engine scorer's weights from a versioned
+        blob — a v1 model or a v2 specialist bank
+        (lifecycle/export.export_weight_blob / export_bank_blob).
+        Raises ValueError on a rejected blob (bad magic/CRC/geometry);
+        the data plane never pauses — scoring flips to the new weights
+        per-row. With ``workers`` > 1 the publish goes ONCE into the
+        shared slab and every worker observes the new blob atomically."""
+        if self._closed:
+            # a stale sink calling into a freed C++ engine would be a
+            # native use-after-free, not a catchable Python error
+            raise RuntimeError("engine is closed")
+        err = ctypes.create_string_buffer(256)
+        if self._slab is not None:
+            rc = self._lib.l5d_slab_publish(self._slab, blob, len(blob),
+                                            err, len(err))
+        else:
+            rc = self._lib.fp_publish_weights(self._e, blob, len(blob),
+                                              err, len(err))
+        if rc != 0:
+            raise ValueError(
+                f"weight blob rejected: "
+                f"{err.value.decode('latin-1') or 'unknown error'}")
+
+    def publish_delta(self, blob: bytes) -> None:
+        """Apply a per-route delta patch (``L5DWTD01``) to the ACTIVE
+        bank — generation-fenced: raises ValueError when the patch was
+        built against a different bank generation (the caller falls
+        back to a full publish), when it removes an absent head, or on
+        any corruption. One apply flips every worker (shared slab)."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        err = ctypes.create_string_buffer(256)
+        if self._slab is not None:
+            rc = self._lib.l5d_slab_publish_delta(
+                self._slab, blob, len(blob), err, len(err))
+        else:
+            rc = self._lib.fp_publish_delta(self._e, blob, len(blob), err,
+                                            len(err))
+        if rc != 0:
+            raise ValueError(
+                f"delta blob rejected: "
+                f"{err.value.decode('latin-1') or 'unknown error'}")
+
+    def remove_route(self, host: str) -> None:
+        for h in self._es:
+            self._lib.fp_remove_route(h, self._key(host))
+
+    def drain_misses(self) -> List[str]:
+        fn = self._lib.fp_drain_misses
+        if self.workers == 1:
+            n = fn(self._e, self._miss_buf, len(self._miss_buf))
+            if n <= 0:
+                return []
+            return self._miss_buf.value.decode("latin-1").split("\n")[:n]
+        # fan-in: the same host typically misses on several workers at
+        # once (the kernel spread its first connections); one entry is
+        # enough — set_route broadcasts the resolution to all of them
+        out: List[str] = []
+        seen = set()
+        for h in self._es:
+            n = fn(h, self._miss_buf, len(self._miss_buf))
+            if n <= 0:
+                continue
+            for host in self._miss_buf.value.decode(
+                    "latin-1").split("\n")[:n]:
+                if host not in seen:
+                    seen.add(host)
+                    out.append(host)
+        return out
+
+    def _stats_one(self, handle) -> dict:
+        return self._json_one(self._lib.fp_stats_json, handle)
+
+    def stats(self) -> dict:
+        """Engine stats snapshot (``{}`` when it cannot be read).
+        ``workers == 1``: the single engine's snapshot, unchanged.
+        ``workers > 1``: per-worker slabs merged at scrape time
+        (counters summed, histograms added element-wise, shared-slab
+        fields taken once), with the raw per-worker snapshots under
+        ``workers`` for ``worker/<i>/*`` breakdowns."""
+        if self.workers == 1:
+            return self._stats_one(self._e)
+        snaps = [self._stats_one(h) for h in self._es]
+        if any(not s for s in snaps):
+            # a PARTIAL merge would report totals below the
+            # controller's delta baselines, and the next full scrape
+            # would then re-count the missing worker's whole history
+            # as one giant delta — skip this scrape entirely instead
+            # (an empty snapshot is the established failure shape:
+            # every consumer skips it and keeps its baselines)
+            return {}
+        merged = _merge_worker_stats(snaps, self.workers)
+        merged["workers"] = snaps
+        return merged
+
     def drain_features(self) -> np.ndarray:
-        """-> float32 ndarray [n, FEATURE_DIM] of per-request rows."""
-        n = self._lib.fp_drain_features(self._e, self._feat_buf,
-                                        self._feat_rows)
-        if n <= 0:
+        """-> float32 ndarray [n, FEATURE_DIM] of per-request rows
+        (fan-in over every worker's ring segment)."""
+        blocks = []
+        for h in self._es:
+            n = self._lib.fp_drain_features(h, self._feat_buf,
+                                            self._feat_rows)
+            if n > 0:
+                arr = np.ctypeslib.as_array(self._feat_buf)
+                blocks.append(arr[:n * self.FEATURE_DIM].reshape(
+                    n, self.FEATURE_DIM).copy())
+        if not blocks:
             return np.zeros((0, self.FEATURE_DIM), dtype=np.float32)
-        arr = np.ctypeslib.as_array(self._feat_buf)
-        return arr[:n * self.FEATURE_DIM].reshape(
-            n, self.FEATURE_DIM).copy()
+        return blocks[0] if len(blocks) == 1 else np.concatenate(blocks)
 
     def drain_features_into(self, out: np.ndarray) -> int:
         """Drain up to ``len(out)`` feature rows directly into ``out``
@@ -294,14 +715,55 @@ class FastPathEngine:
             raise ValueError(
                 f"want C-contiguous [n, {self.FEATURE_DIM}] f32, got "
                 f"shape {out.shape}")
-        ptr = out.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-        n = self._lib.fp_drain_features(self._e, ptr, len(out))
-        return max(int(n), 0)
+        # fan-in: fill `out` from each worker's per-core ring segment in
+        # turn until it is full (each drain memcpys straight into ring
+        # memory at the right row offset — still zero-copy per worker)
+        total = 0
+        row_bytes = self.FEATURE_DIM * 4
+        base = out.ctypes.data
+        for h in self._es:
+            if total >= len(out):
+                break
+            ptr = ctypes.cast(base + total * row_bytes,
+                              ctypes.POINTER(ctypes.c_float))
+            n = self._lib.fp_drain_features(h, ptr, len(out) - total)
+            if n > 0:
+                total += int(n)
+        return total
 
     def close(self) -> None:
         if not self._closed:
             self._closed = True
-            self._lib.fp_shutdown(self._e)
+            # every worker's epoll thread joins before the shared slab
+            # is freed: no core can be mid-eval on freed weights
+            for h in self._es:
+                self._lib.fp_shutdown(h)
+            if self._slab is not None:
+                self._lib.l5d_slab_free(self._slab)
+                self._slab = None
+
+
+def stream_accum(kinds, gaps_ms, sizes) -> np.ndarray:
+    """Drive the engine's per-frame stream accumulator
+    (l5dstream::accum_frame) over a whole frame trace — the parity
+    surface for ``streams.tracker.StreamTracker``, which must
+    reproduce the float32 EWMA arithmetic bit-for-bit. ``kinds`` are
+    ints (0 DATA / 1 WINDOW_UPDATE / 2 anomaly), ``gaps_ms``/``sizes``
+    per-frame floats. Returns f32 [9]: [gap_ewma_ms, gap_dev_ms,
+    bpf_ewma, bpf_dev, frames, data_frames, wu_frames, anomalies,
+    bytes]; ValueError on a bad kind."""
+    k = np.ascontiguousarray(kinds, np.int32)
+    g = np.ascontiguousarray(gaps_ms, np.float32)
+    s = np.ascontiguousarray(sizes, np.float32)
+    if not (len(k) == len(g) == len(s)):
+        raise ValueError("kinds/gaps/sizes length mismatch")
+    out = np.zeros(9, np.float32)
+    rc = lib().l5d_stream_accum(
+        k.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        _as_f32_ptr(g), _as_f32_ptr(s), len(k), _as_f32_ptr(out))
+    if rc != 0:
+        raise ValueError("bad frame kind in trace")
+    return out
 
 
 # -- in-data-plane scorer (engine-independent surface) ------------------------

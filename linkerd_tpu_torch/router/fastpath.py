@@ -1,6 +1,7 @@
 """FastPath controller: Python control plane for the native data plane,
-counterpart of ``linkerd_tpu/router/fastpath.py`` for one HTTP/1.1
-engine (no tenants, streams or sharded workers).
+counterpart of ``linkerd_tpu/router/fastpath.py`` for the HTTP/1.1
+engine (sharded workers, native TLS, the connection guard and the
+stream sentinel; no tenants).
 
 The native engine (native/fastpath.cpp) serves the HTTP/1.1 hot loop; this
 module keeps it honest with the naming system:
@@ -15,7 +16,10 @@ module keeps it honest with the naming system:
 - engine stats feed the MetricsTree under the standard
   ``rt/<label>/fastpath`` scope, and per-request feature rows feed the
   ``io.l5d.jaxAnomaly`` telemeter's native ring, so fastpath traffic is
-  scored on the card like Python-path traffic.
+  scored on the card like Python-path traffic;
+- the engine's stream and tunnel sample rows (row kind > 0) also feed
+  the Python stream sentinel, which mirrors the engine's in-plane
+  stream governor for ``/streams.json``.
 """
 
 from __future__ import annotations
@@ -121,7 +125,7 @@ class FastPathController:
     def __init__(self, engine, interpreter, base_dtab: Dtab, prefix: Path,
                  label: str, metrics, telemeters=(),
                  miss_poll_s: float = 0.01, stats_poll_s: float = 1.0,
-                 max_hosts: int = 10_000):
+                 max_hosts: int = 10_000, stream_sentinel=None):
         self.engine = engine
         self.interpreter = interpreter
         self.dtab = base_dtab
@@ -136,9 +140,22 @@ class FastPathController:
         self._tasks: List[asyncio.Task] = []
         self._last_stats: Dict[str, Dict[str, int]] = {}
         self._last_scorer: Dict[str, int] = {}
+        self._last_tls: Dict[str, int] = {}
+        # multi-worker sharding: per-worker counter baselines for the
+        # rt/*/fastpath/worker/<i>/* breakdown (merged totals ride the
+        # normal scopes above)
+        self._last_workers: List[Dict[str, int]] = []
         self._weight_sink_regs: List[tuple] = []
         self._id_to_host: Dict[int, str] = {}
         self._scope = metrics.scope("rt", label, "fastpath")
+        self._last_guard: Dict[str, int] = {}
+        # stream sentinel: the Python-side mirror of the engines'
+        # in-plane stream governor. Stream/tunnel sample rows (row kind
+        # > 0) drained off the feature ring feed it, keeping the
+        # Python table — and any drain/quota escalation the native
+        # plane delegates up — in sync with what the engines shed.
+        self.stream_sentinel = stream_sentinel
+        self._last_streams: Dict[str, int] = {}
         # native line-rate feed state: telemeters whose ring resolver is
         # installed, plus the overflow scratch block (drop-and-count
         # when the ring is full — the engine must not grow unbounded)
@@ -231,8 +248,126 @@ class FastPathController:
             except Exception:  # noqa: BLE001
                 log.exception("fastpath stats loop error")
 
+    _TLS_KEYS = ("handshakes", "failures", "resumed", "alpn_h2",
+                 "alpn_http1", "upstream_handshakes", "upstream_resumed",
+                 "upstream_failures")
+    _GUARD_KEYS = ("slowloris_closed", "body_stall_closed",
+                   "accept_throttled", "hs_churn_shed",
+                   "rapid_reset_closed", "flood_closed", "tenant_shed")
+
+    def _export_guard(self, snap: dict) -> None:
+        """Guard counters → rt/*/fastpath/guard/* (the guard half of
+        the reference's ``_export_tenants``; the engine's per-tenant
+        aggregates come with tenants)."""
+        guard = snap.get("guard")
+        if guard:
+            scope = self._scope.scope("guard")
+            prev = self._last_guard
+            for key in self._GUARD_KEYS:
+                delta = int(guard.get(key, 0)) - int(prev.get(key, 0))
+                if delta > 0:
+                    scope.counter(key).incr(delta)
+            self._last_guard = {k: int(guard.get(k, 0))
+                                for k in self._GUARD_KEYS}
+
+    _STREAM_KEYS = ("evicted", "sick_transitions", "rst_sent",
+                    "tunnels_opened", "tunnel_idle_closed",
+                    "tunnel_bytes_closed")
+
+    def _export_streams(self) -> None:
+        """Engine stream-table counters → rt/*/fastpath/streams/*: the
+        live proof the stream sentinel is sampling (count gauge) and
+        actuating (rst_sent / tunnel-budget closes as counters)."""
+        fn = getattr(self.engine, "streams", None)
+        if fn is None:
+            return  # a scripted engine (tests)
+        try:
+            snap = fn()
+        except Exception:  # noqa: BLE001 — scrape failure must not
+            log.exception("fastpath streams scrape failed")  # kill loop
+            return
+        if not snap or not snap.get("enabled"):
+            return
+        scope = self._scope.scope("streams")
+        scope.gauge("count").set(float(snap.get("count", 0)))
+        prev = self._last_streams
+        for key in self._STREAM_KEYS:
+            delta = int(snap.get(key, 0)) - int(prev.get(key, 0))
+            if delta > 0:
+                scope.counter(key).incr(delta)
+        self._last_streams = {k: int(snap.get(k, 0))
+                              for k in self._STREAM_KEYS}
+
+    def streams_snapshot(self) -> dict:
+        """/streams.json body: the engine's in-plane stream table plus
+        (when wired) the Python sentinel's view, under one document."""
+        out: dict = {"enabled": False}
+        fn = getattr(self.engine, "streams", None)
+        if fn is not None:
+            try:
+                eng = fn()
+            except Exception:  # noqa: BLE001
+                eng = {"error": "stream scrape failed"}
+            out["engine"] = eng
+            out["enabled"] = bool(eng.get("enabled")) \
+                if isinstance(eng, dict) else False
+        if self.stream_sentinel is not None:
+            out["sentinel"] = self.stream_sentinel.snapshot()
+            out["enabled"] = True
+        return out
+
+    _WORKER_KEYS = ("requests", "accepted", "scored", "unscored",
+                    "features_dropped")
+
+    def _export_workers(self, snap: dict) -> None:
+        """Per-worker breakdown under rt/*/fastpath/worker/<i>/* when
+        the engine is sharded (stats() carries the raw per-worker
+        snapshots under ``workers``): the live proof that the kernel's
+        SO_REUSEPORT spread is actually using every core, and the
+        denominator for merged-equals-sum checks."""
+        workers = snap.get("workers")
+        if not workers:
+            return
+        while len(self._last_workers) < len(workers):
+            self._last_workers.append({})
+        for i, ws in enumerate(workers):
+            if not ws:
+                # a failed scrape (oversized/errored stats JSON) must
+                # not reset this worker's baseline to zero — the next
+                # good scrape would re-count its whole history
+                continue
+            ns = ws.get("native_scorer") or {}
+            cur = {
+                "requests": sum(int(r.get("requests", 0)) for r in
+                                (ws.get("routes") or {}).values()),
+                "accepted": int(ws.get("accepted", 0)),
+                "scored": int(ns.get("scored", 0)),
+                "unscored": int(ns.get("unscored", 0)),
+                "features_dropped": int(ws.get("features_dropped", 0)),
+            }
+            prev = self._last_workers[i]
+            scope = self._scope.scope("worker", str(i))
+            for key in self._WORKER_KEYS:
+                delta = cur[key] - int(prev.get(key, 0))
+                if delta > 0:
+                    scope.counter(key).incr(delta)
+            self._last_workers[i] = cur
+
     def _export_stats(self) -> None:
         snap = self.engine.stats()
+        self._export_guard(snap)
+        self._export_workers(snap)
+        self._export_streams()
+        tls = snap.get("tls")
+        if tls and (tls.get("enabled") or tls.get("client_enabled")):
+            scope = self._scope.scope("tls")
+            prev = self._last_tls
+            for key in self._TLS_KEYS:
+                delta = int(tls.get(key, 0)) - int(prev.get(key, 0))
+                if delta > 0:
+                    scope.counter(key).incr(delta)
+            self._last_tls = {k: int(tls.get(k, 0))
+                              for k in self._TLS_KEYS}
         ns = snap.get("native_scorer")
         if ns and (ns.get("weights") or ns.get("unscored")):
             # in-data-plane scorer accounting under
@@ -285,13 +420,21 @@ class FastPathController:
         (``drain_features_into`` memcpys C → ring memory) and consumed
         zero-copy by the micro-batcher — no per-row Python objects on
         the C++→Python seam. With no such telemeter the rows are
-        drained and dropped, so the engine's queue never fills. (The
-        reference's per-row FeatureVector feed serves telemeters with a
-        ring and no native ring; the port has none.)"""
+        drained (stream and tunnel samples to the sentinel) and
+        dropped, so the engine's queue never fills. (The reference's
+        per-row FeatureVector feed serves telemeters with a ring and no
+        native ring; the port has none.) Stream and tunnel sample rows
+        reach the telemeters' rings like request rows, as the
+        reference sends them, and the sentinel besides."""
+        from linkerd_tpu_torch.telemetry.linerate import NATIVE_COL_KIND
         sinks = [t for t in self.telemeters
                  if getattr(t, "native_ring", None) is not None]
         if not sinks:
-            self.engine.drain_features()
+            rows = self.engine.drain_features()
+            if self.stream_sentinel is not None:
+                srows = rows[rows[:, NATIVE_COL_KIND] > 0.5]
+                if len(srows):
+                    self.stream_sentinel.ingest_rows(srows)
             return
         primary, extras = sinks[0], sinks[1:]
         for t in sinks:
@@ -349,12 +492,14 @@ class FastPathController:
                 t.native_ring.drop(short)
             if copied or short:
                 t.native_committed(copied, dropped=short)
-
-    def streams_snapshot(self) -> dict:
-        """/streams.json body (ref: linkerd_tpu/router/fastpath.py:363):
-        the port's engine has no stream table and no sentinel while
-        ``streamScoring`` is refused (ROADMAP Queue 1 item 4)."""
-        return {"enabled": False}
+        # stream/tunnel sample rows also feed the Python sentinel (the
+        # ring consumers route on the kind column themselves; the
+        # sentinel needs its own look for drain/quota escalation)
+        if self.stream_sentinel is not None:
+            for block in drained_views:
+                srows = block[block[:, NATIVE_COL_KIND] > 0.5]
+                if len(srows):
+                    self.stream_sentinel.ingest_rows(srows)
 
     async def close(self) -> None:
         # detach the task list BEFORE awaiting: a start() interleaving

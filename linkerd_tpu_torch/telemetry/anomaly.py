@@ -1152,8 +1152,35 @@ class JaxAnomalyTelemeter(Telemeter):
         self._degraded.set(1.0 if degraded else 0.0)
         self.board.degraded = degraded
 
+    async def _start_scorer(self) -> Scorer:
+        """The scorer ``run()`` serves with. One not built yet is built
+        on a worker thread (a CUDA context and the model's tensors:
+        seconds on a card) and warmed up before the first batch, so the
+        router's loop serves meanwhile and rows wait in the rings. (The
+        reference builds it on the loop.)"""
+        if self._scorer is None:
+            built = asyncio.ensure_future(
+                asyncio.to_thread(self._mk_inprocess))
+            try:
+                scorer = await asyncio.shield(built)
+            except asyncio.CancelledError:
+                # the thread runs on: close what it builds
+                built.add_done_callback(
+                    lambda f: f.cancelled() or f.exception()
+                    or f.result().close())
+                raise
+            if self._scorer is not None:  # one was installed meanwhile
+                scorer.close()
+                return self._scorer
+            # installed before the warm-up, so close() reaches it
+            self._scorer = scorer
+            await scorer.warmup()
+            if self._span_sink is not None:
+                self._enable_sampled_timing(scorer)
+        return self._scorer
+
     async def run(self) -> None:
-        scorer = self._ensure_scorer()
+        scorer = await self._start_scorer()
         lc_cfg = self.cfg.lifecycle
         if self._lifecycle is not None and lc_cfg.restoreOnStart:
             # survive restarts: pull the last-good model before scoring

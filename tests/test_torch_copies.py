@@ -47,6 +47,10 @@ COPIES = (
     "router/tracing.py", "telemetry/exporters.py", "telemetry/usage.py",
     "admin/__init__.py", "admin/server.py", "admin/dashboard.py",
     "namerd/admin_pages.py",
+    # the native engine's options: the stream tracker and sentinel
+    # (observer.py, the h2 frame observer, comes whole with the package)
+    "streams/__init__.py", "streams/tracker.py", "streams/sentinel.py",
+    "streams/observer.py",
 )
 
 # Modules that differ on purpose: reason, and the top-level names that
@@ -99,16 +103,16 @@ DIFFERENT = {
     "native/__init__.py": (
         "the loader builds the port's own library from native/ and has no "
         "pure-Python fallback (a failed build raises); FastPathEngine "
-        "drives one HTTP/1.1 worker (no sharding, TLS, tenants, guard or "
-        "streams); no h2 engine, head parser, Huffman or test-blob "
-        "bindings; the scorer calls raise instead of returning None "
-        "(ROADMAP Queue 1 item 4)",
+        "drives the HTTP/1.1 engine with sharded workers, native TLS, the "
+        "connection guard and the stream sentinel, without tenants "
+        "(ROADMAP Queue 1 item 10); no h2 engine (item 12), head parser, "
+        "Huffman or test-blob bindings; the scorer calls and stream_accum "
+        "raise instead of returning None",
         {"FastPathEngine", "H2FastPathEngine", "MAX_HEADERS", "ScoreSlab",
          "_QUANT_CODES", "_SO_PATH", "_SPANS", "_build",
          "_declare_fastpath", "_declare_h2_fastpath", "_declare_scorer",
-         "_declare_tls", "_lock", "_merge_worker_stats", "_sum_hists",
-         "_tried", "auto_workers", "available", "ensure_built",
-         "huffman_decode", "huffman_encode", "json", "lib", "np", "os",
+         "_declare_tls", "_lock", "_tried", "available", "ensure_built",
+         "huffman_decode", "huffman_encode", "json", "lib", "np",
          "parse_http1_head", "score_blob_info", "score_eval",
          "score_eval_raw", "score_eval_route", "score_feature_dim",
          "score_test_bank", "score_test_blob", "score_test_delta",
@@ -140,10 +144,11 @@ DIFFERENT = {
         {"MeshClientInterpreter", "MeshInterpreterConfig",
          "NamerdThriftInterpreterConfig", "Optional", "linkerd_tpu"}),
     "router/fastpath.py": (
-        "the controller of one HTTP/1.1 engine: no tenant board and "
-        "admission, stream sentinel, sharded workers or native TLS "
-        "counters (ROADMAP Queue 1 item 4), and no per-row "
-        "FeatureVector feed (every port telemeter has a native ring)",
+        "the controller of the HTTP/1.1 engine: no tenant board and "
+        "admission (ROADMAP Queue 1 item 10; the guard counters are "
+        "exported by _export_guard, the guard half of _export_tenants), "
+        "and no per-row FeatureVector feed (every port telemeter has a "
+        "native ring)",
         {"FastPathController"}),
 }
 

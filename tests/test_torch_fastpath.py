@@ -399,6 +399,11 @@ async def drive(disco, telemetry, n=60, **router):
     task = monitor(asyncio.create_task(tele.run()), what="telemeter")
     port = linker.routers[0].server_ports[0]
     try:
+        if telemetry.get("nativeTier") == "primary":
+            # run() builds the scorer off the loop: the engine scores
+            # rows once the telemeter's initial publish has landed
+            await until(lambda: tele.native_tier_state()["publishes"],
+                        "the initial publish")
         for i in range(n):
             host = ("web", "api")[i % 2]
             status, _, body = await http_get(port, host)
