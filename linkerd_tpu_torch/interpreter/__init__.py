@@ -5,9 +5,9 @@ Ref: interpreter/ in the reference — in-process (default
 ConfiguredDtabNamer) or remote via namerd's HTTP control API
 (``io.l5d.namerd.http``, chunked-watch streams with backoff-reconnect).
 The kinds are registered by ``interpreter.configs``; the reference's
-``io.l5d.mesh``, thrift ``io.l5d.namerd``, ``io.l5d.fs``,
-``io.l5d.k8s.configMap`` and istio interpreters are not ported yet
-(ROADMAP Queue 1 item 13).
+``io.l5d.mesh`` interpreter is not ported yet (ROADMAP Queue 1 item 17,
+the mesh gRPC API), nor are its thrift ``io.l5d.namerd``, ``io.l5d.fs``,
+``io.l5d.k8s.configMap`` and istio interpreters (item 13).
 """
 
 from linkerd_tpu_torch.interpreter.namerd_http import NamerdHttpInterpreter

@@ -5,7 +5,7 @@ Ref: namer/core/.../InterpreterInitializer.scala:9-57 (SPI). The default
 interpreter is the in-process recursive dtab namer
 (DefaultInterpreterInitializer.scala); ``io.l5d.namerd.http`` binds
 through namerd's HTTP control API. The reference's other kinds are
-refused by name by the linker (ROADMAP Queue 1 item 13).
+refused by name by the linker (ROADMAP Queue 1 items 13 and 17).
 """
 
 from __future__ import annotations

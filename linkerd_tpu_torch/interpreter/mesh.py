@@ -1,6 +1,7 @@
 """Reconnect backoff for the remote interpreters: ``Backoff`` of
 ``linkerd_tpu/interpreter/mesh.py``, copied alone (the ``io.l5d.mesh``
-gRPC interpreter itself is not ported: ROADMAP Queue 1 item 13).
+gRPC interpreter itself is not ported: ROADMAP Queue 1 item 17, the
+mesh gRPC API).
 
 Ref: interpreter/mesh/src/main/scala/io/buoyant/interpreter/mesh/Client.scala
 backoffs param — jittered exponential backoff between watch reconnects.

@@ -1,12 +1,15 @@
-"""Linker: parse config -> namers -> routers -> servers, for HTTP/1.1:
-the ``protocol: http`` subset of ``linkerd_tpu/linker.py``.
+"""Linker: parse config -> namers -> routers -> servers, for HTTP/1.1 and
+h2: the ``protocol: http`` and ``protocol: h2`` subset of
+``linkerd_tpu/linker.py``.
 
 Reference parity: linkerd/core/.../Linker.scala:101-196 (LinkerConfig.mk:
 metrics tree, telemeters, namers, per-router interpreter + binding params,
 port-conflict checks) and Router.scala / Server.scala for the per-router
 assembly.
 
-The port's linker builds HTTP routers with the ``io.l5d.fs`` namer (plus
+The port's linker builds HTTP/1.1 routers and h2 routers (the Python
+HTTP/2 stack, gRPC-aware classification and retries, and a stream
+sentinel under ``streamScoring``) with the ``io.l5d.fs`` namer (plus
 the in-process ``/$/inet`` and status utility namers), bound in process
 or through namerd's HTTP API (``interpreter: {kind:
 io.l5d.namerd.http}``), and the ``io.l5d.jaxAnomaly`` telemeter, whose
@@ -89,10 +92,12 @@ from linkerd_tpu_torch.telemetry.telemeter import BroadcastTracer, NullTracer
 
 # The port's plugins register into its own registry when imported: the
 # identifiers, classifiers, failure accrual kinds and the telemeter by
-# the imports above, the fs namer, the interpreter kinds and the
-# exporter telemeters here.
+# the imports above, the fs namer, the interpreter kinds, the h2
+# identifiers and classifiers and the exporter telemeters here.
 import linkerd_tpu_torch.interpreter.configs  # noqa: F401
 import linkerd_tpu_torch.namer.fs  # noqa: F401
+import linkerd_tpu_torch.protocol.h2.classifiers  # noqa: F401
+import linkerd_tpu_torch.protocol.h2.identifiers  # noqa: F401
 import linkerd_tpu_torch.telemetry.exporters  # noqa: F401
 
 log = logging.getLogger(__name__)
@@ -101,12 +106,14 @@ DEFAULT_ADMIN_PORT = 9990  # ref: Linker.scala:37
 
 # The ROADMAP items (Queue 1) that bring what this linker refuses.
 _H2_ENGINE = "ROADMAP Queue 1 item 4 (the native engines: the h2 engine)"
-_PROTOCOLS = "ROADMAP Queue 1 item 12 (h2/gRPC, then thrift/mux)"
+_PROTOCOLS = "ROADMAP Queue 1 item 12 (thrift/mux)"
 _EDGE = "ROADMAP Queue 1 item 10 (tenants and loggers)"
 _ANNOUNCERS = "ROADMAP Queue 1 item 11 (the announcers)"
 _K8S = "ROADMAP Queue 1 item 5 (the namers of the fault benchmarks)"
 _NAMING = ("ROADMAP Queue 1 item 13 (the other namers, transformers and "
            "interpreters)")
+_MESH = ("ROADMAP Queue 1 item 17 (the mesh gRPC API: the io.l5d.mesh "
+         "interpreter)")
 
 # Router keys the reference takes and the port does not yet, each with
 # the item that brings it. A key counts as given when it is not None and
@@ -119,7 +126,7 @@ REFUSED_ROUTER_KEYS: Dict[str, str] = {
 }
 
 REFUSED_PROTOCOLS: Dict[str, str] = {
-    p: _PROTOCOLS for p in ("h2", "thrift", "mux", "thriftmux")}
+    p: _PROTOCOLS for p in ("thrift", "mux", "thriftmux")}
 
 # Kinds the reference registers and the port has not ported yet, by
 # category, each with the item that brings it. A kind in neither
@@ -137,8 +144,12 @@ UNPORTED_KINDS: Dict[str, Dict[str, str]] = {
         "io.l5d.ingress": _K8S, "io.l5d.k8s.istio": _K8S,
         "io.l5d.k8s.istio-ingress": _K8S,
     },
+    "h2identifier": {
+        "io.l5d.ingress": _K8S, "io.l5d.k8s.istio": _K8S,
+        "io.l5d.k8s.istio-ingress": _K8S,
+    },
     "interpreter": {
-        "io.l5d.namerd": _NAMING, "io.l5d.mesh": _NAMING,
+        "io.l5d.namerd": _NAMING, "io.l5d.mesh": _MESH,
         "io.l5d.fs": _NAMING, "io.l5d.k8s.configMap": _NAMING,
         "io.l5d.k8s.istio": _NAMING,
     },
@@ -623,7 +634,7 @@ class _FastPathRouter(Router):
 
 
 class Linker:
-    """The reference's ``Linker`` for HTTP/1.1 routers, with its
+    """The reference's ``Linker`` for HTTP/1.1 and h2 routers, with its
     telemeters built on ``device``. ``config_dict`` and ``config_text``
     are what the admin server's ``/config.json`` serves."""
 
@@ -647,8 +658,7 @@ class Linker:
         self.tenant_views: List[Tuple[str, Any, Any]] = []
         # per-router Python-plane stream sentinels for /streams.json:
         # [(label, StreamSentinel)] — fastPath routers surface theirs
-        # through FastPathController.streams_snapshot instead (the port
-        # has no Python h2 plane to hold one yet)
+        # through FastPathController.streams_snapshot instead
         self.stream_sentinels: List[Tuple[str, Any]] = []
         try:
             self._build()
@@ -724,7 +734,7 @@ class Linker:
             if rspec.protocol in REFUSED_PROTOCOLS:
                 raise _refusal(f"protocol {rspec.protocol!r}",
                                REFUSED_PROTOCOLS[rspec.protocol])
-            if rspec.protocol != "http":
+            if rspec.protocol not in ("http", "h2"):
                 raise ConfigError(
                     f"protocol {rspec.protocol!r} not yet supported")
             label = rspec.label or rspec.protocol
@@ -745,7 +755,14 @@ class Linker:
                     raise ConfigError(
                         f"{label}.servers[{i}].compressionLevel must be "
                         f"in -1..9, got {s.compressionLevel}")
-            self.routers.append(self._mk_http_router(rspec, label))
+                if rspec.protocol != "http":
+                    raise ConfigError(
+                        f"{label}.servers[{i}].compressionLevel only "
+                        f"supports http routers")
+            if rspec.protocol == "h2":
+                self.routers.append(self._mk_h2_router(rspec, label))
+            else:
+                self.routers.append(self._mk_http_router(rspec, label))
 
         # port-conflict check (ref: Linker.scala:189-195)
         ports = [
@@ -846,12 +863,13 @@ class Linker:
         return wrap, filters
 
     def _per_server_stack_fn(self, label: str, server_filters: List[Any],
-                             routing: Service, shared_stack: Service):
+                             routing: Service, shared_stack: Service,
+                             clear_filter: Callable[[], Any]):
         """The optional per-server TimeoutFilter (ref
         ServerConfig.timeoutMs, Server.scala:85,96) sits INNERMOST —
         below the responder and stats filters, so the mapped 504 is
         observed by metrics like any other response — and clearContext
-        strips headers outermost."""
+        strips headers outermost with the protocol's ``clear_filter``."""
         def per_server(s: ServerSpec) -> Service:
             if s.timeoutMs is not None and s.timeoutMs <= 0:
                 raise ConfigError(
@@ -863,7 +881,7 @@ class Linker:
             if s.timeoutMs is not None:
                 chain.append(TotalTimeout(s.timeoutMs / 1e3))
             if s.clearContext:
-                chain.insert(0, ClearContextFilter())
+                chain.insert(0, clear_filter())
             return filters_to_service(chain, routing)
 
         return per_server
@@ -1277,30 +1295,14 @@ class Linker:
                     f"{label}.addForwardedHeader: {e}") from None
             server_filters.append(AddForwardedHeaderFilter(by, for_))
         server_filters.append(ErrorResponder())
-        self._check_python_edge(rspec, label)
         # INSIDE the responder: an expired deadline must map to 504, a
         # shed to 503
-        server_filters.append(ServerDeadlineFilter(
-            metrics.scope("rt", label, "server", "deadline")))
-        ac = rspec.admissionControl
-        if ac is not None:
-            try:
-                admission = AdmissionControlFilter(
-                    ac.maxConcurrency, ac.maxPending,
-                    metrics.scope("rt", label, "server", "admission"))
-            except ValueError as e:
-                raise ConfigError(
-                    f"{label}.admissionControl: {e}") from None
-            # the control loop modulates this bound from score trends +
-            # the drift monitor (shed earlier when trouble is coming)
-            ctl = self._anomaly_control()
-            if ctl is not None:
-                ctl.register_admission(admission)
-            server_filters.append(admission)
+        server_filters.extend(self._edge_resilience_filters(rspec, label))
         server_stack = filters_to_service(server_filters, routing)
 
         per_server_stack = self._per_server_stack_fn(
-            label, server_filters, routing, server_stack)
+            label, server_filters, routing, server_stack,
+            clear_filter=ClearContextFilter)
 
         servers = [
             HttpServer(per_server_stack(s), s.ip, s.port,
@@ -1313,11 +1315,234 @@ class Linker:
                       interpreter=interpreter,
                       identifier=identifier)
 
-    @staticmethod
-    def _check_python_edge(rspec: RouterSpec, label: str) -> None:
-        """The reference's checks of a router on the Python data plane
-        (its ``_edge_resilience_filters``): the connection guard and the
-        sharded workers live in the native engine."""
+    def _mk_h2_router(self, rspec: RouterSpec, label: str) -> Router:
+        """h2 router on the Python data plane: stream-aware
+        stats/retries/classification (ref: router/h2 H2.scala:16-105 +
+        linkerd/protocol/h2 H2Config; linkerd_tpu/linker.py:777-1010).
+        A ``fastPath: true`` h2 router is refused before this is
+        reached (the h2 engine is not ported)."""
+        from linkerd_tpu_torch.protocol.h2.client import H2Client
+        from linkerd_tpu_torch.protocol.h2.server import H2Server
+        from linkerd_tpu_torch.router.h2_layer import (
+            H2ClassifiedRetries, H2ClassifierFilter, H2ClearContextFilter,
+            H2ErrorResponder, H2StreamStatsFilter,
+        )
+
+        base_dtab = Dtab.read(rspec.dtab) if rspec.dtab else Dtab.empty()
+        prefix = Path.read(rspec.dstPrefix)
+        # advertised SETTINGS for both sides (ref: H2Config.scala params);
+        # validated here so a bad value fails config load, not every
+        # connection at its SETTINGS exchange
+        if rspec.maxFrameBytes is not None and not (
+                16384 <= rspec.maxFrameBytes <= (1 << 24) - 1):
+            raise ConfigError(
+                f"{label}.maxFrameBytes must be in 16384..16777215 "
+                f"(RFC 7540 §6.5.2), got {rspec.maxFrameBytes}")
+        if rspec.initialStreamWindowBytes is not None and not (
+                0 < rspec.initialStreamWindowBytes <= (1 << 31) - 1):
+            raise ConfigError(
+                f"{label}.initialStreamWindowBytes must be in 1..2^31-1, "
+                f"got {rspec.initialStreamWindowBytes}")
+        if (rspec.maxHeaderListBytes is not None
+                and rspec.maxHeaderListBytes <= 0):
+            raise ConfigError(f"{label}.maxHeaderListBytes must be > 0")
+        if (rspec.maxConcurrentStreamsPerConnection is not None
+                and rspec.maxConcurrentStreamsPerConnection < 1):
+            raise ConfigError(
+                f"{label}.maxConcurrentStreamsPerConnection must be >= 1")
+        h2_settings = {k: v for k, v in {
+            "initial_window": rspec.initialStreamWindowBytes,
+            "max_frame": rspec.maxFrameBytes,
+            "max_header_list": rspec.maxHeaderListBytes,
+            "max_concurrent_streams":
+                rspec.maxConcurrentStreamsPerConnection,
+        }.items() if v is not None}
+        identifier = self._mk_identifier(
+            rspec, label, "h2identifier", "io.l5d.header.token",
+            prefix, base_dtab)
+        interpreter = self._mk_interpreter(rspec, label)
+        validate_svc = self._mk_svc_validator(label, "h2classifier")
+
+        def _client_has(raw, name: str) -> bool:
+            if not isinstance(raw, dict):
+                return False
+            if raw.get("kind") == "io.l5d.static":
+                return any(isinstance(c, dict) and name in c
+                           for c in (raw.get("configs") or []))
+            return name in raw
+
+        if _client_has(rspec.client, "requeueBudget"):
+            # a requeued h2 request would replay an already-consumed
+            # one-shot stream; the buffered-replay machinery lives in
+            # service retries (H2ClassifiedRetries)
+            raise ConfigError(
+                f"{label}: client.requeueBudget is not supported on h2 "
+                f"routers; use service retries (buffered replay)")
+        client_lookup = per_prefix_lookup(
+            rspec.client, ClientSpec, f"{label}.client",
+            self._mk_client_validator(label))
+        metrics = self.metrics
+        mk_policy_factory = self._mk_policy_factory_fn(label)
+
+        def client_factory(bound: BoundName) -> Service:
+            code = _status_code_of(bound)
+            if code is not None:
+                from linkerd_tpu_torch.protocol.h2.messages import H2Response
+                from linkerd_tpu_torch.protocol.h2.stream import stream_of
+
+                async def const_status(req, _c=code):
+                    return H2Response(status=_c, stream=stream_of(b""))
+
+                return FnService(const_status)
+            cid = bound.id_.show.lstrip("/").replace("/", ".") or "client"
+            cspec, cvars = client_lookup(bound.id_)
+            mk_policy = mk_policy_factory(cspec)
+            ep_wrap, extra_filters = self._client_stack_extras(
+                cspec, label, cid)
+            ssl_ctx = sni = None
+            if cspec.tls is not None:
+                sni = cspec.tls.server_hostname(cvars)
+                ssl_ctx = cspec.tls.mk_context(sni)
+
+            def endpoint_factory(addr: Address) -> Service:
+                client: Service = H2Client(
+                    addr.host, addr.port,
+                    connect_timeout=cspec.connectTimeoutMs / 1e3,
+                    ssl_context=ssl_ctx, server_hostname=sni,
+                    h2_settings=h2_settings)
+                return FailureAccrualService(ep_wrap(client),
+                                             mk_policy())
+
+            bal_kind = (cspec.loadBalancer or BalancerSpec()).kind
+            bal = self._mk_balancer(bal_kind, bound.addr,
+                                    endpoint_factory)
+            filters: List[Any] = [
+                H2StreamStatsFilter(metrics, "rt", label, "client", cid),
+                ClientDeadlineFilter()]
+            filters.extend(extra_filters)
+            if not isinstance(self.tracer, NullTracer):
+                # h2 carries l5d-ctx-trace as a plain header like http
+                filters.append(ClientTraceFilter(self.tracer, cid))
+            metrics.scope("rt", label, "client", cid).gauge(
+                "endpoints", fn=lambda b=bal: b.size)
+            return _PruneOnClose(
+                filters_to_service(filters, bal), metrics,
+                ("rt", label, "client", cid))
+
+        svc_lookup = per_prefix_lookup(
+            rspec.service, SvcSpec, f"{label}.service", validate_svc)
+        mk_backoffs = self._mk_backoffs
+
+        def path_filters(dst: DstPath, svc: Service) -> Service:
+            sspec, _ = svc_lookup(dst.path)
+            classifier_cfg = sspec.responseClassifier or {
+                "kind": "io.l5d.h2.nonRetryable5XX"}
+            classifier = instantiate(
+                "h2classifier", classifier_cfg,
+                f"{label}.responseClassifier").mk()
+            budget_spec = (
+                sspec.retries.budget if sspec.retries else None) or BudgetSpec()
+            budget = RetryBudget(
+                budget_spec.ttlSecs, budget_spec.minRetriesPerSec,
+                budget_spec.percentCanRetry)
+            name = dst.path.show.lstrip("/").replace("/", ".") or "root"
+            filters: List[Any] = [
+                # outermost: stamp l5d-success-class from the class the
+                # retries filter recorded for the returned stream
+                H2ClassifierFilter(),
+                H2StreamStatsFilter(metrics, "rt", label, "service", name)]
+            # deadline-aware total timeout (see the http twin)
+            filters.append(DeadlineFilter(
+                sspec.totalTimeoutMs / 1e3
+                if sspec.totalTimeoutMs is not None else None))
+            filters.append(H2ClassifiedRetries(
+                classifier, budget, mk_backoffs(sspec),
+                max_retries=(sspec.retries.maxRetries
+                             if sspec.retries else 25),
+                metrics=metrics, scope=("rt", label, "service", name),
+                rsp_hold_s=sspec.classificationTimeoutMs / 1e3))
+            return filters_to_service(filters, svc)
+
+        cache_cfg = rspec.bindingCache or {}
+        binding = DstBindingFactory(
+            interpreter, client_factory, path_filters=path_filters,
+            capacity=int(cache_cfg.get("capacity", 1000)),
+            idle_ttl=float(cache_cfg.get("idleTtlSecs", 600.0)),
+            bind_timeout=rspec.bindingTimeoutMs / 1e3)
+
+        routing = self._mk_routing(identifier, binding, base_dtab)
+        server_filters: List[Any] = [
+            StageTimerFilter(metrics, "rt", label),
+            H2StreamStatsFilter(metrics, "rt", label, "server"),
+        ]
+        if not isinstance(self.tracer, NullTracer):
+            server_filters.insert(
+                0, ServerTraceFilter(self.tracer, label, rspec.sampleRate))
+        for t in self.telemeters:
+            if hasattr(t, "recorder"):
+                server_filters.append(t.recorder())
+        server_filters.append(H2ErrorResponder())
+        # INSIDE the responder: DeadlineExceeded -> 504/DEADLINE_EXCEEDED,
+        # OverloadShed -> RST_STREAM REFUSED_STREAM
+        server_filters.extend(self._edge_resilience_filters(rspec, label))
+        server_stack = filters_to_service(server_filters, routing)
+
+        per_server_stack = self._per_server_stack_fn(
+            label, server_filters, routing, server_stack,
+            clear_filter=H2ClearContextFilter)
+
+        # stream sentinel on the Python h2 data plane: one shared
+        # governor/table per router, one frame observer per accepted
+        # connection. As in the reference, the observer gets no scorer:
+        # this sentinel only observes (it samples each stream's frame
+        # counters into its table and governor)
+        mk_observer = None
+        if rspec.streamScoring is not None:
+            ss = rspec.streamScoring
+            ss.validate(f"{label}.streamScoring")
+            import itertools
+
+            from linkerd_tpu_torch.streams import StreamSentinel
+            from linkerd_tpu_torch.streams.observer import H2FrameObserver
+            sentinel = StreamSentinel(
+                enter=ss.enter, exit=ss.exit, quorum=ss.quorum,
+                dwell_s=ss.dwellMs / 1000.0, table_cap=ss.tableCap,
+                action=ss.action)
+            skeys = itertools.count(1)
+            self.metrics.scope("rt", label, "streams").gauge(
+                "count", fn=lambda s=sentinel: float(len(s)))
+            self.stream_sentinels.append((label, sentinel))
+
+            def mk_observer(_ss=ss, _sent=sentinel, _sk=skeys):
+                return H2FrameObserver(
+                    _sent, next_skey=lambda: next(_sk),
+                    sample_every_frames=_ss.sampleEveryFrames,
+                    min_gap_ms=_ss.minGapMs, action=_ss.action,
+                    dst_path=rspec.dstPrefix)
+        servers = [
+            H2Server(per_server_stack(s), s.ip, s.port,
+                     max_concurrency=s.maxConcurrentRequests,
+                     ssl_context=(s.tls.mk_context() if s.tls else None),
+                     h2_settings=h2_settings,
+                     stream_observer_factory=mk_observer)
+            for s in (rspec.servers or [ServerSpec()])
+        ]
+        return Router(rspec, label, server_stack, binding, servers,
+                      interpreter=interpreter)
+
+    def _edge_resilience_filters(self, rspec: RouterSpec,
+                                 label: str) -> List[Any]:
+        """Server-edge resilience (http + h2): the deadline decode and
+        expired shed, then admission control. The raisers sit INSIDE the
+        protocol's error responder (appended AFTER it in the server
+        filters), where DeadlineExceeded maps to 504/DEADLINE_EXCEEDED
+        and OverloadShed to 503-retryable/REFUSED_STREAM. Single
+        instances, shared across the router's servers: the concurrency
+        bound is a router property. The reference's checks of a router
+        on the Python data plane come first: the connection guard and
+        the sharded workers live in the native engine. (The reference's
+        tenant tagging waits on ``tenantIdentifier``, refused by
+        name.)"""
         if rspec.connectionGuard is not None:
             raise ConfigError(
                 f"{label}: connectionGuard requires fastPath: true "
@@ -1334,6 +1559,25 @@ class Linker:
             log.warning(
                 "%s: workers is ignored on the Python data-plane "
                 "fallback (no native TLS runtime)", label)
+        filters: List[Any] = [ServerDeadlineFilter(
+            self.metrics.scope("rt", label, "server", "deadline"))]
+        ac = rspec.admissionControl
+        if ac is not None:
+            try:
+                admission = AdmissionControlFilter(
+                    ac.maxConcurrency, ac.maxPending,
+                    self.metrics.scope("rt", label, "server",
+                                       "admission"))
+            except ValueError as e:
+                raise ConfigError(
+                    f"{label}.admissionControl: {e}") from None
+            # the control loop modulates this bound from score trends +
+            # the drift monitor (shed earlier when trouble is coming)
+            ctl = self._anomaly_control()
+            if ctl is not None:
+                ctl.register_admission(admission)
+            filters.append(admission)
+        return filters
 
     def _anomaly_telemeter(self) -> Optional[JaxAnomalyTelemeter]:
         """The configured jaxAnomaly telemeter, or None."""

@@ -9,6 +9,14 @@ These functions are the plain versions the fused CUDA kernel
 (``ops/scoring.py``) is held against. They round where the reference
 rounds: each layer takes the float32 sum of ``compute_dtype`` products,
 rounds it to ``compute_dtype``, then adds the ``compute_dtype`` bias.
+With ``exact_sums`` the sum is taken in float64 and then rounded to
+float32: every bf16 or float32 product is exact in float64, and so is
+the sum of a layer's products unless their magnitudes span more than
+about 2^37, so the result is the correctly rounded float32 sum whatever
+the order. A float32 sum depends on its order (the XLA dot's, torch's
+GEMM's, the tensor cores'), and now and then a bf16 activation then
+tips to its neighbour; the kernel and its plain version both take exact
+sums and so agree activation for activation.
 ``loss_fn`` is the training objective; autograd carries its gradients
 through the casts to the float32 parameters, as JAX's ``astype`` does.
 """
@@ -92,17 +100,22 @@ def normalize_features(x: torch.Tensor, mu: torch.Tensor,
 
 
 def _dense(h: torch.Tensor, layer: Dict[str, torch.Tensor],
-           dt: torch.dtype) -> torch.Tensor:
-    # float32 sum of dt x dt products, rounded to dt, plus the dt bias
-    y = (h.float() @ layer["w"].to(dt).float()).to(dt)
+           dt: torch.dtype, exact_sums: bool = False) -> torch.Tensor:
+    # float32 sum of dt x dt products (float64 rounded to float32 with
+    # exact_sums), rounded to dt, plus the dt bias
+    w = layer["w"].to(dt)
+    if exact_sums:
+        y = (h.double() @ w.double()).float().to(dt)
+    else:
+        y = (h.float() @ w.float()).to(dt)
     return y + layer["b"].to(dt)
 
 
 def _mlp(layers, h: torch.Tensor, dt: torch.dtype,
-         final_act: bool) -> torch.Tensor:
+         final_act: bool, exact_sums: bool = False) -> torch.Tensor:
     n = len(layers)
     for i, layer in enumerate(layers):
-        h = _dense(h, layer, dt)
+        h = _dense(h, layer, dt, exact_sums)
         if final_act or i < n - 1:
             h = torch.relu(h)
     return h
@@ -110,23 +123,24 @@ def _mlp(layers, h: torch.Tensor, dt: torch.dtype,
 
 def apply_model(params: Params, x: torch.Tensor,
                 cfg: AnomalyModelConfig = AnomalyModelConfig(),
+                exact_sums: bool = False,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward pass -> ``(recon [B, D], z [B, Z], logits [B])``, float32."""
     dt = cfg.compute_dtype
     h = x.to(dt)
-    z = _mlp(params["enc"], h, dt, final_act=True)
-    recon = _mlp(params["dec"], z, dt, final_act=False)
-    logits = _mlp(params["cls"], z, dt, final_act=False)[..., 0]
+    z = _mlp(params["enc"], h, dt, True, exact_sums)
+    recon = _mlp(params["dec"], z, dt, False, exact_sums)
+    logits = _mlp(params["cls"], z, dt, False, exact_sums)[..., 0]
     return recon.float(), z.float(), logits.float()
 
 
 def anomaly_scores(params: Params, x: torch.Tensor,
                    cfg: AnomalyModelConfig = AnomalyModelConfig(),
-                   ) -> torch.Tensor:
+                   exact_sums: bool = False) -> torch.Tensor:
     """Blended anomaly score in [0, 1] per row: tanh-squashed
     reconstruction MSE (against the float32 input) blended with the
     classifier probability."""
-    recon, _, logits = apply_model(params, x, cfg)
+    recon, _, logits = apply_model(params, x, cfg, exact_sums)
     err = torch.mean(torch.square(recon - x.float()), dim=-1)
     return (cfg.recon_weight * torch.tanh(err)
             + (1.0 - cfg.recon_weight) * torch.sigmoid(logits))

@@ -12,9 +12,10 @@ Namerd of Servables) and namerd/main/.../Main.scala:10-55. YAML shape:
     admin: {port: 9991}
 
 The reference's other kinds are refused by name with the ROADMAP item
-that brings each (``UNPORTED_KINDS``): its mesh interface needs the h2
-server, its thrift interface the thrift codec, and its zk, etcd, consul
-and k8s stores (``namerd/stores.py``) their clients.
+that brings each (``UNPORTED_KINDS``): its mesh interface needs the mesh
+gRPC API (``mesh/``, ``namerd/mesh_iface.py``), its thrift interface the
+thrift codec, and its zk, etcd, consul and k8s stores
+(``namerd/stores.py``) their clients.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ DEFAULT_HTTP_CONTROL_PORT = 4180
 # analogue; ref: Linker.scala:64-75 SPI loading).
 import linkerd_tpu_torch.namer.fs  # noqa: E402,F401
 
-_MESH = "ROADMAP Queue 1 item 12 (h2/gRPC: the mesh interface's h2 server)"
+_MESH = ("ROADMAP Queue 1 item 17 (the mesh gRPC API: namerd's mesh "
+         "interface)")
 _THRIFT = ("ROADMAP Queue 1 items 12 and 15 (thrift, and namerd's thrift "
            "interface)")
 _STORES = "ROADMAP Queue 1 item 15 (namerd's remaining stores)"

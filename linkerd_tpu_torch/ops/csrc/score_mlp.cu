@@ -10,17 +10,27 @@
 //   logit  = classifier(z)                  ReLU except after the last
 //   score  = w * tanh(mean((recon - x32)^2)) + (1 - w) * sigmoid(logit)
 //
-// with the reference's rounding points: every layer takes the float32 sum
-// of bf16 x bf16 products, rounds it to bf16, adds the bf16 bias and
-// rounds again, then applies ReLU. The reconstruction error is the mean
+// with the reference's rounding points: every layer takes the sum of its
+// bf16 x bf16 products, rounds it to float32 and then to bf16, adds the
+// bf16 bias and rounds again, then applies ReLU. The sum is taken in
+// float64, where every product is exact and so is the sum of up to 256
+// of them unless their magnitudes span more than 2^37: the rounded sum
+// is the correctly rounded float32 sum, the same for any summation
+// order. A float32 sum, as the reference's MXU and any float32 GEMM take
+// it, depends on its order, and now and then a bf16 activation then tips
+// to its neighbour (a few in ten thousand); over eight layers a row's
+// score moved by up to 3e-3 between two orders. The plain version
+// (fused_anomaly_scores_plain) takes its sums in float64 too, so the two
+// agree activation for activation. The reconstruction error is the mean
 // over the in_dim live columns, taken against the float32 x32, never its
 // bf16 copy; tanh and the sigmoid run in float32.
 //
 // Bound on the H100 (default model 36-256-128-32 / 32-128-256-36 /
 // 32-128-1): 96,384 MACs = 192,768 FLOP per row, so 0.20 GFLOP at 1024
-// rows, about 0.2 us at the 989 TFLOP/s bf16 dense peak; the bytes are
-// 147 KB of x, 4 KB of scores and 195 KB of bf16 weights, about 0.1 us
-// at 3.35 TB/s. The kernel is bound by operations.
+// rows, about 0.2 us at the 989 TFLOP/s bf16 dense peak (3 us at the 67
+// TFLOP/s of the float64 tensor cores that this design uses); the bytes
+// are 147 KB of x, 4 KB of scores and 195 KB of bf16 weights, about 0.1
+// us at 3.35 TB/s. The kernel is bound by operations.
 //
 // Design. What limits a batch of this model is not the tensor cores'
 // rate but one block's chain of 8 dependent layers, each of which needs
@@ -28,51 +38,53 @@
 // So the design keeps that stream running ahead of the products and
 // keeps the products' own chain short:
 //
-// - Tensor cores: each layer is a [ROWS x K] . [K x N] product on
-//   mma.sync.m16n8k16 (bf16 operands, float32 accumulator), operands
-//   loaded from shared memory with ldmatrix. mma.sync and not wgmma:
-//   a block holds 16 rows and a layer at most 256 columns, while wgmma
-//   takes a 64-row tile per warpgroup, and mma.sync's documented fragment
-//   layout lets the epilogue round, add the bias and apply ReLU per
-//   element in registers.
+// - Tensor cores in float64: each layer is a [ROWS x K] . [K x N]
+//   product on mma.sync.m8n8k4.f64 (DMMA), one A and one B element a
+//   lane, each a bf16 from shared memory widened to double, and two
+//   float64 sums a lane. mma.sync's documented fragment layout lets the
+//   epilogue round, add the bias and apply ReLU per element in
+//   registers. The bf16 tensor cores (mma.sync.m16n8k16) sum in
+//   float32 in their own order, which no plain version can repeat.
 // - Weights staged asynchronously by a producer warp: pack_params
 //   (ops/scoring.py) lays the model out once as one bf16 buffer: the
 //   biases, then each layer's W zero-padded to [kpad][wstride] (K to a
 //   multiple of 16, N to a multiple of 8, the row stride an odd number
-//   of 16-byte units so ldmatrix.trans is free of bank conflicts), in
-//   execution order (encoder, classifier, decoder). One lane of a ninth
-//   warp streams it through a ring of STAGES shared-memory stages, one
-//   TMA bulk copy (cp.async.bulk) per stage, each stage one layer's
-//   K-chunk of as many 16-row steps as fit; "full" mbarriers count the
-//   bytes in and "empty" mbarriers the consumer warps out, so the stream
-//   runs up to STAGES chunks ahead, across layer boundaries. A ring and
-//   not all weights resident: pack_params accepts 16 layers of width
-//   256, far more than 227 KB. The x tile, mu and var come in by
-//   cp.async (LDGSTS) while the first chunks stream.
-// - Row tiles that share the staged weights: a block owns ROWS = 16 rows
-//   and eight consumer warps; warp w owns the n8 tiles w, w + 8, w + 16,
-//   w + 24 of each layer, with its tile count a template argument (no
-//   predicated ldmatrix or mma), the next k-step's operands loading
-//   while this one multiplies, and two accumulator sets where it owns
-//   one tile. 16, 32 and 64 rows a block were timed on the H100
-//   (chip_smoke.py --sweep; PERF.md): 16 is fastest from 1 to 1024 rows
-//   and still fits two blocks on an SM for 4096.
+//   of 16-byte units so that the four K rows of a k4 step fall in four
+//   distinct groups of banks), in execution order (encoder, classifier,
+//   decoder). One lane of a ninth warp streams it through a ring of
+//   STAGES shared-memory stages, one TMA bulk copy (cp.async.bulk) per
+//   stage, each stage one layer's K-chunk of as many 16-row steps as
+//   fit; "full" mbarriers count the bytes in and "empty" mbarriers the
+//   consumer warps out, so the stream runs up to STAGES chunks ahead,
+//   across layer boundaries. A ring and not all weights resident:
+//   pack_params accepts 16 layers of width 256, far more than 227 KB.
+//   The x tile, mu and var come in by cp.async (LDGSTS) while the first
+//   chunks stream.
+// - Row tiles that share the staged weights: a block owns ROWS = 8 rows
+//   (one m8 tile) and eight consumer warps; warp w owns the n8 tiles w,
+//   w + 8, w + 16, w + 24 of each layer, with its tile count a template
+//   argument (no predicated load or mma), and two sums where it owns
+//   one tile (the even and the odd k4 steps), so that its chain of
+//   dependent mma halves. 8, 16, 32 and 64 rows a block were timed on
+//   the H100 (chip_smoke.py --sweep; PERF.md): 8 is fastest up to the
+//   1024 rows of a serving batch (128 blocks fill the 132 SMs), 16 at
+//   4096.
 // - Activations stay in shared memory, three bf16 [ROWS][AST] buffers
 //   (the bottleneck z stays put while the classifier and then the
-//   decoder ping-pong through the other two); AST = 264 keeps ldmatrix
-//   free of bank conflicts. Padded weights and biases are zero, so a
-//   padded output column is bf16(bf16(0) + 0) = 0 and padded K adds
-//   nothing: the result is the unpadded model's. The epilogue also
-//   zeroes the columns up to the next layer's 16-padded K. One named
-//   barrier of the consumer warps per layer publishes its output.
+//   decoder ping-pong through the other two); AST = 264 puts the eight
+//   rows of an A fragment in distinct banks. Padded weights and biases
+//   are zero, so a padded output column is bf16(bf16(0) + 0) = 0 and
+//   padded K adds nothing: the result is the unpadded model's. The
+//   epilogue also zeroes the columns up to the next layer's 16-padded K.
+//   One named barrier of the consumer warps per layer publishes its
+//   output.
 // - The reconstruction error is taken over the in_dim live columns
 //   against the float32 x tile kept in shared memory.
 // - Ragged batches are masked, never padded: rows >= n load as zero and
 //   are not stored.
 //
-// Built without --use_fast_math. Only the summation order inside a layer
-// differs from the plain version (as it does between any two GEMMs).
-// Registers, shared memory and spills from -Xptxas -v are in PERF.md.
+// Built without --use_fast_math. Registers, shared memory and spills
+// from -Xptxas -v are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,8 +94,8 @@
 
 namespace {
 
-constexpr int ROWS = 16;         // rows per block
-constexpr int MT = ROWS / 16;    // m16 row tiles per block
+constexpr int ROWS = 8;         // rows per block
+constexpr int MT = ROWS / 8;     // m8 row tiles per block
 constexpr int WARPS = 8;         // consumer warps: the products
 constexpr int THREADS = (WARPS + 1) * 32;  // and one producer warp
 constexpr int MAXW = 256;        // widest layer (and in_dim) accepted
@@ -105,7 +117,7 @@ constexpr int SMEM_FIXED = (3 * ROWS * AST + STAGES * STAGE + MAX_BIAS) * 2 +
                            (2 * MAXW + ROWS) * 4 + 2 * STAGES * 8;
 constexpr int SMEM_MAX = SMEM_FIXED + ROWS * MAXW * 4;
 
-static_assert(ROWS % 16 == 0 && ROWS % WARPS == 0, "whole m16 tiles");
+static_assert(ROWS % 8 == 0 && ROWS % WARPS == 0, "whole m8 tiles");
 static_assert(16 * (MAXW + 8) <= STAGE, "a 16-row chunk fits a stage");
 static_assert(STAGES >= 2 && SMEM_MAX <= SMEM_LIMIT, "fits one SM");
 
@@ -127,8 +139,13 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// a layer's output element from its float32 sum and bf16 bias
-__device__ __forceinline__ float finish(float acc, float b, bool relu) {
+// to float32 (nearest even), then to bf16
+__device__ __forceinline__ float round_bf16(double v) {
+  return round_bf16(__double2float_rn(v));
+}
+
+// a layer's output element from its float64 sum and bf16 bias
+__device__ __forceinline__ float finish(double acc, float b, bool relu) {
   const float h = round_bf16(round_bf16(acc) + b);
   return relu ? fmaxf(h, 0.f) : h;
 }
@@ -216,71 +233,52 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// A fragment of a 16x16 tile of a row-major bf16 matrix
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// B fragment of a 16x8 tile of a row-major [k][n] bf16 matrix
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
-                                                  const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float lo, float hi) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
 }
 
-// the operands of one 16-deep k-step: A for every row tile, B for
-// every n8 tile the warp owns
-template <int TILES>
-struct Frag {
-  uint32_t a[MT][4], b[TILES > 0 ? TILES : 1][2];
-};
-
-template <int TILES>
-__device__ __forceinline__ void load_frag(Frag<TILES>& f,
-                                          const __nv_bfloat16* a,
-                                          const __nv_bfloat16* b) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i) ldmatrix_x4(f.a[i], a + i * 16 * AST);
-#pragma unroll
-  for (int j = 0; j < TILES; ++j) ldmatrix_x2_trans(f.b[j], b + j * WARPS * 8);
+// d += a . b on the float64 tensor cores: an 8x4 row-major A and a 4x8
+// column-major B, one element of each a lane (A at row lane / 4, column
+// lane % 4; B at row lane % 4, column lane / 4), and an 8x8 D, two
+// elements a lane (row lane / 4, columns 2 * (lane % 4) and the next)
+__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
 }
 
-// accumulator sets: a warp with one n8 tile keeps two, for the even and
-// the odd k-steps, so that its chain of dependent mma halves
+__device__ __forceinline__ double widen(const __nv_bfloat16* p) {
+  return (double)__bfloat162float(*p);
+}
+
+// sums a warp keeps: with one n8 tile two, for the even and the odd k4
+// steps, so that its chain of dependent mma halves
 template <int TILES>
 constexpr int ACC_SETS = TILES == 1 ? 2 : (TILES > 0 ? TILES : 1);
 
+// one k4 step: the A elements of every row tile (`a` at the lane's row
+// and depth), the B elements of every n8 tile the warp owns (`b` at the
+// lane's depth and column of its first tile), into sum set `odd` when
+// the warp owns one tile
 template <int TILES>
-__device__ __forceinline__ void mma_frag(float (&acc)[ACC_SETS<TILES>][MT][4],
-                                         const Frag<TILES>& f, int odd) {
+__device__ __forceinline__ void k4_step(double (&acc)[ACC_SETS<TILES>][MT][2],
+                                        const __nv_bfloat16* a,
+                                        const __nv_bfloat16* b, int odd) {
+  double fa[MT], fb[TILES > 0 ? TILES : 1];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) fa[i] = widen(a + i * 8 * AST);
+#pragma unroll
+  for (int j = 0; j < TILES; ++j) fb[j] = widen(b + j * WARPS * 8);
 #pragma unroll
   for (int j = 0; j < TILES; ++j)
 #pragma unroll
     for (int i = 0; i < MT; ++i)
-      mma_bf16(acc[TILES == 1 ? odd : j][i], f.a[i], f.b[j]);
+      dmma(acc[TILES == 1 ? odd : j][i], fa[i], fb[j]);
 }
 
 // One warp's share of a layer: its n8 tiles warp, warp + WARPS, ...
-// (TILES of them, fixed at compile time so no ldmatrix or mma is
+// (TILES of them, fixed at compile time so no load or mma is
 // predicated). Consumes the layer's chunks from the ring, releasing each
 // stage as it goes, then writes the layer's output buffer.
 template <int TILES>
@@ -291,48 +289,44 @@ __device__ __forceinline__ void run_layer(
   const int kpad = L.kpad, npad = L.npad, wstride = L.wstride;
   const int flags = L.flags;
   const int kc = chunk_rows(kpad, wstride);
-  float acc[ACC_SETS<TILES>][MT][4];
+  double acc[ACC_SETS<TILES>][MT][2];
 #pragma unroll
   for (int j = 0; j < ACC_SETS<TILES>; ++j)
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][i][e] = 0.f;
+    for (int i = 0; i < MT; ++i) acc[j][i][0] = acc[j][i][1] = 0.0;
 
+  // the lane's A element: row lane / 4, depth lane % 4; its B element:
+  // depth lane % 4, column lane / 4 of the warp's first n8 tile
   const __nv_bfloat16* a_lane =
-      s_act + L.in * ROWS * AST + (lane & 15) * AST + (lane >> 4) * 8;
-  const int b_lane = (lane & 15) * wstride + warp * 8;
+      s_act + L.in * ROWS * AST + (lane >> 2) * AST + (lane & 3);
+  const int b_lane = (lane & 3) * wstride + warp * 8 + (lane >> 2);
   for (int k0 = 0; k0 < kpad; k0 += kc, ++g) {
     const int stage = g % STAGES;
     mbar_wait(&s_full[stage], (g / STAGES) & 1);
     if (TILES > 0) {
-      // two k-steps in flight: the next step's operands load while
-      // this step's products run
       const __nv_bfloat16* a = a_lane + k0;
       const __nv_bfloat16* b = s_ring + stage * STAGE + b_lane;
       const int steps = min(kc, kpad - k0) / 16;
-      Frag<TILES> f0, f1;
-      load_frag(f0, a, b);
-      int s = 0;
-      for (; s + 2 <= steps; s += 2) {
-        load_frag(f1, a + (s + 1) * 16, b + (s + 1) * 16 * wstride);
-        mma_frag<TILES>(acc, f0, 0);
-        if (s + 2 < steps)
-          load_frag(f0, a + (s + 2) * 16, b + (s + 2) * 16 * wstride);
-        mma_frag<TILES>(acc, f1, 1);
+      for (int s = 0; s < steps; ++s) {
+        // a 16-deep step as four k4 steps, unrolled so that the next
+        // step's loads issue while this step's products run
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          k4_step<TILES>(acc, a + s * 16 + q * 4,
+                         b + (s * 16 + q * 4) * wstride, q & 1);
       }
-      if (s < steps) mma_frag<TILES>(acc, f0, 0);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&s_empty[stage]);  // release the stage
   }
   if (TILES == 1)
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[0][i][e] += acc[1][i][e];
+    for (int i = 0; i < MT; ++i) {
+      acc[0][i][0] += acc[1][i][0];
+      acc[0][i][1] += acc[1][i][1];
+    }
 
-  // epilogue on the C fragments: rows lane / 4 (+ 8), columns
+  // epilogue on the D fragments: row lane / 4 of each m8 tile, columns
   // 2 * (lane % 4) (+ 1) of each n8 tile
   __nv_bfloat16* o = s_act + L.out * ROWS * AST;
   const __nv_bfloat16* bias = s_bias + L.b_off;
@@ -345,15 +339,10 @@ __device__ __forceinline__ void run_layer(
     const float b0 = __low2float(bb), b1 = __high2float(bb);
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-      const int r = i * 16 + (lane >> 2);
+      const int r = i * 8 + (lane >> 2);
       const float h0 = finish(acc[j][i][0], b0, relu);
-      const float h2 = finish(acc[j][i][2], b0, relu);
       store2(o + r * AST + col, h0, finish(acc[j][i][1], b1, relu));
-      store2(o + (r + 8) * AST + col, h2, finish(acc[j][i][3], b1, relu));
-      if ((flags & LOGIT) && col == 0) {
-        s_logit[r] = h0;
-        s_logit[r + 8] = h2;
-      }
+      if ((flags & LOGIT) && col == 0) s_logit[r] = h0;
     }
   }
   // the n8 tile past npad, when npad is an odd number of them: zero, as
@@ -362,11 +351,8 @@ __device__ __forceinline__ void run_layer(
   if (TILES < NT_PER_WARP && nt * 8 < (npad + 15) / 16 * 16) {
     const int col = nt * 8 + 2 * (lane & 3);
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int r = i * 16 + (lane >> 2);
-      store2(o + r * AST + col, 0.f, 0.f);
-      store2(o + (r + 8) * AST + col, 0.f, 0.f);
-    }
+    for (int i = 0; i < MT; ++i)
+      store2(o + (i * 8 + (lane >> 2)) * AST + col, 0.f, 0.f);
   }
 }
 

@@ -31,7 +31,7 @@ _GROUPS = ("enc", "dec", "cls")
 # mirrors of csrc/score_mlp.cu (tests/test_torch_ops.py holds them equal)
 MAX_WIDTH = 256   # MAXW: widest layer and in_dim
 MAX_LAYERS = 16   # MAX_LAYERS
-ROWS_PER_BLOCK = 16  # ROWS: rows a block owns
+ROWS_PER_BLOCK = 8  # ROWS: rows a block owns
 RELU, LOGIT = 1, 2  # layer flags
 
 
@@ -72,8 +72,8 @@ class PackedLayer(NamedTuple):
 
 
 def _weight_stride(npad: int) -> int:
-    """An odd number of 16-byte units, so that ldmatrix's eight rows of
-    a weight tile fall in eight distinct bank groups."""
+    """An odd number of 16-byte units, so that the four rows of a
+    weight tile that a k4 step reads fall in four distinct bank groups."""
     return npad if (npad // 8) % 2 else npad + 8
 
 
@@ -201,10 +201,11 @@ def fused_anomaly_scores_plain(params: Params, x: torch.Tensor,
                                mu: Optional[torch.Tensor] = None,
                                var: Optional[torch.Tensor] = None,
                                ) -> torch.Tensor:
-    """``x`` [n, D] -> scores [n], plain PyTorch (the kernel's reference)."""
+    """``x`` [n, D] -> scores [n], plain PyTorch (the kernel's reference),
+    with the kernel's exact layer sums (``models.anomaly``)."""
     if mu is not None:
         x = normalize_features(x, mu, var)
-    return anomaly_scores(params, x, cfg)
+    return anomaly_scores(params, x, cfg, exact_sums=True)
 
 
 def _check_vec(name: str, t: torch.Tensor, size: int,

@@ -165,6 +165,23 @@ async def _read_body(reader: asyncio.StreamReader, framing: Tuple[str, int],
             raise HttpCodecError("bad chunk terminator")
 
 
+def _parse_head_bytes(head: bytes) -> Tuple[str, str, str, Headers]:
+    """Pure-Python head parsing over an in-memory block; same rules as
+    the streaming path via the shared line parsers."""
+    lines = head.split(b"\r\n")
+    # head ends with CRLFCRLF -> two trailing empties
+    while lines and not lines[-1]:
+        lines.pop()
+    if not lines:
+        raise HttpCodecError("empty request head")
+    method, uri, version = _parse_request_line(lines[0])
+    headers = Headers()
+    total = 0
+    for line in lines[1:]:
+        total = _parse_header_line(line, headers, total)
+    return method, uri, version, headers
+
+
 async def read_request(reader: asyncio.StreamReader,
                        max_body: int = MAX_BODY) -> Request:
     """Read one request; raises EOFError on clean close before a request.

@@ -51,6 +51,15 @@ COPIES = (
     # (observer.py, the h2 frame observer, comes whole with the package)
     "streams/__init__.py", "streams/tracker.py", "streams/sentinel.py",
     "streams/observer.py",
+    # the h2 router and the gRPC runtime
+    "protocol/h2/__init__.py", "protocol/h2/frames.py",
+    "protocol/h2/stream.py", "protocol/h2/messages.py",
+    "protocol/h2/connection.py", "protocol/h2/client.py",
+    "protocol/h2/server.py", "protocol/h2/identifiers.py",
+    "protocol/h2/classifiers.py", "router/h2_layer.py",
+    "grpc/__init__.py", "grpc/proto.py", "grpc/codec.py",
+    "grpc/status.py", "grpc/stream.py", "grpc/dispatch.py",
+    "grpc/var_event.py",
 )
 
 # Modules that differ on purpose: reason, and the top-level names that
@@ -60,7 +69,12 @@ DIFFERENT = {
     "protocol/http/codec.py": (
         "the reference's native C head parser is not bound: the port "
         "keeps the pure-Python parser only (ROADMAP Queue 1 item 4)",
-        {"_native", "_parse_head_bytes", "read_request"}),
+        {"_native", "read_request"}),
+    "protocol/h2/hpack.py": (
+        "the reference's native Huffman coder is not bound: the port "
+        "codes Huffman strings with the reference's own table and "
+        "pure-Python path only",
+        {"_native", "huffman_decode", "huffman_encode"}),
     "config/parser.py": (
         "PyYAML is imported on the first non-JSON config, not at load, "
         "so a host without it still takes JSON configs; a by-name "
@@ -86,7 +100,7 @@ DIFFERENT = {
     "namerd/config.py": (
         "the in-memory and fs stores and the HTTP control interface; "
         "the mesh and thrift interfaces and namerd/stores.py's kinds "
-        "are refused by name (ROADMAP Queue 1 items 12 and 15)", None),
+        "are refused by name (ROADMAP Queue 1 items 17, 12 and 15)", None),
     "namerd/__main__.py": (
         "runs the port's namerd/config.py, which refuses the mesh and "
         "thrift interfaces and the remote stores by name; its logger "
@@ -105,7 +119,7 @@ DIFFERENT = {
         "pure-Python fallback (a failed build raises); FastPathEngine "
         "drives the HTTP/1.1 engine with sharded workers, native TLS, the "
         "connection guard and the stream sentinel, without tenants "
-        "(ROADMAP Queue 1 item 10); no h2 engine (item 12), head parser, "
+        "(ROADMAP Queue 1 item 10); no h2 engine (item 4), head parser, "
         "Huffman or test-blob bindings; the scorer calls and stream_accum "
         "raise instead of returning None",
         {"FastPathEngine", "H2FastPathEngine", "MAX_HEADERS", "ScoreSlab",
@@ -131,16 +145,16 @@ DIFFERENT = {
          "REFUSED_KEYS"}),
     "interpreter/__init__.py": (
         "exports the namerd HTTP interpreter; the mesh interpreter is "
-        "not ported (ROADMAP Queue 1 item 13)",
+        "not ported (ROADMAP Queue 1 item 17)",
         {"MeshClientInterpreter", "NamerdHttpInterpreter", "__all__"}),
     "interpreter/mesh.py": (
         "partial: Backoff alone, which the namerd HTTP interpreter "
         "imports; MeshClientInterpreter is not ported (ROADMAP Queue 1 "
-        "item 13)", None),
+        "item 17)", None),
     "interpreter/configs.py": (
         "the default and io.l5d.namerd.http kinds; the mesh, thrift "
         "namerd, fs and configMap kinds are refused by the linker "
-        "(ROADMAP Queue 1 item 13)",
+        "(ROADMAP Queue 1 items 17 and 13)",
         {"MeshClientInterpreter", "MeshInterpreterConfig",
          "NamerdThriftInterpreterConfig", "Optional", "linkerd_tpu"}),
     "router/fastpath.py": (

@@ -356,6 +356,8 @@ REFUSALS = {
         BASE + {"namer": f"namers:\n- kind: {k}\n",
                 "telemeter": f"telemetry:\n- kind: {k}\n"}[cat]
         if cat in ("namer", "telemeter") else
+        f"routers:\n- protocol: h2\n  identifier: {{kind: {k}}}\n"
+        if cat == "h2identifier" else
         f"routers:\n- protocol: http\n  {cat}: {{kind: {k}}}\n",
         repr(k))
        for cat, kinds in UNPORTED_KINDS.items() for k in kinds},
@@ -367,12 +369,13 @@ REFUSALS = {
 
 
 # Cases this test refused by name until the port took their keys (the
-# native engine's workers, TLS, connectionGuard and streamScoring): each
-# now does what the reference's linker does with the same text, loading
-# or failing with the same message.
+# native engine's workers, TLS, connectionGuard and streamScoring, and
+# the h2 router): each now does what the reference's linker does with the
+# same text, loading or failing with the same message.
 FP = "routers:\n- protocol: http\n  fastPath: true\n"
 FP0 = FP + "  servers: [{port: 0}]\n"
 PORTED = {
+    "protocol h2": "routers:\n- protocol: h2\n",
     "router key connectionGuard":
         "routers:\n- protocol: http\n  connectionGuard: {}\n",
     "router key streamScoring":

@@ -129,6 +129,44 @@ class TestForward:
         assert ((got >= 0) & (got <= 1)).all()
 
 
+def permuted_hidden(tp, seed):
+    """The same model with the first layer's outputs (and so the second
+    layer's products) in another order."""
+    perm = torch.tensor(np.random.default_rng(seed).permutation(
+        tp["enc"][0]["w"].shape[1]))
+    tq = {g: [dict(layer) for layer in tp[g]] for g in tp}
+    tq["enc"][0] = {"w": tp["enc"][0]["w"][:, perm],
+                    "b": tp["enc"][0]["b"][perm]}
+    tq["enc"][1] = {"w": tp["enc"][1]["w"][perm], "b": tp["enc"][1]["b"]}
+    return tq
+
+
+@pytest.mark.parametrize("size", ["small", "default"])
+def test_exact_sums_ignore_the_summation_order(size):
+    """With ``exact_sums`` a layer's sum is the correctly rounded float32
+    sum of its products, whatever their order (as the CUDA kernel takes
+    it on its float64 tensor cores): the second layer's products taken
+    in another order change no bit of a float32-compute bottleneck,
+    where float32 sums move many; and in bf16 the exact scores stay
+    within the bf16 bounds of the reference's float32 sums."""
+    _, t32 = configs(size, "float32")
+    jcfg, tcfg = configs(size, "bfloat16")
+    jp, tp = carried_params(jcfg, seed=6)
+    tq = permuted_hidden(tp, seed=8)
+    x, mu, var = inputs(7, n=512)
+    xn = np.asarray(jax_model.normalize_features(x, mu, var))
+    xt = torch.tensor(xn)
+    moved = {}
+    for exact in (False, True):
+        _, z, _ = torch_model.apply_model(tp, xt, t32, exact_sums=exact)
+        _, zq, _ = torch_model.apply_model(tq, xt, t32, exact_sums=exact)
+        moved[exact] = int((z != zq).sum())
+    assert moved[True] == 0 and moved[False] > 0, moved
+    ref = np.asarray(jax_model.anomaly_scores(jp, xn, jcfg))
+    got = torch_model.anomaly_scores(tp, xt, tcfg, exact_sums=True).numpy()
+    assert_bf16_scores_close(got, ref)
+
+
 @pytest.mark.parametrize("size", ["small", "default"])
 def test_f32_compute_fails_the_bf16_bound(size):
     """The bf16 bound sees the compute dtype: the port computing in

@@ -435,7 +435,32 @@ CONFIG_ERRORS = {
         {"port": 0, "tls": {"certPath": "a.pem", "keyPath": "a.key"}},
         {"port": 0, "tls": {"certPath": "b.pem", "keyPath": "b.key"}}]},
     "client tls commonName": {"client": {"tls": {"commonName": "x"}}},
+    "workers on an h2 router": {"protocol": "h2", "fastPath": False,
+                                "workers": 4},
 }
+
+
+# Cases refused by name until the port took them: each is now served,
+# and loads to what the reference's linker builds from the same text.
+NOW_SERVED = {
+    "protocol h2": {"protocol": "h2", "fastPath": False},
+}
+
+
+@pytest.mark.parametrize("case", sorted(NOW_SERVED))
+def test_now_served(case, tmp_path):
+    text = fp_text(tmp_path, **NOW_SERVED[case])
+    got = load_linker(text, device="cpu")
+    want = ref_load_linker(text)
+    try:
+        assert [type(s).__name__ for s in got.routers[0].servers] == \
+            [type(s).__name__ for s in want.routers[0].servers] == \
+            ["H2Server"]
+        assert sorted(got.metrics.flatten()) == \
+            sorted(want.metrics.flatten())
+    finally:
+        run(got.close())
+        run(want.close())
 
 
 @pytest.mark.parametrize("case", sorted(CONFIG_ERRORS))
@@ -450,11 +475,10 @@ def test_config_errors_word_for_word(case, engine_lib, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["tenants", "tenantIdentifier",
-                                  "protocol h2", "fastPath on h2"])
+                                  "fastPath on h2"])
 def test_still_refused_by_name(case, engine_lib, tmp_path):
     router = {"tenants": {"tenants": {}},
               "tenantIdentifier": {"tenantIdentifier": {"kind": "header"}},
-              "protocol h2": {"protocol": "h2", "fastPath": False},
               "fastPath on h2": {"protocol": "h2"}}[case]
     with pytest.raises(ConfigError) as e:
         load_linker(fp_text(tmp_path, workers=4, **router), device="cpu")
