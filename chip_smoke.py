@@ -10,6 +10,7 @@
     python3 chip_smoke.py --check fastpath_d # its part D alone
     python3 chip_smoke.py --check control    # the control phase alone
     python3 chip_smoke.py --check h2         # the h2 phase alone
+    python3 chip_smoke.py --check h2fast     # the h2fast phase alone
     python3 chip_smoke.py --mutant one_rounding telemeter  # one mutant, one check
     python3 chip_smoke.py --witness  # the kernel's sums against exact ones
     python3 chip_smoke.py --repeat-control-a 16  # control part A, 16 times
@@ -100,23 +101,43 @@ not), part C with no telemetry block, part D: server-streaming calls
 through ``streamScoring`` (observe), whose sentinel's samples are what
 the client's frames predict, and part E: the router served by
 ``python -m linkerd_tpu_torch`` on the card, every call answered,
-counted and scored in that process. Prints the card, a JSON line of kernel and
+counted and scored in that process. Then the h2fast phase: BASELINE
+config 2 (an h2 router with ``fastPath: true`` and io.l5d.prometheus)
+served by the port's native h2 engine on the h2 phase's topology: part
+A with the io.l5d.jaxAnomaly telemeter at ``nativeTier: off`` (every
+calm call answered by its destination, the injected UNAVAILABLE passed
+through, every engine row scored under its call's destination, one
+launch a batch, the faulted calls' kernel scores and the board against
+plain under a frozen traffic-fitted model, the prometheus scrape's
+route counters equal to the calls), the same router without the
+telemeter, and ``h2bench load`` readings through the engine with 1 and
+4 workers and straight to ``h2bench serve``; part B, the engine's
+options (4 workers whose merged stats are their sum, native TLS with
+ALPN h2, rapid-reset clients closed by ``connectionGuard``'s flood
+caps, ``streamScoring`` samples of server-streaming calls as their
+frames predict in the ring and the sentinel, a hung backend answered
+504 within ``timeoutMs``); part C, the router bound through the port's
+namerd CLI over the io.l5d.mesh API (a dtab write moving one
+destination to other replicas, namerd stopped and started again, every
+call answered as the dtab of the moment says and every row scored).
+Prints the card, a JSON line of kernel and
 service numbers, one of the train phase's, one of the distill
 phase's, one of the telemeter phase's, one of the linker phase's, one
 of the fastpath phase's, one of the control phase's, one of the cli
-phase's, one of the h2 phase's, and as its last line
+phase's, one of the h2 phase's, one of the h2fast phase's, and as its
+last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; with no CUDA device, or
 outside the repository, it exits non-zero before printing any result.
 Imports nothing of JAX.
 
 ``--mutants`` builds deliberately broken copies of the kernel in a
 temporary copy of the port and runs the kernel and served checks
-against each, and the linker, fastpath, control, cli and h2 phases
-against ``LINKER_MUTANT``, the cli phase against ``CLI_MUTANTS``, part D
+against each, and the linker, fastpath, control, cli, h2 and h2fast
+phases against ``LINKER_MUTANT``, the cli phase against ``CLI_MUTANTS``, part D
 against ``FASTPATH_MUTANTS`` (the sharded engine's stats merge and
-feature drain reading worker 0 alone) and the h2 phase against
-``H2_MUTANTS``, in a fresh interpreter; it fails unless every check
-fails on its mutant.
+feature drain reading worker 0 alone), the h2 phase against
+``H2_MUTANTS`` and the h2fast phase against ``H2FAST_MUTANTS``, in a
+fresh interpreter; it fails unless every check fails on its mutant.
 
 ``--witness`` runs the linker phase's part A and, on its window rows,
 holds the kernel and the plain version against an exact forward
@@ -3402,7 +3423,9 @@ async def raw_answer(port: int, host: str, cafile=None) -> bytes:
         w.close()
 
 
-def shard_worker_checks(stats: dict, flat: dict) -> dict:
+def shard_worker_checks(stats: dict, flat: dict, label: str = SHARD_LABEL,
+                        n_workers: int = SHARD_WORKERS,
+                        what: str = "shard D") -> dict:
     """Every worker accepted connections and the merged view equals the
     sum of the workers; ``rt/<label>/fastpath/worker/<i>/*`` exported
     for each."""
@@ -3411,22 +3434,22 @@ def shard_worker_checks(stats: dict, flat: dict) -> dict:
     requests = [sum(int(r["requests"]) for r in w["routes"].values())
                 for w in workers]
     merged = sum(int(r["requests"]) for r in stats["routes"].values())
-    if len(workers) != SHARD_WORKERS or min(accepted) <= 0:
-        raise AssertionError(f"shard D: workers accepted {accepted}")
+    if len(workers) != n_workers or min(accepted) <= 0:
+        raise AssertionError(f"{what}: workers accepted {accepted}")
     if stats["accepted"] != sum(accepted) or merged != sum(requests):
         raise AssertionError(
-            f"shard D: merged accepted {stats['accepted']}, requests "
+            f"{what}: merged accepted {stats['accepted']}, requests "
             f"{merged}; the workers' {accepted}, {requests}")
     for host, r in stats["routes"].items():
         parts = sum(int(w["routes"].get(host, {}).get("requests", 0))
                     for w in workers)
         if int(r["requests"]) != parts or sum(r["hist"]) != parts:
-            raise AssertionError(f"shard D: route {host} merged {r} vs "
+            raise AssertionError(f"{what}: route {host} merged {r} vs "
                                  f"the workers' {parts}")
-    exported = [flat.get(f"rt/{SHARD_LABEL}/fastpath/worker/{i}/accepted")
-                for i in range(SHARD_WORKERS)]
+    exported = [flat.get(f"rt/{label}/fastpath/worker/{i}/accepted")
+                for i in range(n_workers)]
     if exported != accepted:
-        raise AssertionError(f"shard D: exported worker/<i>/accepted "
+        raise AssertionError(f"{what}: exported worker/<i>/accepted "
                              f"{exported} vs {accepted}")
     return {"accepted": accepted, "requests": requests,
             "merged_requests": merged}
@@ -5337,7 +5360,8 @@ def h2_call_checks(res: dict, what: str, faults_on: bool) -> dict:
            "calm_p99_ms": float(np.percentile(res["ms"][calm], 99)),
            "unavailable": int((res["status"] == 14).sum()),
            "by_server": {name: stats(res["server"] == i)
-                         for i, name in enumerate(H2_SERVERS)}}
+                         for i, name in enumerate(H2_SERVERS)}
+           if "server" in res else {}}
     return out
 
 
@@ -5850,6 +5874,883 @@ async def h2_phase(seed: int = 12, dev: str = "cuda",
     return res, launches
 
 
+# The h2fast phase: BASELINE config 2 (benchmarks/config2_grpc.py: an h2
+# router with ``fastPath: true`` and io.l5d.prometheus) served by the
+# port's native h2 engine (native/h2_fastpath.cpp through
+# ``native.H2FastPathEngine``), over the h2 phase's topology: 40 × 2 gRPC
+# backends of the port's runtime in 2 processes (4 faulted: 40 ms, then
+# UNAVAILABLE as a Trailers-Only ``:status 503`` at 0.9) and 8 h2
+# connections × 16 streams from 2 load processes. Part A: the router
+# with io.l5d.jaxAnomaly at ``nativeTier: off`` (every engine row
+# drained into the telemeter's native ring and scored by the kernel);
+# the same router with no telemeter, then saturation readings by
+# ``h2bench load`` through the engine (1 and 4 workers) and straight to
+# ``h2bench serve``. Part B: the engine's options: ``workers: 4``, a
+# cleartext and a native-TLS server (ALPN h2), ``connectionGuard``'s
+# flood caps against rapid-reset clients, ``streamScoring`` on
+# server-streaming calls, a server ``timeoutMs`` against a hung backend.
+# Part C: the part-A router bound through the port's namerd (``python -m
+# linkerd_tpu_torch.namerd``, io.l5d.mesh and httpController) with
+# ``interpreter: io.l5d.mesh``: a dtab write moves one destination to
+# other replicas, then namerd restarts.
+H2FAST_LABEL = "h2fast"
+H2FAST_WORKERS = 4
+H2FAST_RST_BURST = 20         # part B's connectionGuard.rstBurst
+H2FAST_FLOODERS = 4           # rapid-reset clients in part B, each
+H2FAST_FLOOD_RESETS = 100     # ... resetting this many streams (the
+                              # engine's default cap is 200)
+H2FAST_TIMEOUT_MS = 500       # part B's servers[].timeoutMs
+H2FAST_WATCHES = 8            # part B's server-streaming calls, one at a
+H2FAST_WATCH_MSGS = 64        # time, of this many messages each
+H2FAST_SAMPLE_FRAMES = 8      # part B's sampleEveryFrames (minGapMs 0)
+H2FAST_PROBES = 16            # part B's one-call connections
+H2FAST_MOVED = 5              # part C's moved destination
+H2FAST_BURST = 256            # part C's calls a connection a burst
+H2FAST_REROUTE_S = 5.0        # part C's loose bound on a reroute
+H2FAST_RECONNECT_S = 30.0     # ... and on following namerd's restart
+                              # (its boot, ~8 s, then the backoff,
+                              # up to 10 s an attempt)
+H2FAST_PARTS = ("A", "B", "C")
+
+
+def h2fast_config(disco: Path, telemetry: bool, **router) -> str:
+    """BASELINE config 2 as JSON text (the h2 engine, io.l5d.prometheus,
+    the fs namer), with ``telemetry`` the io.l5d.jaxAnomaly telemeter at
+    ``nativeTier: off`` with training off; ``router`` adds or replaces
+    router keys (an ``interpreter`` drops the router's dtab)."""
+    r = {"protocol": "h2", "label": H2FAST_LABEL, "fastPath": True,
+         "dtab": "/svc => /#/io.l5d.fs ;", "servers": [{"port": 0}]}
+    r.update(router)
+    if "interpreter" in router:
+        del r["dtab"]
+    tele = [{"kind": "io.l5d.prometheus"}]
+    if telemetry:
+        tele.append({"kind": "io.l5d.jaxAnomaly", "trainEveryBatches": 0,
+                     "reconWeight": 1.0, "nativeTier": "off"})
+    return json.dumps({"routers": [r], "telemetry": tele, "namers": [
+        {"kind": "io.l5d.fs", "rootDir": str(disco)}]})
+
+
+def h2fast_linker(text: str, dev: str, what: str):
+    """The linker of ``text``, failing unless its router is served by the
+    h2 engine (never the Python data plane it falls back to without
+    OpenSSL)."""
+    from linkerd_tpu_torch import native
+    from linkerd_tpu_torch.linker import load_linker
+
+    if not native.H2FastPathEngine.tls_runtime_available():
+        raise AssertionError(f"h2fast {what}: the engine cannot load the "
+                             f"OpenSSL runtime")
+    linker = load_linker(text, device=dev)
+    router = linker.routers[0]
+    kinds = (type(router).__name__,
+             type(getattr(getattr(router, "controller", None), "engine",
+                          None)).__name__)
+    if kinds != ("_FastPathRouter", "H2FastPathEngine"):
+        raise AssertionError(f"h2fast {what}: a fastPath: true router came "
+                             f"up as {kinds}")
+    return linker, router
+
+
+def h2fast_call_checks(res: dict, what: str, faults_on: bool,
+                       moved: dict = None) -> dict:
+    """``h2_call_checks``, and with the faults on every call that failed
+    was to a faulted destination and carried grpc-status 14 (the engine
+    passes the backend's trailers through). ``moved``: destination ->
+    the answerer codes that must answer it instead of its own replicas
+    (part C)."""
+    res = dict(res)
+    moved = moved or {}
+    sel = np.isin(res["dst"], list(moved))
+    if sel.any():
+        ok = np.array([w in moved[d] for d, w in zip(res["dst"][sel],
+                                                     res["who"][sel])])
+        if not (ok & (res["status"][sel] == 0)).all():
+            raise AssertionError(f"h2fast {what}: calls to the moved "
+                                 f"destination answered by "
+                                 f"{sorted(set(res['who'][sel].tolist()))}")
+        res["right"] = res["right"] | sel
+    out = h2_call_checks(res, what, faults_on)
+    out.pop("by_server")
+    bad = (res["status"] != 0) & ~((res["dst"] < TELE_FAULTED) & faults_on
+                                   & (res["status"] == 14))
+    if bad.any():
+        i = int(np.flatnonzero(bad)[0])
+        raise AssertionError(f"h2fast {what}: tele-{res['dst'][i]:02d} "
+                             f"answered grpc code {res['status'][i]}")
+    if faults_on and not out["unavailable"]:
+        raise AssertionError(f"h2fast {what}: no injected UNAVAILABLE "
+                             f"passed through")
+    return out
+
+
+async def prometheus_scrape(linker) -> dict:
+    """The io.l5d.prometheus telemeter's scrape, through its own handler:
+    the engine's route counters (``rt/<label>/fastpath/route/*``) summed
+    by counter."""
+    from linkerd_tpu_torch.protocol.http.message import Request
+
+    prom = next(t for t in linker.telemeters
+                if type(t).__name__ == "PrometheusTelemeter")
+    (_, handler), = prom.admin_handlers()
+    t0 = time.perf_counter()
+    body = (await handler(Request(uri="/admin/metrics/prometheus"))).body
+    ms = (time.perf_counter() - t0) * 1e3
+    values = prometheus_values(body.decode())
+    tail = f'{{rt="{H2FAST_LABEL}"}}'
+    out = {"scrape_ms": ms, "lines": len(values)}
+    for counter in ("requests", "success", "f5xx"):
+        out[counter] = int(sum(
+            v for k, v in values.items() if k.startswith("fastpath_route_")
+            and k.endswith(f"_{counter}{tail}")))
+    return out
+
+
+def fold_counts(tap) -> dict:
+    """Rows folded into the board, by destination, over every fold."""
+    got: dict = {}
+    for _, dsts, inv, _ in tap.folds:
+        for d, n in zip(dsts, np.bincount(inv, minlength=len(dsts))):
+            got[d] = got.get(d, 0) + int(n)
+    return got
+
+
+def dst_counts(*results, extra: dict = None) -> dict:
+    """Calls sent, by destination path, over load results."""
+    out = dict(extra or {})
+    for res in results:
+        for d, n in zip(*np.unique(res["dst"], return_counts=True)):
+            key = f"/svc/tele-{int(d):02d}"
+            out[key] = out.get(key, 0) + int(n)
+    return out
+
+
+def h2fast_row_checks(what: str, tele, tap, ctl, sent: int, launches: int,
+                      expect: dict, dev: str, samples: int = 0) -> dict:
+    """Every engine row (``sent`` requests and ``samples`` stream
+    samples) reached the telemeter and was scored, no drop; the rows
+    folded by destination equal ``expect`` (a stream's samples fold under
+    its destination); one launch a batch with device rows."""
+    flat = tele.metrics.flatten()
+    bad = {k: flat[f"anomaly/{k}"] for k in (
+        "score_failures", "dropped_batches", "degraded")
+        if flat[f"anomaly/{k}"]}
+    rows, scored = flat["anomaly/requests_total"], flat["anomaly/scored_total"]
+    drops = flat["anomaly/native_ring_dropped"]
+    engine = ctl.engine.stats()
+    print(f"h2fast {what}: {sent} calls, {samples} stream samples, {rows} "
+          f"engine rows, {scored} scored, ring drops {drops}")
+    if bad or drops or engine.get("features_dropped") or scored != rows \
+            or rows != sent + samples:
+        raise AssertionError(f"h2fast {what}: {sent} calls + {samples} "
+                             f"samples, {rows} rows, {scored} scored, "
+                             f"{drops} dropped, {bad}")
+    got = fold_counts(tap)
+    if got != expect:
+        diff = {k: (got.get(k, 0), expect.get(k, 0))
+                for k in sorted(set(got) | set(expect))
+                if got.get(k, 0) != expect.get(k, 0)}
+        raise AssertionError(f"h2fast {what}: rows by destination differ "
+                             f"from the calls sent (rows, calls): {diff}")
+    with_device = sum(len(b["x"]) > 0 for b in tap.batches)
+    if launches != (0 if dev == "cpu" else with_device) or \
+            len(tap.scored) != with_device:
+        raise AssertionError(
+            f"h2fast {what}: {launches} kernel launches, {with_device} "
+            f"batches with device rows, {len(tap.scored)} score calls")
+    pub = np.asarray(tap.publish_ms)
+    return dict(launches=launches, batches=flat["anomaly/batches"],
+                batches_with_device_rows=with_device,
+                batch_sizes=batch_sizes(tap), rows=rows,
+                score_and_publish_p50_ms=float(np.percentile(pub, 50)),
+                score_and_publish_p99_ms=float(np.percentile(pub, 99)))
+
+
+def h2fast_window_checks(what: str, tele, tap, snap, start: int,
+                         first: int, dev: str) -> dict:
+    """The faulted calls' rows (score calls from ``start``, batches from
+    ``first``) under the frozen model ``snap``: the kernel against the
+    plain version on every row, and the board against a plain fold."""
+    x, got, dsts = tap.window_rows(first, start)
+    plain = plain_scores(snap, x, dev)
+    cuts = np.cumsum([len(xx) for xx, _ in tap.scored[start:]])[:-1]
+    gap = fastpath_board_check(tele, tap, start, np.split(plain, cuts))
+    print(f"h2fast {what}: board vs plain fold {gap:.3e}")
+    if gap > TOL:
+        raise AssertionError(f"h2fast {what}: board off the plain fold by "
+                             f"{gap} > {TOL}")
+    faulted = set(tele_routes()[:TELE_FAULTED])
+    labels = np.array([d in faulted for d in dsts], np.float32)
+    rows = linker_gap_report(got, plain, x, snap, labels, dev,
+                             what=f"h2fast {what}")
+    return dict(board_vs_plain_fold_max=gap, kernel_vs_plain=rows,
+                kernel_vs_plain_max=rows["kernel_vs_plain_max"],
+                window_rows=len(got))
+
+
+async def h2fast_part_a(text: str, loads, flag, plans, dev: str):
+    """One config-2 router from ``text`` (with or without the telemeter)
+    under H2_CALM calm calls, then H2_FAULTED faulted ones. With the
+    telemeter: a frozen traffic-fitted model for the faulted calls, held
+    against plain."""
+    from linkerd_tpu_torch.core.tasks import monitor
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+
+    linker, router = h2fast_linker(text, dev, "A")
+    await linker.start()
+    ctl, port = router.controller, router.server_ports[0]
+    tele = next((t for t in linker.telemeters
+                 if hasattr(t, "native_ring")), None)
+    tap = task = None
+    out = {}
+    try:
+        if tele is not None:
+            tap = FastPathTap(tele)
+            task = monitor(asyncio.create_task(tele.run()),
+                           what=f"telemeter-{type(tele).__name__}")
+        fused_anomaly_scores.launches = 0
+        flag.value = 0
+        calm = await linker_traffic(loads, [port] * H2_CONNS, plans[0])
+        sent = len(calm["ms"])
+        if tele is not None:
+            await tap.settle(tele, task, sent, "h2fast A calm")
+            if not tap.scored:
+                raise AssertionError("h2fast A: no row of the calm calls "
+                                     "was scored")
+            snap = traffic_model(tele, tap)
+            start, first = len(tap.scored), len(tap.batches)
+        flag.value = 1
+        faulted = await linker_traffic(loads, [port] * H2_CONNS, plans[1])
+        sent += len(faulted["ms"])
+        if tele is not None:
+            await tap.settle(tele, task, sent, "h2fast A faulted")
+        flag.value = 0
+        launches = fused_anomaly_scores.launches
+        out["calm"] = h2fast_call_checks(calm, "A calm", False)
+        out["faulted"] = h2fast_call_checks(faulted, "A faulted", True)
+        ctl._export_stats()
+        stats = ctl.engine.stats()
+        served = sum(int(r["requests"]) for r in stats["routes"].values())
+        out["prometheus"] = prom = await prometheus_scrape(linker)
+        if served != sent or prom["requests"] != sent:
+            raise AssertionError(f"h2fast A: {sent} calls sent, the engine "
+                                 f"served {served}, the scrape counts "
+                                 f"{prom['requests']}")
+        if tele is None:
+            return out, launches
+        out.update(h2fast_row_checks("A", tele, tap, ctl, sent, launches,
+                                     dst_counts(calm, faulted), dev))
+        out.update(h2fast_window_checks("A", tele, tap, snap, start, first,
+                                        dev))
+        routes = tele_routes()
+        board = {d: tele.board.score_of(d) for d in routes}
+        out["board_levels"] = {
+            "faulted_min": min(board[d] for d in routes[:TELE_FAULTED]),
+            "calm_max": max(board[d] for d in routes[TELE_FAULTED:])}
+        return out, launches
+    finally:
+        if task is not None:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        await linker.close()
+
+
+async def h2bench_load(port: int, what: str) -> dict:
+    """``h2bench load``: 8 connections × 16 streams (2 connections for
+    each of 4 workers), 128-byte echo messages, SATURATION_S seconds,
+    closed loop, to authority ``echo``."""
+    from linkerd_tpu_torch.native import _build as native_build
+
+    proc = await asyncio.create_subprocess_exec(
+        str(native_build.build("h2bench")), "load", "127.0.0.1", str(port),
+        "echo", str(H2_CONNS * H2_STREAMS), str(SATURATION_S), "128",
+        "--conns-per-worker", str(H2_CONNS // H2FAST_WORKERS), "--workers",
+        str(H2FAST_WORKERS), stdout=asyncio.subprocess.PIPE)
+    stdout, _ = await asyncio.wait_for(proc.communicate(), SATURATION_S + 30)
+    res = json.loads(stdout.decode().strip().splitlines()[-1])
+    if proc.returncode or res["errors"] or not res["reqs"]:
+        raise AssertionError(f"h2bench load {what}: rc {proc.returncode}, "
+                             f"{res}")
+    return res
+
+
+async def h2fast_saturation(disco: Path, dev: str) -> dict:
+    """Closed-loop readings by ``h2bench load`` with ``h2bench serve`` as
+    the backend: through the config-2 router's engine with one worker
+    and with H2FAST_WORKERS, then straight to the backend."""
+    from linkerd_tpu_torch.native import _build as native_build
+
+    serve = await asyncio.create_subprocess_exec(
+        str(native_build.build("h2bench")), "serve", "0",
+        stdout=asyncio.subprocess.PIPE)
+    out = {}
+    try:
+        line = await asyncio.wait_for(serve.stdout.readline(), 30)
+        backend = json.loads(line)["listening"]
+        (disco / "echo").write_text(f"127.0.0.1 {backend}\n")
+        for workers in (1, H2FAST_WORKERS):
+            name = f"engine_{workers}_worker{'s' if workers > 1 else ''}"
+            linker, router = h2fast_linker(
+                h2fast_config(disco, False, workers=workers), dev, name)
+            await linker.start()
+            try:
+                out[name] = await h2bench_load(router.server_ports[0], name)
+            finally:
+                await linker.close()
+        out["direct"] = await h2bench_load(backend, "direct")
+    finally:
+        serve.send_signal(signal.SIGTERM)
+        await asyncio.wait_for(serve.communicate(), 30)
+        (disco / "echo").unlink()
+    print(f"h2bench load, {H2_CONNS} connections x {H2_STREAMS} streams: " +
+          "; ".join(f"{k} {v['rps']:.0f} calls/s, p50 {v['p50_ms']:.3f} ms, "
+                    f"p99 {v['p99_ms']:.3f} ms" for k, v in out.items()))
+    return out
+
+
+async def grpc_backend(name: str, hang: asyncio.Event = None):
+    """An in-process gRPC backend of the phase's service answering
+    ``name``; with ``hang``, one that starts no response until it is
+    set. Its server connections count the DATA frames they write on each
+    stream (``FrameCount``)."""
+    from linkerd_tpu_torch.grpc import ServerDispatcher
+    from linkerd_tpu_torch.protocol.h2.server import H2Server
+    from linkerd_tpu_torch.router.service import FnService
+
+    tele_msg, svc = h2_proto()
+    pad = bytes(H2_STREAM_BYTES)
+    disp = ServerDispatcher()
+
+    async def echo(req):
+        return tele_msg(text=name)
+
+    async def watch(req):
+        async def gen():
+            for i in range(req.n):
+                yield tele_msg(text=name, n=i, pad=pad)
+        return gen()
+
+    disp.register_all(svc, {"Echo": echo, "Watch": watch})
+    service = disp
+    if hang is not None:
+        async def never(req):
+            await hang.wait()
+            return await disp(req)
+        service = FnService(never)
+    counts: list = []
+
+    class Counting(set):
+        """The server's connection set: each connection is added before
+        it starts, and its writes are counted from then on."""
+
+        def add(self, conn):
+            counts.append(FrameCount(conn))
+            super().add(conn)
+
+    srv = H2Server(service)
+    srv._conns = Counting()
+    srv.frame_counts = counts
+    return await srv.start()
+
+
+async def rapid_reset_client(port: int, authority: str) -> str:
+    """One connection that opens H2FAST_FLOOD_RESETS streams to
+    ``authority`` and resets each at once (CVE-2023-44487): "closed"
+    when the router ends the connection within 5 s (a GOAWAY, or a
+    reset of the unread frames), else "open"."""
+    from linkerd_tpu_torch.protocol.h2 import frames, hpack
+
+    r, w = await asyncio.open_connection("127.0.0.1", port)
+    enc = hpack.Encoder()
+    try:
+        w.write(frames.CONNECTION_PREFACE + frames.pack_settings([]))
+        for i in range(H2FAST_FLOOD_RESETS):
+            sid = 2 * i + 1
+            block = enc.encode([
+                (":method", "POST"), (":scheme", "http"),
+                (":path", f"/{H2_SERVICE}/Echo"), (":authority", authority),
+                ("content-type", "application/grpc"), ("te", "trailers")])
+            w.write(frames.pack_frame(frames.HEADERS,
+                                      frames.FLAG_END_HEADERS, sid, block)
+                    + frames.pack_rst(sid, frames.CANCEL))
+        await w.drain()
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 5.0:
+            head = await asyncio.wait_for(r.read(9), 5.0)
+            if len(head) < 9:
+                return "closed"
+            fh = frames.unpack_header(head)
+            payload = await r.readexactly(fh.length)
+            if fh.type == frames.GOAWAY and int.from_bytes(
+                    payload[4:8], "big") == frames.ENHANCE_YOUR_CALM:
+                return "closed"
+        return "open"
+    except asyncio.TimeoutError:
+        return "open"
+    except (ConnectionError, asyncio.IncompleteReadError):
+        return "closed"
+    finally:
+        w.close()
+
+
+async def hung_call(port: int) -> dict:
+    """One Echo call to ``h2fast-hang``, whose backend never starts its
+    response: the status the router answers and the ms it took."""
+    from linkerd_tpu_torch.grpc.codec import Codec
+    from linkerd_tpu_torch.protocol.h2.client import H2Client
+    from linkerd_tpu_torch.protocol.h2.messages import H2Request
+
+    tele_msg, _ = h2_proto()
+    body = Codec(tele_msg).encode_frame(tele_msg(text="hung"))
+    h2 = H2Client("127.0.0.1", port)
+    try:
+        t0 = time.perf_counter()
+        rsp = await asyncio.wait_for(h2(H2Request(
+            method="POST", path=f"/{H2_SERVICE}/Echo",
+            authority="h2fast-hang", body=body)), 10 + H2FAST_TIMEOUT_MS / 1e3)
+        await asyncio.wait_for(rsp.stream.read_all(max_bytes=1 << 20), 10)
+        return {"status": rsp.status, "ms": (time.perf_counter() - t0) * 1e3,
+                "l5d_err": rsp.headers.get("l5d-err")}
+    finally:
+        await h2.close()
+
+
+async def watch_calls(port: int, backend) -> dict:
+    """H2FAST_WATCHES server-streaming calls of H2FAST_WATCH_MSGS messages
+    to ``h2fast-stream``, one at a time on one connection whose frames
+    are counted, as the backend counts its own: the frames the engine
+    sees on each call (the client's DATA and WINDOW_UPDATE frames, the
+    backend's DATA frames) and the samples they predict, one each
+    H2FAST_SAMPLE_FRAMES frames (one fewer frame when the client's last
+    WINDOW_UPDATE reaches the engine after the stream has ended)."""
+    from linkerd_tpu_torch.grpc import ClientDispatcher
+    from linkerd_tpu_torch.protocol.h2.client import H2Client
+
+    tele_msg, svc = h2_proto()
+    h2 = H2Client("127.0.0.1", port)
+    try:
+        count = FrameCount(await h2._get_conn())
+        stub = ClientDispatcher(h2, authority="h2fast-stream")
+        t0 = time.perf_counter()
+        for _ in range(H2FAST_WATCHES):
+            reps = await stub.server_stream(svc, "Watch",
+                                            tele_msg(n=H2FAST_WATCH_MSGS))
+            got = [m.n async for m in reps]
+            if got != list(range(H2FAST_WATCH_MSGS)):
+                raise AssertionError(f"h2fast B: a Watch call streamed "
+                                     f"{len(got)} messages out of order")
+        wall = time.perf_counter() - t0
+    finally:
+        await h2.close()
+    sids = sorted(set(count.data) | set(count.window))
+    up = [n for c in backend.frame_counts for _, n in sorted(c.data.items())]
+    if len(sids) != H2FAST_WATCHES or len(up) != H2FAST_WATCHES:
+        raise AssertionError(f"h2fast B: {len(sids)} client streams, "
+                             f"{len(up)} upstream streams for "
+                             f"{H2FAST_WATCHES} Watch calls")
+    every = H2FAST_SAMPLE_FRAMES
+    calls = []
+    for sid, u in zip(sids, up):
+        frames_ = count.data.get(sid, 0) + count.window.get(sid, 0) + u
+        calls.append({"frames": frames_, "upstream_data": u,
+                      "predicted": [(frames_ - 1) // every,
+                                    frames_ // every]})
+    return {"calls": calls, "wall_s": wall,
+            "messages_per_s": H2FAST_WATCHES * H2FAST_WATCH_MSGS / wall}
+
+
+async def h2fast_part_b(loads, flag, plans, disco: Path, cert: str,
+                        key: str, dev: str):
+    """The engine's options on one router: ``workers``, a cleartext and a
+    native-TLS server with ``timeoutMs``, ``connectionGuard``'s flood
+    caps and ``streamScoring``, the telemeter at ``nativeTier: off`` with
+    its untrained model. Beside H2_CALM calm calls (half the connections
+    over TLS): rapid-reset clients, the Watch calls, a call to a hung
+    backend and H2FAST_PROBES one-call connections."""
+    from linkerd_tpu_torch.core.tasks import monitor
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+    from linkerd_tpu_torch.telemetry.linerate import (
+        NATIVE_COL_KIND, NATIVE_KIND_STREAM,
+    )
+
+    hang = asyncio.Event()
+    stream_be = await grpc_backend("h2fast-stream/0")
+    hung_be = await grpc_backend("h2fast-hang/0", hang)
+    (disco / "h2fast-stream").write_text(
+        f"127.0.0.1 {stream_be.bound_port}\n")
+    (disco / "h2fast-hang").write_text(f"127.0.0.1 {hung_be.bound_port}\n")
+    servers = [{"port": 0, "timeoutMs": H2FAST_TIMEOUT_MS},
+               {"port": 0, "timeoutMs": H2FAST_TIMEOUT_MS,
+                "tls": {"certPath": cert, "keyPath": key}}]
+    linker, router = h2fast_linker(h2fast_config(
+        disco, True, workers=H2FAST_WORKERS, servers=servers,
+        connectionGuard={"rstBurst": H2FAST_RST_BURST},
+        streamScoring={"sampleEveryFrames": H2FAST_SAMPLE_FRAMES,
+                       "minGapMs": 0, "tableCap": 65536,
+                       "action": "observe"}), dev, "B")
+    task = None
+    try:
+        await linker.start()
+        ctl = router.controller
+        clear, tls = router.server_ports
+        tele = next(t for t in linker.telemeters
+                    if hasattr(t, "native_ring"))
+        tap = FastPathTap(tele)
+        snap = tele._scorer.snapshot()  # training off: the one model
+        task = monitor(asyncio.create_task(tele.run()),
+                       what=f"telemeter-{type(tele).__name__}")
+        fused_anomaly_scores.launches = 0
+        flag.value = 0
+        targets = [clear if i % 2 == 0 else (tls, cert)
+                   for i in range(H2_CONNS)]
+        traffic = asyncio.ensure_future(linker_traffic(loads, targets,
+                                                       plans[0]))
+        floods = [asyncio.ensure_future(rapid_reset_client(
+            clear, f"tele-{TELE_ROUTES - 1:02d}"))
+            for _ in range(H2FAST_FLOODERS)]
+        hung = asyncio.ensure_future(hung_call(clear))
+        watch = await watch_calls(clear, stream_be)
+        probes = []
+        for i in range(H2FAST_PROBES):
+            d = TELE_FAULTED + i % (TELE_ROUTES - TELE_FAULTED)
+            client = h2_client(clear)
+            try:
+                probes.append(await h2_probe_call(client, d))
+            finally:
+                await client.close()
+        flooded = await asyncio.gather(*floods)
+        hung_res = await hung
+        calm = await traffic
+        sent = len(calm["ms"]) + H2FAST_WATCHES + 1 + H2FAST_PROBES
+        streams = ctl.engine.streams()
+        samples = sum(int(e["samples"]) for w in streams["workers"]
+                      for e in w["by_stream"].values())
+        await tap.settle(tele, task, sent + samples, "h2fast B")
+        launches = fused_anomaly_scores.launches
+        ctl._export_stats()
+        stats = ctl.engine.stats()
+        flat = linker.metrics.flatten()
+        sentinel = ctl.stream_sentinel.snapshot()
+        out = {"calm": h2fast_call_checks(calm, "B", False)}
+        bad = [d for d, ok in probes if not ok]
+        if bad:
+            raise AssertionError(f"h2fast B: one-call connections to {bad} "
+                                 f"not answered by their destination")
+        expect = dst_counts(calm, extra={"/svc/h2fast-hang": 1})
+        for d, _ in probes:
+            key_ = f"/svc/tele-{d:02d}"
+            expect[key_] = expect.get(key_, 0) + 1
+        expect["/svc/h2fast-stream"] = H2FAST_WATCHES + samples
+        out.update(h2fast_row_checks("B", tele, tap, ctl, sent, launches,
+                                     expect, dev, samples=samples))
+        out["workers"] = shard_worker_checks(
+            stats, flat, H2FAST_LABEL, H2FAST_WORKERS, "h2fast B")
+        if out["workers"]["merged_requests"] != sent:
+            raise AssertionError(
+                f"h2fast B: {sent} calls sent, the engine served "
+                f"{out['workers']['merged_requests']}")
+        tls_conns = sum(isinstance(t, tuple) for t in targets)
+        out["tls"] = {k: int(stats["tls"][k]) for k in (
+            "handshakes", "failures", "alpn_h2", "alpn_http1")}
+        if out["tls"] != {"handshakes": tls_conns, "failures": 0,
+                          "alpn_h2": tls_conns, "alpn_http1": 0}:
+            raise AssertionError(f"h2fast B: {out['tls']} for {tls_conns} "
+                                 f"TLS connections")
+        guard = stats["guard"]
+        out["flood"] = {"clients": flooded, "rapid_reset_closed": int(
+            guard["rapid_reset_closed"]), "flood_closed": int(
+            guard["flood_closed"]), "exported": flat.get(
+            f"rt/{H2FAST_LABEL}/fastpath/guard/rapid_reset_closed")}
+        if flooded != ["closed"] * H2FAST_FLOODERS or \
+                out["flood"]["rapid_reset_closed"] != H2FAST_FLOODERS or \
+                out["flood"]["exported"] != H2FAST_FLOODERS:
+            raise AssertionError(f"h2fast B: rapid-reset clients "
+                                 f"{out['flood']}")
+        out["hung"] = hung_res
+        if hung_res["status"] != 504 or not H2FAST_TIMEOUT_MS * 0.9 <= \
+                hung_res["ms"] <= H2FAST_TIMEOUT_MS + 1000:
+            raise AssertionError(f"h2fast B: the hung backend's call "
+                                 f"{hung_res}, timeoutMs {H2FAST_TIMEOUT_MS}")
+        rows = np.concatenate(tap.raw)
+        kind1 = int((rows[:, NATIVE_COL_KIND] == NATIVE_KIND_STREAM).sum())
+        sent_samples = sorted(
+            (int(k), int(e["samples"]))
+            for k, e in sentinel["by_stream"].items())
+        out["streams"] = {**watch, "engine_samples": samples,
+                          "kind1_rows_drained": kind1,
+                          "sentinel_samples": [s for _, s in sent_samples]}
+        within = len(sent_samples) == H2FAST_WATCHES and all(
+            lo <= s <= hi for (_, s), (lo, hi) in zip(
+                sent_samples, (c["predicted"] for c in watch["calls"])))
+        if not samples or not kind1 == samples == sum(
+                s for _, s in sent_samples) or not within:
+            raise AssertionError(f"h2fast B: stream samples {out['streams']}")
+        x = np.concatenate([xx for xx, _ in tap.scored])
+        got = np.concatenate([s for _, s in tap.scored])
+        plain = plain_scores(snap, x, dev)
+        cuts = np.cumsum([len(xx) for xx, _ in tap.scored])[:-1]
+        gap = fastpath_board_check(tele, tap, 0, np.split(plain, cuts))
+        if gap > TOL:
+            raise AssertionError(f"h2fast B: board off the plain fold by "
+                                 f"{gap} > {TOL}")
+        out.update(board_vs_plain_fold_max=gap,
+                   kernel_vs_plain=linker_gap_report(
+                       got, plain, x, snap, np.zeros(len(got)), dev,
+                       what="h2fast B"))
+        out["kernel_vs_plain_max"] = out["kernel_vs_plain"][
+            "kernel_vs_plain_max"]
+        return out, launches
+    finally:
+        if task is not None:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        await linker.close()
+        hang.set()
+        await stream_be.close()
+        await hung_be.close()
+        for name in ("h2fast-stream", "h2fast-hang"):
+            (disco / name).unlink()
+
+
+async def h2_probe_call(client, d: int) -> tuple:
+    """One Echo call to ``tele-DD`` on ``client``: (d, answered by a
+    replica of its destination)."""
+    from linkerd_tpu_torch.grpc import ClientDispatcher
+
+    tele_msg, svc = h2_proto()
+    rep = await asyncio.wait_for(ClientDispatcher(
+        client, authority=f"tele-{d:02d}").unary(svc, "Echo",
+                                                 tele_msg(text="p")), 10)
+    return d, rep.text.startswith(f"tele-{d:02d}/")
+
+
+async def until_answered_by(client, d: int, prefix: str,
+                            timeout: float) -> tuple:
+    """Echo calls to ``tele-DD``, one after another, until one is
+    answered by a backend whose name starts with ``prefix``: (ms to that
+    answer, calls made). Fails after ``timeout`` s."""
+    from linkerd_tpu_torch.grpc import ClientDispatcher, GrpcError
+
+    tele_msg, svc = h2_proto()
+    stub = ClientDispatcher(client, authority=f"tele-{d:02d}")
+    t0, calls = time.perf_counter(), 0
+    while time.perf_counter() - t0 < timeout:
+        calls += 1
+        try:
+            rep = await asyncio.wait_for(stub.unary(svc, "Echo", tele_msg(
+                text="r")), 10)
+        except GrpcError:
+            continue
+        if rep.text.startswith(prefix):
+            return (time.perf_counter() - t0) * 1e3, calls
+        await asyncio.sleep(0.002)
+    raise AssertionError(f"h2fast C: tele-{d:02d} not answered by {prefix}* "
+                         f"within {timeout} s")
+
+
+async def namerd_put(port: int, dtab: str) -> int:
+    """PUT the ``default`` namespace through namerd's HTTP API."""
+    from linkerd_tpu_torch.protocol.http.client import HttpClient
+    from linkerd_tpu_torch.protocol.http.message import Request
+
+    client = HttpClient("127.0.0.1", port, max_connections=1)
+    try:
+        req = Request(method="PUT", uri="/api/1/dtabs/default",
+                      body=dtab.encode())
+        req.headers.set("Content-Type", "application/dtab")
+        rsp = await asyncio.wait_for(client(req), 10)
+    finally:
+        await client.close()
+    if rsp.status != 204:
+        raise AssertionError(f"h2fast C: namerd PUT answered {rsp.status}")
+    return rsp.status
+
+
+def start_namerd(cfg: Path, log_path: Path):
+    """``python -m linkerd_tpu_torch.namerd`` on ``cfg``, its output
+    appended to ``log_path``."""
+    with open(log_path, "a") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "linkerd_tpu_torch.namerd", str(cfg)],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+
+
+async def h2fast_part_c(loads, flag, plans, disco: Path, dev: str):
+    """The config-2 router with the telemeter bound through the port's
+    namerd CLI over the mesh API: a burst of calls; a dtab write moving
+    ``tele-05`` to the ``tele-05-b`` replicas (in this process), the ms
+    to their first answer, a burst; namerd stopped, a burst (the held
+    state serves), namerd started again on its ports (its in-memory
+    namespace back to the base dtab), the ms to the first answer of
+    ``tele-05``'s own replicas, a burst. Every call answered by the
+    replicas its dtab names, every row scored under its destination."""
+    from linkerd_tpu_torch.core.tasks import monitor
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+
+    moved = f"tele-{H2FAST_MOVED:02d}"
+    work = Path(tempfile.mkdtemp(prefix="h2fast-"))
+    backs = [await grpc_backend(f"{moved}-b/{r}")
+             for r in range(LINKER_REPLICAS)]
+    (disco / f"{moved}-b").write_text("".join(
+        f"127.0.0.1 {b.bound_port}\n" for b in backs))
+    mesh, api, admin = free_port(), free_port(), free_port()
+    cfg = work / "namerd.json"
+    cfg.write_text(json.dumps({
+        "storage": {"kind": "io.l5d.inMemory",
+                    "namespaces": {"default": CONTROL_BASE_DTAB}},
+        "interfaces": [{"kind": "io.l5d.mesh", "port": mesh},
+                       {"kind": "io.l5d.httpController", "port": api}],
+        "namers": [{"kind": "io.l5d.fs", "rootDir": str(disco)}],
+        "admin": {"port": admin}}))
+    namerd = start_namerd(cfg, work / "namerd.log")
+    linker = task = client = None
+    out = {}
+    try:
+        out["namerd_boot_ms"] = await wait_ping(
+            admin, lambda: namerd.poll() is None, "namerd", timeout=60.0)
+        linker, router = h2fast_linker(h2fast_config(
+            disco, True, interpreter={
+                "kind": "io.l5d.mesh", "dst": f"/$/inet/127.0.0.1/{mesh}",
+                "root": "/default"}), dev, "C")
+        await linker.start()
+        port = router.server_ports[0]
+        tele = next(t for t in linker.telemeters
+                    if hasattr(t, "native_ring"))
+        tap = FastPathTap(tele)
+        task = monitor(asyncio.create_task(tele.run()),
+                       what=f"telemeter-{type(tele).__name__}")
+        fused_anomaly_scores.launches = 0
+        flag.value = 0
+        burst = [p[:H2FAST_BURST] for p in plans[1]]
+        targets = [port] * H2_CONNS
+        b_who = {H2FAST_MOVED: {FAILOVER_WHO + r
+                                for r in range(LINKER_REPLICAS)}}
+        client = h2_client(port)
+        runs, calls = {}, 0
+        runs["before"] = await linker_traffic(loads, targets, burst)
+        out["before"] = h2fast_call_checks(runs["before"], "C before", False)
+        # the write removes the destination's route and installs it again
+        # (its new replicas resolve after the new tree arrives), under a
+        # new route id; the rows of a route id the controller never read
+        # on a stats tick stay under a placeholder (ROADMAP Queue 3):
+        # one tick first
+        await asyncio.sleep(router.controller.stats_poll_s + 0.2)
+        t0 = time.perf_counter()
+        await namerd_put(api, CONTROL_BASE_DTAB +
+                         f" /svc/{moved} => /#/io.l5d.fs/{moved}-b ;")
+        put_ms = (time.perf_counter() - t0) * 1e3
+        ms, n = await until_answered_by(client, H2FAST_MOVED, f"{moved}-b/",
+                                        H2FAST_REROUTE_S)
+        calls += n
+        out["reroute"] = {"put_ms": put_ms, "write_to_first_answer_ms":
+                          put_ms + ms, "calls": n}
+        runs["moved"] = await linker_traffic(loads, targets, burst)
+        out["moved"] = h2fast_call_checks(runs["moved"], "C moved", False,
+                                          moved=b_who)
+        out["namerd_stop"] = stop_process(namerd, "namerd")
+        runs["outage"] = await linker_traffic(loads, targets, burst)
+        out["outage"] = h2fast_call_checks(runs["outage"], "C namerd down",
+                                           False, moved=b_who)
+        t0 = time.perf_counter()
+        namerd = start_namerd(cfg, work / "namerd.log")
+        ms, n = await until_answered_by(client, H2FAST_MOVED, f"{moved}/",
+                                        H2FAST_RECONNECT_S)
+        calls += n
+        out["restart"] = {"start_to_first_answer_ms":
+                          (time.perf_counter() - t0) * 1e3, "calls": n}
+        runs["after"] = await linker_traffic(loads, targets, burst)
+        out["after"] = h2fast_call_checks(runs["after"], "C after", False)
+        sent = sum(len(r["ms"]) for r in runs.values()) + calls
+        await tap.settle(tele, task, sent, "h2fast C")
+        launches = fused_anomaly_scores.launches
+        out.update(h2fast_row_checks(
+            "C", tele, tap, router.controller, sent, launches,
+            dst_counts(*runs.values(), extra={f"/svc/{moved}": calls}),
+            dev))
+        out["namerd_reboot_ms"] = await wait_ping(
+            admin, lambda: namerd.poll() is None, "namerd", timeout=60.0)
+        return out, launches
+    finally:
+        if client is not None:
+            await client.close()
+        if task is not None:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        if linker is not None:
+            await linker.close()
+        if namerd.poll() is None:
+            stop_process(namerd, "namerd")
+        for b in backs:
+            await b.close()
+        (disco / f"{moved}-b").unlink()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+async def h2fast_phase(seed: int = 12, dev: str = "cuda",
+                       parts=H2FAST_PARTS):
+    """Parts A (config 2 with the telemeter; then without it, and the
+    saturation readings), B (the engine's options) and C (bound through
+    namerd's mesh API) over ``h2_topology``. Returns the results and
+    the kernel's launches."""
+    res, launches = {}, 0
+    async with h2_topology(seed) as (loads, flag, plans, disco, cert, key):
+        if "A" in parts:
+            res["part_a"], n = await h2fast_part_a(
+                h2fast_config(disco, True), loads, flag, plans, dev)
+            launches += n
+            res["no_telemetry"], _ = await h2fast_part_a(
+                h2fast_config(disco, False), loads, flag, plans, dev)
+            res["saturation"] = await h2fast_saturation(disco, dev)
+        if "B" in parts:
+            res["part_b"], n = await h2fast_part_b(loads, flag, plans, disco,
+                                                   cert, key, dev)
+            launches += n
+        if "C" in parts:
+            res["part_c"], n = await h2fast_part_c(loads, flag, plans, disco,
+                                                   dev)
+            launches += n
+    for name in ("part_a", "no_telemetry"):
+        for w in ("calm", "faulted"):
+            if name in res:
+                t = res[name][w]
+                print(f"h2fast {name} {w}: {t['calls_per_s']:.0f} calls/s, "
+                      f"p50 {t['p50_ms']:.3f} ms, p99 {t['p99_ms']:.3f} ms, "
+                      f"{t['unavailable']} UNAVAILABLE passed through")
+    if "part_a" in res:
+        a = res["part_a"]
+        print(f"h2fast A: {a['launches']} launches for {a['batches']} "
+              f"batches; kernel vs plain max|diff| "
+              f"{a['kernel_vs_plain_max']:.3e}, board vs plain fold "
+              f"{a['board_vs_plain_fold_max']:.3e}; scrape "
+              f"{a['prometheus']['requests']} requests in "
+              f"{a['prometheus']['scrape_ms']:.3f} ms")
+    if "part_b" in res:
+        b = res["part_b"]
+        print(f"h2fast B: {b['calm']['calls_per_s']:.0f} calls/s (p50 "
+              f"{b['calm']['p50_ms']:.3f}, p99 {b['calm']['p99_ms']:.3f}); "
+              f"workers accepted {b['workers']['accepted']}; TLS {b['tls']};"
+              f" flood {b['flood']['clients']}, rapid_reset_closed "
+              f"{b['flood']['rapid_reset_closed']}; hung call "
+              f"{b['hung']['status']} after {b['hung']['ms']:.1f} ms; "
+              f"{b['streams']['engine_samples']} stream samples (sentinel "
+              f"{b['streams']['sentinel_samples']}), "
+              f"{b['streams']['messages_per_s']:.0f} messages/s; "
+              f"{b['launches']} launches for {b['batches']} batches")
+    if "part_c" in res:
+        c = res["part_c"]
+        print(f"h2fast C: namerd /ping after {c['namerd_boot_ms']:.1f} ms; "
+              f"write to the first -b answer "
+              f"{c['reroute']['write_to_first_answer_ms']:.1f} ms (PUT "
+              f"{c['reroute']['put_ms']:.1f} ms); namerd restart to the "
+              f"first own-replica answer "
+              f"{c['restart']['start_to_first_answer_ms']:.1f} ms; "
+              + ", ".join(f"{k} {c[k]['calls_per_s']:.0f} calls/s"
+                          for k in ("before", "moved", "outage", "after"))
+              + f"; {c['launches']} launches for {c['batches']} batches")
+    return res, launches
+
+
 # The witness of the kernel's sums (``--witness``): on a phase's window
 # rows, an "exact" forward in float64 with the kernel's rounding points
 # (the float64 sum of bf16 products rounded to float32 and then to bf16,
@@ -6159,8 +7060,9 @@ CHECKS = ("kernel", "served")  # what --mutants runs on every mutant
 LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker,
                                 # fastpath and control phases
 PHASES = ("telemeter", "linker", "fastpath", "fastpath_d", "control",
-          "cli", "h2")  # --check and --mutant take these too (fastpath_d:
-                        # the fastpath phase's part D alone)
+          "cli", "h2", "h2fast")  # --check and --mutant take these too
+                                  # (fastpath_d: the fastpath phase's
+                                  # part D alone)
 # Broken copies of the port that the cli phase's checks must catch, one
 # a family: (file, text found once, its replacement) edits. The tracer
 # not installed; the router's request counter not incremented for a
@@ -6249,7 +7151,33 @@ H2_MUTANTS = {
         "        server_filters.append(H2ErrorResponder())\n",
         "        server_filters.append(H2ErrorResponder())\n")],
 }
-EDIT_MUTANTS = {**CLI_MUTANTS, **FASTPATH_MUTANTS, **H2_MUTANTS}
+
+
+# Broken copies of the port that the h2fast phase must catch: the
+# controller dropping the h2 engine's rows instead of feeding the
+# telemeter's ring; the mesh interpreter keeping the first bound tree and
+# ignoring every streamed update; the linker leaving the h2 engine's
+# flood caps at their defaults.
+H2FAST_MUTANTS = {
+    "h2_rows_dropped": [(
+        "linkerd_tpu_torch/router/fastpath.py",
+        '        sinks = [t for t in self.telemeters\n'
+        '                 if getattr(t, "native_ring", None) is not None]\n',
+        '        sinks = [t for t in self.telemeters\n'
+        '                 if getattr(t, "native_ring", None) is not None\n'
+        '                 and self.engine._PREFIX != "fph2"]\n')],
+    "mesh_frozen": [(
+        "linkerd_tpu_torch/interpreter/mesh.py",
+        "                    act.update(Ok(tree))\n",
+        "                    if not isinstance(act.current, Ok):\n"
+        "                        act.update(Ok(tree))\n")],
+    "no_flood_guard": [(
+        "linkerd_tpu_torch/linker.py",
+        "                engine.set_flood_guard(\n",
+        "                (lambda **kw: None)(\n")],
+}
+EDIT_MUTANTS = {**CLI_MUTANTS, **FASTPATH_MUTANTS, **H2_MUTANTS,
+                **H2FAST_MUTANTS}
 
 
 def run_check(which: str) -> int:
@@ -6265,19 +7193,19 @@ def run_check(which: str) -> int:
     elif which == "served":
         asyncio.run(drive_service(cfg, rng))
     elif which in ("linker", "fastpath", "fastpath_d", "control", "cli",
-                   "h2"):
+                   "h2", "h2fast"):
         from linkerd_tpu_torch import native
         from linkerd_tpu_torch.native import _build as native_build
         from linkerd_tpu_torch.ops import _build
 
         _build.build("score_mlp")  # before the event loop serves
-        if which.startswith("fastpath"):
+        if which.startswith("fastpath") or which == "h2fast":
             native.ensure_built()
             native_build.build("h2bench")
         phase = {"linker": linker_phase, "fastpath": fastpath_phase,
                  "fastpath_d": lambda: fastpath_phase(parts=("D",)),
                  "control": control_phase, "cli": cli_phase,
-                 "h2": h2_phase}[which]
+                 "h2": h2_phase, "h2fast": h2fast_phase}[which]
         res, _ = asyncio.run(phase())
         name, _, limit = card_line().partition(",")
         print(json.dumps({which: res, "card": name.strip(),
@@ -6397,11 +7325,13 @@ def check_mutants() -> int:
         results += [run_mutant(n, "served", tmp) for n in MUTANTS]
         results += [run_mutant(LINKER_MUTANT, phase, tmp)
                     for phase in ("linker", "fastpath", "control", "cli",
-                                  "h2")]
+                                  "h2", "h2fast")]
         results += [run_mutant(name, "cli", tmp) for name in CLI_MUTANTS]
         results += [run_mutant(name, "fastpath_d", tmp)
                     for name in FASTPATH_MUTANTS]
         results += [run_mutant(name, "h2", tmp) for name in H2_MUTANTS]
+        results += [run_mutant(name, "h2fast", tmp)
+                    for name in H2FAST_MUTANTS]
     missed = []
     for name, which, rc, last in results:
         print(f"mutant {name}, {which} check: "
@@ -6627,6 +7557,7 @@ def main() -> int:
         linker_a=linker["part_a"]))
     cli, cli_launches = asyncio.run(cli_phase(linker_a=linker["part_a"]))
     h2, h2_launches = asyncio.run(h2_phase())
+    h2fast, h2fast_launches = asyncio.run(h2fast_phase())
     telemeter["recorder"] = recorder_us()
     print(f"recorder filter: {telemeter['recorder']['recorder_us']:.2f} us "
           f"a request, the downstream alone "
@@ -6657,7 +7588,8 @@ def main() -> int:
                                   linker=linker_launches,
                                   fastpath=fastpath_launches,
                                   control=control_launches,
-                                  cli=cli_launches, h2=h2_launches),
+                                  cli=cli_launches, h2=h2_launches,
+                                  h2fast=h2fast_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -6686,6 +7618,8 @@ def main() -> int:
     print(json.dumps({"cli": cli, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"h2": h2, "card": name.strip(),
+                      "power_limit": limit.strip()}))
+    print(json.dumps({"h2fast": h2fast, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,15 +1,14 @@
-"""Interpreters: how a router binds logical names: the port's counterpart
-of ``linkerd_tpu/interpreter/__init__.py``.
+"""Interpreters: how a router binds logical names: a copy of
+``linkerd_tpu/interpreter/__init__.py``. The port registers the
+``default``, ``io.l5d.namerd.http`` and ``io.l5d.mesh`` kinds
+(``interpreter.configs``); the ``io.l5d.fs`` interpreter named below is
+refused by name (ROADMAP Queue 1 item 13).
 
-Ref: interpreter/ in the reference — in-process (default
-ConfiguredDtabNamer) or remote via namerd's HTTP control API
-(``io.l5d.namerd.http``, chunked-watch streams with backoff-reconnect).
-The kinds are registered by ``interpreter.configs``; the reference's
-``io.l5d.mesh`` interpreter is not ported yet (ROADMAP Queue 1 item 17,
-the mesh gRPC API), nor are its thrift ``io.l5d.namerd``, ``io.l5d.fs``,
-``io.l5d.k8s.configMap`` and istio interpreters (item 13).
+Ref: interpreter/ in the reference — in-process (default ConfiguredDtabNamer,
+``io.l5d.fs`` watched-file dtab) or remote via namerd (``io.l5d.mesh`` gRPC
+streams with backoff-reconnect, interpreter/mesh/.../Client.scala).
 """
 
-from linkerd_tpu_torch.interpreter.namerd_http import NamerdHttpInterpreter
+from linkerd_tpu_torch.interpreter.mesh import MeshClientInterpreter
 
-__all__ = ["NamerdHttpInterpreter"]
+__all__ = ["MeshClientInterpreter"]

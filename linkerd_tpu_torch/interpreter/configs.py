@@ -1,18 +1,22 @@
-"""Interpreter config kinds: the ``default`` and ``io.l5d.namerd.http``
-kinds of ``linkerd_tpu/interpreter/configs.py``.
+"""Interpreter config kinds: the ``default``, ``io.l5d.mesh`` and
+``io.l5d.namerd.http`` kinds of ``linkerd_tpu/interpreter/configs.py``.
 
-Ref: namer/core/.../InterpreterInitializer.scala:9-57 (SPI). The default
-interpreter is the in-process recursive dtab namer
-(DefaultInterpreterInitializer.scala); ``io.l5d.namerd.http`` binds
-through namerd's HTTP control API. The reference's other kinds are
-refused by name by the linker (ROADMAP Queue 1 items 13 and 17).
+Ref: namer/core/.../InterpreterInitializer.scala:9-57 (SPI) and
+interpreter/mesh/.../MeshInterpreterInitializer.scala:79 (kind io.l5d.mesh:
+dst + root). The default interpreter is the in-process recursive dtab
+namer (DefaultInterpreterInitializer.scala). The reference's thrift
+``io.l5d.namerd``, ``io.l5d.fs`` and ``io.l5d.k8s.configMap`` kinds are
+refused by name by the linker (ROADMAP Queue 1 items 13 and 5).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
+
 from linkerd_tpu_torch.config import ConfigError, register
 from linkerd_tpu_torch.core import Path
+from linkerd_tpu_torch.interpreter.mesh import MeshClientInterpreter
 from linkerd_tpu_torch.namer.core import ConfiguredDtabNamer, NameInterpreter
 
 
@@ -34,6 +38,17 @@ def parse_inet_dst(dst: str) -> tuple:
         return p[2], int(p[3])
     except ValueError:
         raise ConfigError(f"mesh dst port not a number: {dst!r}")
+
+
+@register("interpreter", "io.l5d.mesh")
+@dataclass
+class MeshInterpreterConfig:
+    dst: str = "/$/inet/127.0.0.1/4321"
+    root: str = "/default"
+
+    def mk(self, namers) -> NameInterpreter:
+        host, port = parse_inet_dst(self.dst)
+        return MeshClientInterpreter(host, port, root=self.root)
 
 
 @register("interpreter", "io.l5d.namerd.http")

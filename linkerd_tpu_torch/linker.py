@@ -21,11 +21,14 @@ telemeter's ``control:`` block closes the
 loop on routing: the linker wraps each balancer in the control loop's
 score weigher, registers each router's ``admissionControl`` filter for
 adaptive admission, and routes through the reactor's override book. A
-``fastPath: true`` router is served by the native HTTP/1.1 engine, built
-from the repository's ``native/`` sources: ``workers`` sharded epoll
-workers, native TLS on its servers and toward its endpoints,
-``connectionGuard`` and ``streamScoring``; its rows feed the
-telemeter's native ring. What the reference's linker also
+``fastPath: true`` router is served by a native engine built from the
+repository's ``native/`` sources, the HTTP/1.1 engine or, on ``protocol:
+h2``, the h2/gRPC engine: ``workers`` sharded epoll workers, native TLS
+on its servers and toward its endpoints, ``connectionGuard`` (with the h2
+flood caps) and ``streamScoring``, and on h2 the strictest server
+``timeoutMs``; its rows feed the telemeter's native ring. A router binds
+in process, through namerd's HTTP API or through its gRPC mesh API
+(``interpreter: {kind: io.l5d.mesh}``). What the reference's linker also
 takes is refused by name with the ROADMAP item that brings it
 (``REFUSED_ROUTER_KEYS``, ``UNPORTED_KINDS``): a config naming one fails
 at load rather than serving without it.
@@ -105,15 +108,12 @@ log = logging.getLogger(__name__)
 DEFAULT_ADMIN_PORT = 9990  # ref: Linker.scala:37
 
 # The ROADMAP items (Queue 1) that bring what this linker refuses.
-_H2_ENGINE = "ROADMAP Queue 1 item 4 (the native engines: the h2 engine)"
 _PROTOCOLS = "ROADMAP Queue 1 item 12 (thrift/mux)"
 _EDGE = "ROADMAP Queue 1 item 10 (tenants and loggers)"
 _ANNOUNCERS = "ROADMAP Queue 1 item 11 (the announcers)"
 _K8S = "ROADMAP Queue 1 item 5 (the namers of the fault benchmarks)"
 _NAMING = ("ROADMAP Queue 1 item 13 (the other namers, transformers and "
            "interpreters)")
-_MESH = ("ROADMAP Queue 1 item 17 (the mesh gRPC API: the io.l5d.mesh "
-         "interpreter)")
 
 # Router keys the reference takes and the port does not yet, each with
 # the item that brings it. A key counts as given when it is not None and
@@ -149,9 +149,8 @@ UNPORTED_KINDS: Dict[str, Dict[str, str]] = {
         "io.l5d.k8s.istio-ingress": _K8S,
     },
     "interpreter": {
-        "io.l5d.namerd": _NAMING, "io.l5d.mesh": _MESH,
-        "io.l5d.fs": _NAMING, "io.l5d.k8s.configMap": _NAMING,
-        "io.l5d.k8s.istio": _NAMING,
+        "io.l5d.namerd": _NAMING, "io.l5d.fs": _NAMING,
+        "io.l5d.k8s.configMap": _NAMING, "io.l5d.k8s.istio": _NAMING,
     },
 }
 
@@ -727,10 +726,6 @@ class Linker:
 
         labels_seen: Dict[str, int] = {}
         for rspec in self.spec.routers:
-            if rspec.fastPath and rspec.protocol != "http":
-                raise _refusal(
-                    f"{rspec.label or rspec.protocol}.fastPath on protocol "
-                    f"{rspec.protocol!r}", _H2_ENGINE)
             if rspec.protocol in REFUSED_PROTOCOLS:
                 raise _refusal(f"protocol {rspec.protocol!r}",
                                REFUSED_PROTOCOLS[rspec.protocol])
@@ -945,9 +940,11 @@ class Linker:
                 f"fastPath: true (the native engine has no Python "
                 f"per-request hook to enforce it)")
         for i, srv in enumerate(rspec.servers or []):
-            if srv.timeoutMs is not None:
-                # the h1 engine has no per-response timeout setter, so
-                # reject rather than silently drop the knob
+            if srv.timeoutMs is not None and rspec.protocol != "h2":
+                # the h2 engine exposes fph2_set_response_timeout_ms
+                # (plumbed in _mk_fastpath_router); the h1 engine has
+                # no per-response timeout setter, so reject rather
+                # than silently drop the knob
                 raise ConfigError(
                     f"{label}.servers[{i}].timeoutMs is not supported "
                     f"with fastPath: true on http/1.1 (the engine "
@@ -978,13 +975,16 @@ class Linker:
 
     def _mk_fastpath_router(self, rspec: RouterSpec,
                             label: str) -> Optional[Router]:
-        """An http router served by the native engine (fastPath: true).
-        The engine owns the listeners and the request hot loop; naming,
-        stats, and anomaly features flow through FastPathController. It
-        terminates and originates TLS natively (tls_engine.h memory-BIO
+        """An http or h2 router served by a native engine (fastPath:
+        true). The engine owns the listeners and the request hot loop;
+        naming, stats, and anomaly features flow through
+        FastPathController. The h2 engine (native/h2_fastpath.cpp)
+        proxies h2/gRPC frames with HPACK and both flow-control levels;
+        the http engine (native/fastpath.cpp) proxies HTTP/1.1. Both
+        terminate and originate TLS natively (tls_engine.h memory-BIO
         pump) when the OpenSSL runtime is present. The router's client
-        and identifier blocks are not read (the engine routes by Host),
-        as in the reference.
+        and identifier blocks are not read (the engine routes by Host or
+        ``:authority``), as in the reference.
 
         Returns None when the spec needs TLS but the OpenSSL runtime
         could not be loaded — the caller then assembles the Python
@@ -998,12 +998,14 @@ class Linker:
             raise ConfigError(
                 f"{label}: fastPath requires the native library ({e})"
             ) from None
+        engine_cls = (native.H2FastPathEngine if rspec.protocol == "h2"
+                      else native.FastPathEngine)
         workers = self._resolve_workers(rspec, label)
         specs = rspec.servers or [ServerSpec()]
         client_tls = self._fastpath_client_tls(rspec, label)
         tls_servers = [s for s in specs if s.tls is not None]
         if (tls_servers or client_tls is not None) \
-                and not native.FastPathEngine.tls_runtime_available():
+                and not engine_cls.tls_runtime_available():
             log.warning(
                 "%s: fastPath TLS requested but the OpenSSL runtime is "
                 "unavailable natively; serving this router on the "
@@ -1019,7 +1021,7 @@ class Linker:
         base_dtab = Dtab.read(rspec.dtab) if rspec.dtab else Dtab.empty()
         prefix = Path.read(rspec.dstPrefix)
         interpreter = self._mk_interpreter(rspec, label)
-        engine = native.FastPathEngine(workers=workers)
+        engine = engine_cls(workers=workers)
         try:
             sentinel = self._configure_engine(
                 engine, rspec, label, tls_servers, client_tls)
@@ -1037,7 +1039,8 @@ class Linker:
     def _configure_engine(self, engine, rspec: RouterSpec, label: str,
                           tls_servers, client_tls):
         """The engine's TLS identity and client TLS, its connection
-        guard and its stream sentinel, before it starts; returns the
+        guard (with the h2 engine's flood caps), its stream sentinel and
+        the h2 engine's response timeout, before it starts; returns the
         Python sentinel that mirrors the engine's sample rows (None
         without ``streamScoring``)."""
         if tls_servers:
@@ -1065,9 +1068,30 @@ class Linker:
                 accept_burst=guard.acceptBurst,
                 accept_window_ms=guard.acceptWindowMs,
                 max_hs_inflight=guard.maxHandshakesInflight)
-            if guard.tunnelIdleMs or guard.tunnelMaxBytes:
+            if rspec.protocol == "h2":
+                engine.set_flood_guard(
+                    max_streams=guard.maxStreamsPerConnection,
+                    rst_burst=guard.rstBurst,
+                    ping_burst=guard.pingBurst,
+                    settings_burst=guard.settingsBurst,
+                    window_ms=guard.floodWindowMs)
+                if guard.tunnelIdleMs or guard.tunnelMaxBytes:
+                    # h2 carries no byte tunnels (CONNECT/101 are an
+                    # h1 shape); the knobs are inert here
+                    log.warning(
+                        "%s.connectionGuard: tunnelIdleMs/"
+                        "tunnelMaxBytes are ignored on h2 routers",
+                        label)
+            elif guard.tunnelIdleMs or guard.tunnelMaxBytes:
                 engine.set_tunnel_guard(idle_ms=guard.tunnelIdleMs,
                                         max_bytes=guard.tunnelMaxBytes)
+        if rspec.protocol == "h2":
+            timeouts = [s.timeoutMs for s in (rspec.servers or [])
+                        if s.timeoutMs is not None]
+            if timeouts:
+                # the engine timeout is per-engine, not per-listener:
+                # the strictest server bound wins
+                engine.set_response_timeout_ms(min(timeouts))
         if rspec.streamScoring is None:
             return None
         ss = rspec.streamScoring
@@ -1316,11 +1340,10 @@ class Linker:
                       identifier=identifier)
 
     def _mk_h2_router(self, rspec: RouterSpec, label: str) -> Router:
-        """h2 router on the Python data plane: stream-aware
-        stats/retries/classification (ref: router/h2 H2.scala:16-105 +
-        linkerd/protocol/h2 H2Config; linkerd_tpu/linker.py:777-1010).
-        A ``fastPath: true`` h2 router is refused before this is
-        reached (the h2 engine is not ported)."""
+        """h2 router: stream-aware stats/retries/classification (ref:
+        router/h2 H2.scala:16-105 + linkerd/protocol/h2 H2Config;
+        linkerd_tpu/linker.py:777-1010). With ``fastPath: true`` the
+        native h2 engine serves it (``_mk_fastpath_router``)."""
         from linkerd_tpu_torch.protocol.h2.client import H2Client
         from linkerd_tpu_torch.protocol.h2.server import H2Server
         from linkerd_tpu_torch.router.h2_layer import (
@@ -1328,6 +1351,24 @@ class Linker:
             H2ErrorResponder, H2StreamStatsFilter,
         )
 
+        if rspec.fastPath:
+            # the native engine speaks fixed SETTINGS (16384 frames, 4MB
+            # stream / 16MB conn windows); silently dropping configured
+            # values would be worse than refusing them (same stance as
+            # http fastPath vs loggers)
+            for knob in ("maxFrameBytes", "initialStreamWindowBytes",
+                         "maxHeaderListBytes",
+                         "maxConcurrentStreamsPerConnection"):
+                if getattr(rspec, knob) is not None:
+                    raise ConfigError(
+                        f"{label}: {knob} is not supported with "
+                        f"fastPath: true (the native h2 engine uses "
+                        f"fixed SETTINGS)")
+            router = self._mk_fastpath_router(rspec, label)
+            if router is not None:
+                return router
+            # TLS requested but no native OpenSSL runtime: fall through
+            # to the Python data plane (graceful gate)
         base_dtab = Dtab.read(rspec.dtab) if rspec.dtab else Dtab.empty()
         prefix = Path.read(rspec.dstPrefix)
         # advertised SETTINGS for both sides (ref: H2Config.scala params);

@@ -1,6 +1,6 @@
 """namerd config parsing and process assembly: the counterpart of
-``linkerd_tpu/namerd/config.py`` for the in-memory and fs stores and the
-HTTP control interface.
+``linkerd_tpu/namerd/config.py`` for the in-memory and fs stores, the
+HTTP control interface and the gRPC mesh interface.
 
 Ref: namerd/core/.../NamerdConfig.scala:28-95 (storage + namers + ifaces ->
 Namerd of Servables) and namerd/main/.../Main.scala:10-55. YAML shape:
@@ -8,12 +8,12 @@ Namerd of Servables) and namerd/main/.../Main.scala:10-55. YAML shape:
     storage: {kind: io.l5d.inMemory | io.l5d.fs, ...}
     namers: [{kind: io.l5d.fs, rootDir: ...}]
     interfaces:
+      - {kind: io.l5d.mesh, port: 4321}
       - {kind: io.l5d.httpController, port: 4180}
     admin: {port: 9991}
 
 The reference's other kinds are refused by name with the ROADMAP item
-that brings each (``UNPORTED_KINDS``): its mesh interface needs the mesh
-gRPC API (``mesh/``, ``namerd/mesh_iface.py``), its thrift interface the
+that brings each (``UNPORTED_KINDS``): its thrift interface needs the
 thrift codec, and its zk, etcd, consul and k8s stores
 (``namerd/stores.py``) their clients.
 """
@@ -30,9 +30,11 @@ from linkerd_tpu_torch.config.parser import (
 from linkerd_tpu_torch.core import Dtab, Path
 from linkerd_tpu_torch.namerd.core import Namerd
 from linkerd_tpu_torch.namerd.http_api import HttpControlService
+from linkerd_tpu_torch.namerd.mesh_iface import DEFAULT_MESH_PORT, MeshIface
 from linkerd_tpu_torch.namerd.store import (
     DtabStore, FsDtabStore, InMemoryDtabStore,
 )
+from linkerd_tpu_torch.protocol.h2.server import H2Server
 from linkerd_tpu_torch.protocol.http.server import HttpServer
 
 DEFAULT_HTTP_CONTROL_PORT = 4180
@@ -41,8 +43,6 @@ DEFAULT_HTTP_CONTROL_PORT = 4180
 # analogue; ref: Linker.scala:64-75 SPI loading).
 import linkerd_tpu_torch.namer.fs  # noqa: E402,F401
 
-_MESH = ("ROADMAP Queue 1 item 17 (the mesh gRPC API: namerd's mesh "
-         "interface)")
 _THRIFT = ("ROADMAP Queue 1 items 12 and 15 (thrift, and namerd's thrift "
            "interface)")
 _STORES = "ROADMAP Queue 1 item 15 (namerd's remaining stores)"
@@ -50,8 +50,7 @@ _STORES = "ROADMAP Queue 1 item 15 (namerd's remaining stores)"
 # Kinds the reference registers and the port has not ported yet, by
 # category, each with the item that brings it.
 UNPORTED_KINDS: Dict[str, Dict[str, str]] = {
-    "namerdIface": {"io.l5d.mesh": _MESH,
-                    "io.l5d.thriftNameInterpreter": _THRIFT},
+    "namerdIface": {"io.l5d.thriftNameInterpreter": _THRIFT},
     "dtabStore": {k: _STORES for k in (
         "io.l5d.etcd", "io.l5d.consul", "io.l5d.zk", "io.l5d.k8s")},
 }
@@ -103,6 +102,17 @@ class HttpControllerConfig:
                           host=self.ip, port=self.port)
 
 
+@register("namerdIface", "io.l5d.mesh")
+@dataclass
+class MeshIfaceConfig:
+    port: int = DEFAULT_MESH_PORT
+    ip: str = "127.0.0.1"
+
+    def mk(self, namerd: Namerd):
+        iface = MeshIface(namerd)
+        return H2Server(iface.dispatcher, host=self.ip, port=self.port)
+
+
 # ---- assembly --------------------------------------------------------------
 
 @dataclass
@@ -140,7 +150,7 @@ class NamerdProcess:
         for ncfg in _instantiate_all("namer", spec.namers, "namers"):
             prefix = Path.read(getattr(ncfg, "prefix", f"/{ncfg.kind}"))
             namers.append((prefix, ncfg.mk()))
-        # one MetricsTree behind the interface + the store, exported by
+        # one MetricsTree behind the interfaces + the store, exported by
         # the admin server at /metrics.json
         from linkerd_tpu_torch.telemetry.metrics import MetricsTree
         self.metrics = MetricsTree()

@@ -1,7 +1,8 @@
-"""ctypes binding of the native engine: counterpart of
-``linkerd_tpu/native/__init__.py`` for the HTTP/1.1 engine (sharded
-workers, native TLS, the connection guard and the stream sentinel) and
-the in-data-plane scorer.
+"""ctypes binding of the native engines: counterpart of
+``linkerd_tpu/native/__init__.py`` for the HTTP/1.1 engine and the
+h2/gRPC engine (sharded workers, native TLS, the connection guard, the
+h2 flood caps and response timeout, and the stream sentinel) and the
+in-data-plane scorer.
 
 The library is built from the repository's ``native/`` sources by
 ``_build`` at first use. There is no pure-Python fallback: a build or
@@ -39,6 +40,7 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             cdll = ctypes.CDLL(str(_build.build()))
             _declare_fastpath(cdll)
+            _declare_h2_fastpath(cdll)
             _declare_scorer(cdll)
             _lib = cdll
         return _lib
@@ -53,7 +55,8 @@ def ensure_built() -> bool:
 
 def _declare_scorer(cdll: ctypes.CDLL) -> None:
     """Engine-independent in-data-plane scorer exports (l5d_score_* /
-    l5d_slab_*) plus the HTTP/1.1 engine's publish/feature hooks."""
+    l5d_slab_*); the engines' publish and feature hooks are declared
+    with each engine (``_declare_engine``)."""
     cdll.l5d_score_feature_dim.restype = ctypes.c_int
     cdll.l5d_score_feature_dim.argtypes = []
     cdll.l5d_score_blob_info.restype = ctypes.c_long
@@ -95,88 +98,93 @@ def _declare_scorer(cdll: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t]
     cdll.l5d_slab_free.restype = None
     cdll.l5d_slab_free.argtypes = [ctypes.c_void_p]
-    cdll.fp_publish_weights.restype = ctypes.c_int
-    cdll.fp_publish_weights.argtypes = [
-        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
-        ctypes.c_char_p, ctypes.c_size_t]
-    cdll.fp_publish_delta.restype = ctypes.c_int
-    cdll.fp_publish_delta.argtypes = [
-        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
-        ctypes.c_char_p, ctypes.c_size_t]
-    cdll.fp_set_route_feature.restype = ctypes.c_int
-    cdll.fp_set_route_feature.argtypes = [
-        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_float]
-    cdll.fp_set_route_hash.restype = ctypes.c_int
-    cdll.fp_set_route_hash.argtypes = [
-        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint32]
 
 
-def _declare_tls(cdll: ctypes.CDLL) -> None:
-    """The HTTP/1.1 engine's TLS exports."""
-    cdll.fp_tls_runtime_available.restype = ctypes.c_int
-    cdll.fp_tls_runtime_available.argtypes = []
-    cdll.fp_set_tls.restype = ctypes.c_int
-    cdll.fp_set_tls.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                ctypes.c_char_p, ctypes.c_char_p,
-                                ctypes.c_char_p, ctypes.c_size_t]
-    cdll.fp_listen_tls.restype = ctypes.c_int
-    cdll.fp_listen_tls.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                   ctypes.c_int]
-    cdll.fp_set_client_tls.restype = ctypes.c_int
-    cdll.fp_set_client_tls.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                       ctypes.c_int, ctypes.c_char_p,
-                                       ctypes.c_char_p, ctypes.c_size_t]
+def _declare_tls(cdll: ctypes.CDLL, prefix: str) -> None:
+    """TLS exports shared by both engines (fp_* / fph2_*)."""
+    fn = getattr(cdll, prefix + "_tls_runtime_available")
+    fn.restype = ctypes.c_int
+    fn.argtypes = []
+    fn = getattr(cdll, prefix + "_set_tls")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+                   ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t]
+    fn = getattr(cdll, prefix + "_listen_tls")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    fn = getattr(cdll, prefix + "_set_client_tls")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
+                   ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t]
+
+
+def _declare_engine(cdll: ctypes.CDLL, prefix: str) -> None:
+    """The control surface both engines export under their prefix: the
+    loop, listeners, routes, drains and stats, the in-plane scorer's
+    weight publish and route features, the connection guard and the
+    stream sentinel (per-stream scoring cadence and hysteresis, the
+    /streams.json snapshot, the mid-stream RST queue)."""
+    _declare_tls(cdll, prefix)
+    blob = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_char_p, ctypes.c_size_t]
+    sigs = {
+        "_create": (ctypes.c_void_p, []),
+        "_start": (ctypes.c_int, [ctypes.c_void_p]),
+        "_listen": (ctypes.c_int,
+                    [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]),
+        "_listen_shared": (ctypes.c_int,
+                           [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]),
+        "_listen_tls_shared": (ctypes.c_int, [ctypes.c_void_p,
+                                              ctypes.c_char_p,
+                                              ctypes.c_int]),
+        "_attach_slab": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]),
+        "_set_route": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_char_p,
+                                      ctypes.c_char_p]),
+        "_remove_route": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_char_p]),
+        "_drain_misses": (ctypes.c_long, [ctypes.c_void_p, ctypes.c_char_p,
+                                          ctypes.c_size_t]),
+        "_stats_json": (ctypes.c_long, [ctypes.c_void_p, ctypes.c_char_p,
+                                        ctypes.c_size_t]),
+        "_drain_features": (ctypes.c_long, [ctypes.c_void_p,
+                                            ctypes.POINTER(ctypes.c_float),
+                                            ctypes.c_long]),
+        "_shutdown": (None, [ctypes.c_void_p]),
+        "_set_guard": (ctypes.c_int, [ctypes.c_void_p] + [ctypes.c_long] * 6),
+        "_set_stream_cfg": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+            ctypes.c_long, ctypes.c_double, ctypes.c_double, ctypes.c_long,
+            ctypes.c_long, ctypes.c_long]),
+        "_streams_json": (ctypes.c_long, [ctypes.c_void_p, ctypes.c_char_p,
+                                          ctypes.c_size_t]),
+        "_rst_stream": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_uint32]),
+        "_publish_weights": (ctypes.c_int, blob),
+        "_publish_delta": (ctypes.c_int, blob),
+        "_set_route_feature": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_float]),
+        "_set_route_hash": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint32]),
+    }
+    for suffix, (restype, argtypes) in sigs.items():
+        fn = getattr(cdll, prefix + suffix)
+        fn.restype, fn.argtypes = restype, argtypes
+
+
+def _declare_h2_fastpath(cdll: ctypes.CDLL) -> None:
+    """The h2 engine: the shared surface under ``fph2`` plus its flood
+    caps and response timeout."""
+    _declare_engine(cdll, "fph2")
+    cdll.fph2_set_flood_guard.restype = ctypes.c_int
+    cdll.fph2_set_flood_guard.argtypes = \
+        [ctypes.c_void_p] + [ctypes.c_long] * 5
+    cdll.fph2_set_response_timeout_ms.restype = None
+    cdll.fph2_set_response_timeout_ms.argtypes = [ctypes.c_void_p,
+                                                  ctypes.c_long]
 
 
 def _declare_fastpath(cdll: ctypes.CDLL) -> None:
-    _declare_tls(cdll)
-    cdll.fp_create.restype = ctypes.c_void_p
-    cdll.fp_create.argtypes = []
-    cdll.fp_start.restype = ctypes.c_int
-    cdll.fp_start.argtypes = [ctypes.c_void_p]
-    cdll.fp_listen.restype = ctypes.c_int
-    cdll.fp_listen.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                               ctypes.c_int]
-    cdll.fp_listen_shared.restype = ctypes.c_int
-    cdll.fp_listen_shared.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                      ctypes.c_int]
-    cdll.fp_listen_tls_shared.restype = ctypes.c_int
-    cdll.fp_listen_tls_shared.argtypes = [ctypes.c_void_p,
-                                          ctypes.c_char_p, ctypes.c_int]
-    cdll.fp_attach_slab.restype = ctypes.c_int
-    cdll.fp_attach_slab.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    cdll.fp_set_route.restype = ctypes.c_int
-    cdll.fp_set_route.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                  ctypes.c_char_p]
-    cdll.fp_remove_route.restype = ctypes.c_int
-    cdll.fp_remove_route.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
-    cdll.fp_drain_misses.restype = ctypes.c_long
-    cdll.fp_drain_misses.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                     ctypes.c_size_t]
-    cdll.fp_stats_json.restype = ctypes.c_long
-    cdll.fp_stats_json.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                   ctypes.c_size_t]
-    cdll.fp_drain_features.restype = ctypes.c_long
-    cdll.fp_drain_features.argtypes = [ctypes.c_void_p,
-                                       ctypes.POINTER(ctypes.c_float),
-                                       ctypes.c_long]
-    cdll.fp_shutdown.restype = None
-    cdll.fp_shutdown.argtypes = [ctypes.c_void_p]
-    # connection guard, stream sentinel (per-stream scoring cadence and
-    # hysteresis, the /streams.json snapshot, the mid-stream RST queue)
-    # and the byte-tunnel budgets
-    cdll.fp_set_guard.restype = ctypes.c_int
-    cdll.fp_set_guard.argtypes = [ctypes.c_void_p] + [ctypes.c_long] * 6
-    cdll.fp_set_stream_cfg.restype = ctypes.c_int
-    cdll.fp_set_stream_cfg.argtypes = [
-        ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
-        ctypes.c_long, ctypes.c_double, ctypes.c_double, ctypes.c_long,
-        ctypes.c_long, ctypes.c_long]
-    cdll.fp_streams_json.restype = ctypes.c_long
-    cdll.fp_streams_json.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                     ctypes.c_size_t]
-    cdll.fp_rst_stream.restype = ctypes.c_int
-    cdll.fp_rst_stream.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
+    """The HTTP/1.1 engine: the shared surface under ``fp`` plus its
+    byte-tunnel budgets, and the stream accumulator."""
+    _declare_engine(cdll, "fp")
     cdll.fp_set_tunnel_guard.restype = ctypes.c_int
     cdll.fp_set_tunnel_guard.argtypes = \
         [ctypes.c_void_p, ctypes.c_long, ctypes.c_long]
@@ -330,6 +338,7 @@ class FastPathEngine:
     # 2 = tunnel sample; stream is the 24-bit stream key for kind > 0
     # rows, frame_seq the frame count at sample time)
     FEATURE_DIM = 12
+    _PREFIX = "fp"  # C symbol prefix; the h2 engine overrides to "fph2"
     # ALPN preference list the engine's TLS contexts advertise/offer
     _ALPN = "http/1.1"
 
@@ -342,8 +351,25 @@ class FastPathEngine:
             raise ValueError(
                 f"workers must be in 1..{self.MAX_WORKERS}, got {workers}")
         self._lib = cdll
+        p = self._PREFIX
+        self._fn_listen = getattr(cdll, p + "_listen")
+        self._fn_listen_shared = getattr(cdll, p + "_listen_shared")
+        self._fn_listen_tls_shared = getattr(cdll,
+                                             p + "_listen_tls_shared")
+        self._fn_start = getattr(cdll, p + "_start")
+        self._fn_set_route = getattr(cdll, p + "_set_route")
+        self._fn_remove_route = getattr(cdll, p + "_remove_route")
+        self._fn_drain_misses = getattr(cdll, p + "_drain_misses")
+        self._fn_stats = getattr(cdll, p + "_stats_json")
+        self._fn_features = getattr(cdll, p + "_drain_features")
+        self._fn_shutdown = getattr(cdll, p + "_shutdown")
+        self._fn_publish = getattr(cdll, p + "_publish_weights")
+        self._fn_publish_delta = getattr(cdll, p + "_publish_delta")
+        self._fn_route_feat = getattr(cdll, p + "_set_route_feature")
+        self._fn_route_hash = getattr(cdll, p + "_set_route_hash")
         self.workers = workers
-        self._es = [cdll.fp_create() for _ in range(workers)]
+        self._es = [getattr(cdll, p + "_create")()
+                    for _ in range(workers)]
         self._e = self._es[0]  # single-worker compat handle
         # multi-worker: ONE process-wide weight slab, shared read-only
         # by every worker's epoll thread — one publish fans out to all
@@ -352,8 +378,9 @@ class FastPathEngine:
         self._slab = None
         if workers > 1:
             self._slab = cdll.l5d_slab_create()
+            attach = getattr(cdll, p + "_attach_slab")
             for h in self._es:
-                cdll.fp_attach_slab(h, self._slab)
+                attach(h, self._slab)
         self._started = False
         self._closed = False
         self._miss_buf = ctypes.create_string_buffer(64 * 1024)
@@ -369,11 +396,11 @@ class FastPathEngine:
         port; the rest join it)."""
         assert not self._started
         if self.workers == 1:
-            got = self._lib.fp_listen(self._e, ip.encode(), port)
+            got = self._fn_listen(self._e, ip.encode(), port)
             if got < 0:
                 raise OSError(f"fastpath listen {ip}:{port} failed")
             return got
-        return self._listen_all(self._lib.fp_listen_shared, ip, port)
+        return self._listen_all(self._fn_listen_shared, ip, port)
 
     def _listen_all(self, fn, ip: str, port: int) -> int:
         got = fn(self._es[0], ip.encode(), port)
@@ -389,18 +416,19 @@ class FastPathEngine:
     def tls_runtime_available(cls) -> bool:
         """True when the engine could dlopen the OpenSSL runtime (TLS
         termination/origination available natively)."""
-        return bool(lib().fp_tls_runtime_available())
+        fn = getattr(lib(), cls._PREFIX + "_tls_runtime_available")
+        return bool(fn())
 
     def set_tls(self, cert_path: str, key_path: str) -> None:
         """Install the accept-leg TLS context (PEM cert chain + key).
         Call before start(); listeners bound with listen_tls() then
-        terminate TLS with this identity (ALPN http/1.1)."""
+        terminate TLS with this identity (ALPN per engine protocol)."""
         assert not self._started
         err = ctypes.create_string_buffer(512)
+        fn = getattr(self._lib, self._PREFIX + "_set_tls")
         for h in self._es:
-            rc = self._lib.fp_set_tls(h, cert_path.encode(),
-                                      key_path.encode(),
-                                      self._ALPN.encode(), err, len(err))
+            rc = fn(h, cert_path.encode(), key_path.encode(),
+                    self._ALPN.encode(), err, len(err))
             if rc != 0:
                 raise OSError(
                     f"fastpath TLS config failed: "
@@ -412,11 +440,12 @@ class FastPathEngine:
         engines share the port via SO_REUSEPORT like listen()."""
         assert not self._started
         if self.workers == 1:
-            got = self._lib.fp_listen_tls(self._e, ip.encode(), port)
+            got = getattr(self._lib, self._PREFIX + "_listen_tls")(
+                self._e, ip.encode(), port)
             if got < 0:
                 raise OSError(f"fastpath TLS listen {ip}:{port} failed")
             return got
-        return self._listen_all(self._lib.fp_listen_tls_shared, ip, port)
+        return self._listen_all(self._fn_listen_tls_shared, ip, port)
 
     def set_client_tls(self, verify: bool = True,
                        ca_path: Optional[str] = None) -> None:
@@ -427,10 +456,10 @@ class FastPathEngine:
         start()."""
         assert not self._started
         err = ctypes.create_string_buffer(512)
+        fn = getattr(self._lib, self._PREFIX + "_set_client_tls")
         for h in self._es:
-            rc = self._lib.fp_set_client_tls(
-                h, self._ALPN.encode(), 1 if verify else 0,
-                ca_path.encode() if ca_path else None, err, len(err))
+            rc = fn(h, self._ALPN.encode(), 1 if verify else 0,
+                    ca_path.encode() if ca_path else None, err, len(err))
             if rc != 0:
                 raise OSError(
                     f"fastpath client TLS config failed: "
@@ -439,7 +468,7 @@ class FastPathEngine:
     def start(self) -> None:
         if not self._started:
             for h in self._es:
-                if self._lib.fp_start(h) != 0:
+                if self._fn_start(h) != 0:
                     raise RuntimeError("fastpath thread start failed")
             self._started = True
 
@@ -456,7 +485,7 @@ class FastPathEngine:
         # worker then attribute to the same dst path.
         eps = " ".join(f"{ip}:{port}" for ip, port in endpoints) + " "
         for h in self._es:
-            self._lib.fp_set_route(h, self._key(host), eps.encode())
+            self._fn_set_route(h, self._key(host), eps.encode())
 
     def set_guard(self, header_budget_ms: int = 10_000,
                   body_stall_ms: int = 30_000, accept_burst: int = 0,
@@ -468,11 +497,11 @@ class FastPathEngine:
         TLS handshake-churn backpressure, and the tenant-stats LRU
         bound. 0 disables an individual defense."""
         assert not self._started
+        fn = getattr(self._lib, self._PREFIX + "_set_guard")
         for h in self._es:
-            rc = self._lib.fp_set_guard(
-                h, int(header_budget_ms), int(body_stall_ms),
-                int(accept_burst), int(accept_window_ms),
-                int(max_hs_inflight), int(tenant_cap))
+            rc = fn(h, int(header_budget_ms), int(body_stall_ms),
+                    int(accept_burst), int(accept_window_ms),
+                    int(max_hs_inflight), int(tenant_cap))
             if rc != 0:
                 raise ValueError("guard config rejected")
 
@@ -489,17 +518,18 @@ class FastPathEngine:
         bounded stream-table cap, and the native hysteresis governor
         mirroring control.state.HysteresisGovernor (0 < exit < enter
         <= 1, quorum consecutive samples, dwell after a transition).
-        ``action`` "rst" sheds a sick tunnel in-engine (closes it);
-        "observe" only records transitions."""
+        ``action`` "rst" sheds a sick stream in-engine (h2: RST_STREAM
+        / gRPC UNAVAILABLE trailers; h1: tunnel close); "observe" only
+        records transitions."""
         assert not self._started
         a = self.STREAM_ACTIONS.get(action)
         if a is None:
             raise ValueError(f"unknown stream action {action!r}")
+        fn = getattr(self._lib, self._PREFIX + "_set_stream_cfg")
         for h in self._es:
-            rc = self._lib.fp_set_stream_cfg(
-                h, 1 if enabled else 0, int(sample_every_frames),
-                int(min_gap_ms), int(table_cap), float(enter),
-                float(exit), int(quorum), int(dwell_ms), a)
+            rc = fn(h, 1 if enabled else 0, int(sample_every_frames),
+                    int(min_gap_ms), int(table_cap), float(enter),
+                    float(exit), int(quorum), int(dwell_ms), a)
             if rc != 0:
                 raise ValueError("stream config rejected")
 
@@ -525,7 +555,7 @@ class FastPathEngine:
         engines carry per-worker snapshots under ``workers`` — stream
         keys are per-worker sequences, so by_stream maps must not be
         merged across workers — with engine-wide counters summed."""
-        fn = self._lib.fp_streams_json
+        fn = getattr(self._lib, self._PREFIX + "_streams_json")
         if self.workers == 1:
             return self._json_one(fn, self._e)
         snaps = [self._json_one(fn, h) for h in self._es]
@@ -540,24 +570,30 @@ class FastPathEngine:
     def rst_stream(self, skey: int, worker: Optional[int] = None) -> None:
         """Queue a mid-stream shed by 24-bit stream key (the ``stream``
         column of kind > 0 feature rows): the engine's loop thread
-        closes the tunnel. Keys are per-worker sequences — pass
+        RSTs the h2 stream (gRPC UNAVAILABLE trailers when possible)
+        or closes the tunnel. Keys are per-worker sequences — pass
         ``worker`` when the engine is sharded; a broadcast would shed
         whatever stream holds that key on EVERY worker."""
         if self._closed:
             raise RuntimeError("engine is closed")
+        fn = getattr(self._lib, self._PREFIX + "_rst_stream")
         handles = self._es if worker is None \
             else [self._es[int(worker)]]
         for h in handles:
-            self._lib.fp_rst_stream(h, int(skey) & 0xFFFFFF)
+            fn(h, int(skey) & 0xFFFFFF)
 
     def set_tunnel_guard(self, idle_ms: int = 0,
                          max_bytes: int = 0) -> None:
-        """Byte-tunnel budgets (call before start()): zero-activity
-        window and lifetime byte cap for CONNECT / 101-upgrade tunnels.
-        0 disables the individual cap. Enforced even when stream
-        scoring is off — these are connection-plane defenses like the
-        slowloris budgets."""
+        """Byte-tunnel budgets (h1 engine only; call before start()):
+        zero-activity window and lifetime byte cap for CONNECT /
+        101-upgrade tunnels. 0 disables the individual cap. Enforced
+        even when stream scoring is off — these are connection-plane
+        defenses like the slowloris budgets."""
         assert not self._started
+        if self._PREFIX != "fp":
+            raise RuntimeError(
+                "tunnel budgets are an h1-engine knob (h2 streams are "
+                "bounded by the flood guard and response timeout)")
         for h in self._es:
             if self._lib.fp_set_tunnel_guard(h, int(idle_ms),
                                              int(max_bytes)) != 0:
@@ -570,8 +606,8 @@ class FastPathEngine:
         any worker — set_route broadcasts, so all workers agree)."""
         ok = True
         for h in self._es:
-            if self._lib.fp_set_route_feature(
-                    h, self._key(host), int(col), float(sign)) != 0:
+            if self._fn_route_feat(h, self._key(host), int(col),
+                                   float(sign)) != 0:
                 ok = False
         return ok
 
@@ -583,8 +619,8 @@ class FastPathEngine:
         exist on some worker."""
         ok = True
         for h in self._es:
-            if self._lib.fp_set_route_hash(
-                    h, self._key(host), int(rhash) & 0xFFFFFFFF) != 0:
+            if self._fn_route_hash(h, self._key(host),
+                                   int(rhash) & 0xFFFFFFFF) != 0:
                 ok = False
         return ok
 
@@ -605,8 +641,8 @@ class FastPathEngine:
             rc = self._lib.l5d_slab_publish(self._slab, blob, len(blob),
                                             err, len(err))
         else:
-            rc = self._lib.fp_publish_weights(self._e, blob, len(blob),
-                                              err, len(err))
+            rc = self._fn_publish(self._e, blob, len(blob), err,
+                                  len(err))
         if rc != 0:
             raise ValueError(
                 f"weight blob rejected: "
@@ -625,8 +661,8 @@ class FastPathEngine:
             rc = self._lib.l5d_slab_publish_delta(
                 self._slab, blob, len(blob), err, len(err))
         else:
-            rc = self._lib.fp_publish_delta(self._e, blob, len(blob), err,
-                                            len(err))
+            rc = self._fn_publish_delta(self._e, blob, len(blob), err,
+                                        len(err))
         if rc != 0:
             raise ValueError(
                 f"delta blob rejected: "
@@ -634,10 +670,10 @@ class FastPathEngine:
 
     def remove_route(self, host: str) -> None:
         for h in self._es:
-            self._lib.fp_remove_route(h, self._key(host))
+            self._fn_remove_route(h, self._key(host))
 
     def drain_misses(self) -> List[str]:
-        fn = self._lib.fp_drain_misses
+        fn = self._fn_drain_misses
         if self.workers == 1:
             n = fn(self._e, self._miss_buf, len(self._miss_buf))
             if n <= 0:
@@ -660,7 +696,7 @@ class FastPathEngine:
         return out
 
     def _stats_one(self, handle) -> dict:
-        return self._json_one(self._lib.fp_stats_json, handle)
+        return self._json_one(self._fn_stats, handle)
 
     def stats(self) -> dict:
         """Engine stats snapshot (``{}`` when it cannot be read).
@@ -689,8 +725,7 @@ class FastPathEngine:
         (fan-in over every worker's ring segment)."""
         blocks = []
         for h in self._es:
-            n = self._lib.fp_drain_features(h, self._feat_buf,
-                                            self._feat_rows)
+            n = self._fn_features(h, self._feat_buf, self._feat_rows)
             if n > 0:
                 arr = np.ctypeslib.as_array(self._feat_buf)
                 blocks.append(arr[:n * self.FEATURE_DIM].reshape(
@@ -726,7 +761,7 @@ class FastPathEngine:
                 break
             ptr = ctypes.cast(base + total * row_bytes,
                               ctypes.POINTER(ctypes.c_float))
-            n = self._lib.fp_drain_features(h, ptr, len(out) - total)
+            n = self._fn_features(h, ptr, len(out) - total)
             if n > 0:
                 total += int(n)
         return total
@@ -737,10 +772,48 @@ class FastPathEngine:
             # every worker's epoll thread joins before the shared slab
             # is freed: no core can be mid-eval on freed weights
             for h in self._es:
-                self._lib.fp_shutdown(h)
+                self._fn_shutdown(h)
             if self._slab is not None:
                 self._lib.l5d_slab_free(self._slab)
                 self._slab = None
+
+
+class H2FastPathEngine(FastPathEngine):
+    """Handle on the native h2/gRPC proxy data plane
+    (native/h2_fastpath.cpp).
+
+    Same control surface as FastPathEngine — FastPathController drives
+    either interchangeably — but the engine speaks HTTP/2 (h2c prior
+    knowledge) on both sides and routes by ``:authority``."""
+
+    _PREFIX = "fph2"
+    _ALPN = "h2"
+
+    def set_flood_guard(self, max_streams: int = 512,
+                        rst_burst: int = 200, ping_burst: int = 256,
+                        settings_burst: int = 64,
+                        window_ms: int = 1000) -> None:
+        """h2 control-frame flood caps, per client conn per window:
+        stream-concurrency bound, RST (rapid-reset, CVE-2023-44487),
+        PING and SETTINGS bursts. 0 disables one cap. Call before
+        start()."""
+        assert not self._started
+        for h in self._es:
+            rc = self._lib.fph2_set_flood_guard(
+                h, int(max_streams), int(rst_burst), int(ping_burst),
+                int(settings_burst), int(window_ms))
+            if rc != 0:
+                raise ValueError("flood guard config rejected")
+
+    def set_response_timeout_ms(self, ms: int) -> None:
+        """Window within which a dispatched stream's backend must START
+        its response (504 otherwise); streaming bodies are unbounded.
+        Must be >= 1 (0 would time out everything immediately)."""
+        ms = int(ms)
+        if ms < 1:
+            raise ValueError("response timeout must be >= 1 ms")
+        for h in self._es:
+            self._lib.fph2_set_response_timeout_ms(h, ms)
 
 
 def stream_accum(kinds, gaps_ms, sizes) -> np.ndarray:

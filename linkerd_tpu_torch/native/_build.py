@@ -1,11 +1,14 @@
 """Build the native engine library from the repository's ``native/``
 sources.
 
-The engine (``native/fastpath.cpp``, the HTTP/1.1 proxy loop, and
-``native/l5d_native.cpp``, the in-data-plane scorer's exports, with the
-headers they include) compiles with ``g++`` into one shared library with
-a plain C interface, loaded with ``ctypes``; ``native/h2bench.cpp``
-compiles the same way into the load generator of a saturation reading.
+The engines (``native/fastpath.cpp``, the HTTP/1.1 proxy loop, and
+``native/h2_fastpath.cpp``, the h2/gRPC proxy loop, with
+``native/l5d_native.cpp``, the in-data-plane scorer's exports, and the
+headers they include) compile with ``g++`` into one shared library with
+a plain C interface, loaded with ``ctypes``, as ``native/build.py`` links
+them for the reference; ``native/h2bench.cpp`` compiles the same way
+into the gRPC echo server and the load generators of a saturation
+reading.
 The sources are copied into a directory of ``_build/`` beside this file
 together with the port's own ``huffman_table.h`` and compiled there: a
 quoted include resolves against the including file's directory first,
@@ -34,12 +37,13 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # target -> (sources, headers they include, flags of the output, its name)
 TARGETS = {
-    "engine": (("l5d_native.cpp", "fastpath.cpp"),
-               ("scorer.h", "stream_track.h", "tenant_guard.h",
-                "tls_engine.h", "tls_shim.h"),
+    "engine": (("l5d_native.cpp", "fastpath.cpp", "h2_fastpath.cpp"),
+               ("h2_core.h", "scorer.h", "stream_track.h",
+                "tenant_guard.h", "tls_engine.h", "tls_shim.h"),
                ["-shared", "-fPIC"], "libl5d_native-{}.so"),
-    # the closed-loop load generator (``h2bench h1load``) of a
-    # saturation reading
+    # the gRPC echo server (``h2bench serve``) and the closed-loop load
+    # generators (``h2bench load``, ``h2bench h1load``) of a saturation
+    # reading
     "h2bench": (("h2bench.cpp",), ("h2_core.h", "tls_shim.h"), [],
                 "h2bench-{}"),
 }

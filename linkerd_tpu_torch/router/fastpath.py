@@ -1,15 +1,17 @@
 """FastPath controller: Python control plane for the native data plane,
-counterpart of ``linkerd_tpu/router/fastpath.py`` for the HTTP/1.1
-engine (sharded workers, native TLS, the connection guard and the
-stream sentinel; no tenants).
+counterpart of ``linkerd_tpu/router/fastpath.py`` for both engines
+(sharded workers, native TLS, the connection guard and the stream
+sentinel; no tenants).
 
-The native engine (native/fastpath.cpp) serves the HTTP/1.1 hot loop; this
-module keeps it honest with the naming system:
+A native engine serves the hot loop: native/fastpath.cpp for HTTP/1.1,
+routing by Host, or native/h2_fastpath.cpp for h2/gRPC, routing by
+``:authority``; the controller drives either through the same surface
+and keeps it honest with the naming system:
 
 - route misses surfaced by the engine are resolved through the SAME
   interpreter/dtab machinery the Python path uses (identify -> bind, ref:
   RoutingFactory.scala:154-187), and the resulting address sets are
-  installed with ``fp_set_route``;
+  installed with the engine's ``set_route``;
 - every bind Activity and leaf ``Var[Addr]`` stays observed, so namer
   updates (fs file edits) re-install routes live — address churn flows
   WITHOUT re-binding, the same invariant as DstBindingFactory;
@@ -17,9 +19,9 @@ module keeps it honest with the naming system:
   ``rt/<label>/fastpath`` scope, and per-request feature rows feed the
   ``io.l5d.jaxAnomaly`` telemeter's native ring, so fastpath traffic is
   scored on the card like Python-path traffic;
-- the engine's stream and tunnel sample rows (row kind > 0) also feed
-  the Python stream sentinel, which mirrors the engine's in-plane
-  stream governor for ``/streams.json``.
+- the engine's h2 stream and tunnel sample rows (row kind 1 and 2)
+  also feed the Python stream sentinel, which mirrors the engine's
+  in-plane stream governor for ``/streams.json``.
 """
 
 from __future__ import annotations

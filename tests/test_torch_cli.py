@@ -14,7 +14,8 @@ linkerd_tpu_torch.namerd``, run as users run them, on the CPU.
   reference does with no ``sidecarAddress``).
 - The namerd CLI on ``tests/configs/namerd.yml`` less its mesh and thrift
   interfaces answers the HTTP API and its admin pages as the
-  reference's namerd CLI does; with them it refuses each by name.
+  reference's namerd CLI does; with its thrift interface it refuses it
+  by name (the mesh interface is served: ``tests/test_torch_mesh.py``).
 """
 
 import dataclasses
@@ -293,8 +294,7 @@ def test_namerd_cli_answers_as_the_reference(tmp_path):
         200, 200, 204, 200, 200, 200, 200, 200, 404, 204, 200]
 
 
-@pytest.mark.parametrize("kind", ["io.l5d.mesh",
-                                  "io.l5d.thriftNameInterpreter"])
+@pytest.mark.parametrize("kind", ["io.l5d.thriftNameInterpreter"])
 def test_namerd_refuses_unported_interfaces_by_name(kind, tmp_path):
     from linkerd_tpu_torch.config import ConfigError
     from linkerd_tpu_torch.namerd.config import (
@@ -344,6 +344,7 @@ def test_namerd_cli_refuses_the_fixture_with_mesh_and_thrift(tmp_path):
         [sys.executable, "-m", "linkerd_tpu_torch.namerd", path], env=env(),
         capture_output=True, text=True, timeout=120, cwd=tmp_path)
     assert proc.returncode != 0
-    assert "'io.l5d.mesh' is not supported by the port yet" in proc.stderr
+    assert "'io.l5d.thriftNameInterpreter' is not supported by the port " \
+        "yet" in proc.stderr
     with pytest.raises(OSError):
         http("GET", admin, "/ping")

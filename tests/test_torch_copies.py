@@ -60,6 +60,10 @@ COPIES = (
     "grpc/__init__.py", "grpc/proto.py", "grpc/codec.py",
     "grpc/status.py", "grpc/stream.py", "grpc/dispatch.py",
     "grpc/var_event.py",
+    # the mesh gRPC API between linkerd and namerd
+    "mesh/__init__.py", "mesh/api.py", "mesh/messages.py",
+    "mesh/converters.py", "namerd/mesh_iface.py", "interpreter/mesh.py",
+    "interpreter/__init__.py",
 )
 
 # Modules that differ on purpose: reason, and the top-level names that
@@ -98,13 +102,14 @@ DIFFERENT = {
         {"USAGE", "amain", "parse_args", "main", "log", "List", "Optional",
          "Tuple"}),
     "namerd/config.py": (
-        "the in-memory and fs stores and the HTTP control interface; "
-        "the mesh and thrift interfaces and namerd/stores.py's kinds "
-        "are refused by name (ROADMAP Queue 1 items 17, 12 and 15)", None),
+        "the in-memory and fs stores, the HTTP control interface and "
+        "the mesh interface; the thrift interface and namerd/stores.py's "
+        "kinds are refused by name (ROADMAP Queue 1 items 12 and 15)",
+        None),
     "namerd/__main__.py": (
-        "runs the port's namerd/config.py, which refuses the mesh and "
-        "thrift interfaces and the remote stores by name; its logger "
-        "and usage line name the port", {"log", "main"}),
+        "runs the port's namerd/config.py, which refuses the thrift "
+        "interface and the remote stores by name; its logger and usage "
+        "line name the port", {"log", "main"}),
     "linker.py": (
         "the protocol: http subset, with a device for the telemeters and "
         "by-name refusals of what is not ported", None),
@@ -116,16 +121,16 @@ DIFFERENT = {
         None),
     "native/__init__.py": (
         "the loader builds the port's own library from native/ and has no "
-        "pure-Python fallback (a failed build raises); FastPathEngine "
-        "drives the HTTP/1.1 engine with sharded workers, native TLS, the "
-        "connection guard and the stream sentinel, without tenants "
-        "(ROADMAP Queue 1 item 10); no h2 engine (item 4), head parser, "
+        "pure-Python fallback (a failed build raises); FastPathEngine and "
+        "H2FastPathEngine drive the two engines with sharded workers, "
+        "native TLS, the connection guard and the stream sentinel, "
+        "without tenants (ROADMAP Queue 1 item 10); no head parser, "
         "Huffman or test-blob bindings; the scorer calls and stream_accum "
         "raise instead of returning None",
-        {"FastPathEngine", "H2FastPathEngine", "MAX_HEADERS", "ScoreSlab",
+        {"FastPathEngine", "MAX_HEADERS", "ScoreSlab",
          "_QUANT_CODES", "_SO_PATH", "_SPANS", "_build",
-         "_declare_fastpath", "_declare_h2_fastpath", "_declare_scorer",
-         "_declare_tls", "_lock", "_tried", "available", "ensure_built",
+         "_declare_engine", "_declare_fastpath", "_declare_h2_fastpath",
+         "_declare_scorer", "_lock", "_tried", "available", "ensure_built",
          "huffman_decode", "huffman_encode", "json", "lib", "np",
          "parse_http1_head", "score_blob_info", "score_eval",
          "score_eval_raw", "score_eval_route", "score_feature_dim",
@@ -143,22 +148,13 @@ DIFFERENT = {
         "(ROADMAP Queue 1 item 14), so FleetConfig is not imported",
         {"ControlConfig", "FleetConfig", "ConfigRefused",
          "REFUSED_KEYS"}),
-    "interpreter/__init__.py": (
-        "exports the namerd HTTP interpreter; the mesh interpreter is "
-        "not ported (ROADMAP Queue 1 item 17)",
-        {"MeshClientInterpreter", "NamerdHttpInterpreter", "__all__"}),
-    "interpreter/mesh.py": (
-        "partial: Backoff alone, which the namerd HTTP interpreter "
-        "imports; MeshClientInterpreter is not ported (ROADMAP Queue 1 "
-        "item 17)", None),
     "interpreter/configs.py": (
-        "the default and io.l5d.namerd.http kinds; the mesh, thrift "
-        "namerd, fs and configMap kinds are refused by the linker "
-        "(ROADMAP Queue 1 items 17 and 13)",
-        {"MeshClientInterpreter", "MeshInterpreterConfig",
-         "NamerdThriftInterpreterConfig", "Optional", "linkerd_tpu"}),
+        "the default, io.l5d.mesh and io.l5d.namerd.http kinds; the "
+        "thrift namerd, fs and configMap kinds are refused by the linker "
+        "(ROADMAP Queue 1 item 13)",
+        {"NamerdThriftInterpreterConfig", "linkerd_tpu"}),
     "router/fastpath.py": (
-        "the controller of the HTTP/1.1 engine: no tenant board and "
+        "the controller of both engines: no tenant board and "
         "admission (ROADMAP Queue 1 item 10; the guard counters are "
         "exported by _export_guard, the guard half of _export_tenants), "
         "and no per-row FeatureVector feed (every port telemeter has a "

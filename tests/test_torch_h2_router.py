@@ -369,13 +369,15 @@ def test_h2_configs_load_alike(extra):
 
 
 def test_fastpath_and_other_protocols_still_refused():
-    """``fastPath: true`` on h2 and the thrift, mux and thriftmux routers
-    stay refused by name."""
+    """What an h2 ``fastPath: true`` router still lacks, tenants, and the
+    thrift, mux and thriftmux routers, with or without ``fastPath``, stay
+    refused by name."""
     for text, name in (
-            ("routers:\n- protocol: h2\n  fastPath: true\n",
-             "fastPath on protocol 'h2'"),
-            *((f"routers:\n- protocol: {p}\n", f"protocol '{p}'")
-              for p in ("thrift", "mux", "thriftmux"))):
+            ("routers:\n- protocol: h2\n  fastPath: true\n"
+             "  servers: [{port: 0}]\n  tenants: {}\n", "tenants"),
+            *((f"routers:\n- protocol: {p}\n{fp}", f"protocol '{p}'")
+              for p in ("thrift", "mux", "thriftmux")
+              for fp in ("", "  fastPath: true\n"))):
         with pytest.raises(ConfigError) as e:
             port_load_linker(text, device="cpu")
         msg = str(e.value)

@@ -341,8 +341,6 @@ REFUSALS = {
     **{f"fastPath {k}": (
         "routers:\n- protocol: http\n  fastPath: true\n" + text, k)
        for k, text in (("tenants", "  tenants: {}\n"),)},
-    "fastPath on h2": ("routers:\n- protocol: h2\n  fastPath: true\n",
-                       "fastPath on protocol 'h2'"),
     "namer transformers": (
         BASE + "namers:\n- kind: io.l5d.fs\n  rootDir: .\n  transformers:"
         "\n  - kind: io.l5d.localhost\n", "transformers"),
@@ -369,13 +367,18 @@ REFUSALS = {
 
 
 # Cases this test refused by name until the port took their keys (the
-# native engine's workers, TLS, connectionGuard and streamScoring, and
-# the h2 router): each now does what the reference's linker does with the
-# same text, loading or failing with the same message.
+# native engine's workers, TLS, connectionGuard and streamScoring, the
+# h2 router, the h2 engine and the io.l5d.mesh interpreter): each now
+# does what the reference's linker does with the same text, loading or
+# failing with the same message.
 FP = "routers:\n- protocol: http\n  fastPath: true\n"
 FP0 = FP + "  servers: [{port: 0}]\n"
 PORTED = {
     "protocol h2": "routers:\n- protocol: h2\n",
+    "fastPath on h2": ("routers:\n- protocol: h2\n  fastPath: true\n"
+                       "  servers: [{port: 0}]\n"),
+    "interpreter kind io.l5d.mesh": (
+        "routers:\n- protocol: http\n  interpreter: {kind: io.l5d.mesh}\n"),
     "router key connectionGuard":
         "routers:\n- protocol: http\n  connectionGuard: {}\n",
     "router key streamScoring":

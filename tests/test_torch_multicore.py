@@ -479,7 +479,8 @@ def test_config_errors_word_for_word(case, engine_lib, tmp_path):
 def test_still_refused_by_name(case, engine_lib, tmp_path):
     router = {"tenants": {"tenants": {}},
               "tenantIdentifier": {"tenantIdentifier": {"kind": "header"}},
-              "fastPath on h2": {"protocol": "h2"}}[case]
+              # the h2 engine is served; its tenants stay refused
+              "fastPath on h2": {"protocol": "h2", "tenants": {}}}[case]
     with pytest.raises(ConfigError) as e:
         load_linker(fp_text(tmp_path, workers=4, **router), device="cpu")
     assert "not supported by the port yet" in str(e.value) and \
