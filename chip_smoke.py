@@ -11,6 +11,7 @@
     python3 chip_smoke.py --check control    # the control phase alone
     python3 chip_smoke.py --check h2         # the h2 phase alone
     python3 chip_smoke.py --check h2fast     # the h2fast phase alone
+    python3 chip_smoke.py --check mux        # the mux phase alone
     python3 chip_smoke.py --mutant one_rounding telemeter  # one mutant, one check
     python3 chip_smoke.py --witness  # the kernel's sums against exact ones
     python3 chip_smoke.py --repeat-control-a 16  # control part A, 16 times
@@ -120,24 +121,45 @@ frames predict in the ring and the sentinel, a hung backend answered
 namerd CLI over the io.l5d.mesh API (a dtab write moving one
 destination to other replicas, namerd stopped and started again, every
 call answered as the dtab of the moment says and every row scored).
+Then the mux phase: part A, BASELINE config 3 (an http router and a
+thriftmux router in one linker, io.l5d.jaxAnomaly at maxBatch 512 with a
+fit after every batch) on ``testing/config3.py``'s schedule at 2,048
+requests from a spawned load process (every thriftmux call answered with
+its own method and seqid, every calm http request by its destination,
+the routers' request counters equal to what was sent, every http row
+scored with one launch a batch, each batch's kernel scores and the board
+against plain under the model it read, svc-a scored higher under the
+faults than before them; its fault_auc printed beside BASELINE.json's
+0.9); part B, a thrift router (TTwitter upgrade, thriftMethodInDst,
+service retries) and a mux router beside the http one over 8
+destinations of 2 replicas, one destination answering thrift EXCEPTION
+replies, a thrift and a mux replica failing while the flag is up (every
+calm call answered by its destination, the mux calls' downstream dest
+the bound residual, a Tdispatch dtab override, retries counted, exactly
+the faulted endpoints removed by failure accrual, the http rows scored
+as in part A); part C, the three routers bound through the namerd CLI's
+thrift interface (``io.l5d.namerd``) around a dtab write and a namerd
+restart (every call answered as the dtab of the moment says, every http
+row scored under its destination, the write- and restart-to-answer ms).
 Prints the card, a JSON line of kernel and
 service numbers, one of the train phase's, one of the distill
 phase's, one of the telemeter phase's, one of the linker phase's, one
 of the fastpath phase's, one of the control phase's, one of the cli
-phase's, one of the h2 phase's, one of the h2fast phase's, and as its
-last line
+phase's, one of the h2 phase's, one of the h2fast phase's, one of the
+mux phase's, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; with no CUDA device, or
 outside the repository, it exits non-zero before printing any result.
 Imports nothing of JAX.
 
 ``--mutants`` builds deliberately broken copies of the kernel in a
 temporary copy of the port and runs the kernel and served checks
-against each, and the linker, fastpath, control, cli, h2 and h2fast
+against each, and the linker, fastpath, control, cli, h2, h2fast and mux
 phases against ``LINKER_MUTANT``, the cli phase against ``CLI_MUTANTS``, part D
 against ``FASTPATH_MUTANTS`` (the sharded engine's stats merge and
 feature drain reading worker 0 alone), the h2 phase against
-``H2_MUTANTS`` and the h2fast phase against ``H2FAST_MUTANTS``, in a
-fresh interpreter; it fails unless every check fails on its mutant.
+``H2_MUTANTS``, the h2fast phase against ``H2FAST_MUTANTS`` and the
+mux phase against ``MUX_MUTANTS``, in a fresh interpreter; it fails
+unless every check fails on its mutant.
 
 ``--witness`` runs the linker phase's part A and, on its window rows,
 holds the kernel and the plain version against an exact forward
@@ -2353,12 +2375,18 @@ def answerer(body: bytes, d: int) -> int:
     """Which backend of destination ``d`` answered: its replica R for
     ``tele-DD/R``, FAILOVER_WHO + R for the failover cluster's
     ``tele-DD-b/R``, -1 for anything else (an error body)."""
+    return answer_of(body, d)[0]
+
+
+def answer_of(body: bytes, d: int) -> tuple:
+    """``answerer``'s code, and the rest of the body after ``tele-DD/R``
+    (empty with -1)."""
     for base, name in ((0, f"tele-{d:02d}/"), (FAILOVER_WHO,
                                               f"tele-{d:02d}-b/")):
-        if body.startswith(name.encode()):
-            r = body[len(name):len(name) + 1]
-            return base + int(r) if r.isdigit() else -1
-    return -1
+        b = name.encode()
+        if body.startswith(b) and body[len(b):len(b) + 1].isdigit():
+            return base + int(body[len(b):len(b) + 1]), body[len(b) + 1:]
+    return -1, b""
 
 
 def linker_load(conn) -> None:
@@ -6751,6 +6779,990 @@ async def h2fast_phase(seed: int = 12, dev: str = "cuda",
     return res, launches
 
 
+# The mux phase: the thrift, mux and thriftmux routers, namerd's thrift
+# interface and BASELINE config 3. Part A runs config 3's config and
+# schedule (``linkerd_tpu_torch/testing/config3.py``) at MUX_REQUESTS
+# requests: an http router ``web`` and a thriftmux router ``tmx`` in one
+# linker under io.l5d.jaxAnomaly (maxBatch 512, a fit after every batch),
+# svc-a behind the reference's FaultInjector; the thriftmux router
+# carries no recorder (as the reference's), so the kernel scores the
+# http rows. Part B: a thrift router (framed binary, the TTwitter
+# upgrade, thriftMethodInDst, service retries) and a mux router beside
+# the http one, over MUX_DSTS destinations of two replicas each, faults
+# on three of them while the flag is up. Part C: the three routers bound
+# through the namerd CLI's thrift interface (``io.l5d.namerd``) around a
+# dtab write and a namerd restart. Backends and load run in spawned
+# processes; the load process runs each job (a sender of config 3, or
+# a plan of calls) as a task of its own, so concurrent senders stay
+# concurrent.
+MUX_REQUESTS = 2048        # config 3's requests (the benchmark: 120)
+MUX_CONNS = 16             # keep-alive connections of a sender
+MUX_DSTS = 8               # part B and C destinations, 2 replicas each
+MUX_EXCEPTION_DST = 0      # thrift: EXCEPTION replies while the flag is up
+MUX_DROP_DST = 1           # thrift: replica 0 drops its connections
+MUX_RERR_DST = 2           # mux: replica 0 answers Rerr
+MUX_MOVED = 5              # part C: the destination the dtab write moves
+MUX_CALLS = 4096           # part B calls of each protocol a window
+MUX_HTTP = 1024            # part B and C http requests a window
+MUX_BURST = 512            # part C calls of each protocol a burst
+MUX_AUC_TARGET = 0.9       # BASELINE.json's fault_auc target (printed)
+MUX_REROUTE_S = 30.0       # part C: a write to the first answer it routes
+# Part C: namerd's restart to the first answer it routes. namerd's CLI
+# boots in 6-8 s on the card machine (h2fast C), and the interpreter's
+# long poll retries on a jittered backoff that doubles from 0.1 s up to
+# 10 s a try: up to 10 s past the boot, and a slow boot, fit in 60 s.
+MUX_RESTART_S = 60.0
+MUX_METHOD = "ping"
+
+
+def mux_reply(name: str, seqid: int, body: bytes = b"") -> bytes:
+    """A strict REPLY whose result struct's field 0 is ``body``."""
+    from linkerd_tpu_torch.protocol.thrift.codec import REPLY, VERSION_1
+
+    nb = name.encode()
+    return (struct.pack(">I", (VERSION_1 | REPLY) & 0xFFFFFFFF)
+            + struct.pack(">I", len(nb)) + nb + struct.pack(">i", seqid)
+            + b"\x0b" + struct.pack(">hI", 0, len(body)) + body + b"\x00")
+
+
+def mux_body(reply: bytes) -> bytes:
+    """``mux_reply``'s body back."""
+    from linkerd_tpu_torch.protocol.thrift.binary import header_len
+
+    h = header_len(reply)
+    (n,) = struct.unpack(">I", reply[h + 3:h + 7])
+    return reply[h + 7:h + 7 + n]
+
+
+def mux_config3_backends(conn, flag) -> None:
+    """Child process: config 3's downstreams, svc-a (behind the
+    reference's FaultInjector, active while ``flag`` is up), svc-b and
+    the thriftmux echo; sends back their ports."""
+    from linkerd_tpu_torch.protocol.http.message import Response
+    from linkerd_tpu_torch.protocol.http.server import serve
+    from linkerd_tpu_torch.protocol.mux.server import MuxServer
+    from linkerd_tpu_torch.router.service import FnService
+    from linkerd_tpu_torch.testing.config3 import mux_echo
+    from linkerd_tpu_torch.testing.faults import FaultInjector, FaultSpec
+
+    injector = FaultInjector(FaultSpec(error_rate=0.9, latency_ms=40.0))
+
+    async def backend_a(req):
+        return Response(200, body=b"a" * 200)
+
+    async def backend_b(req):
+        return Response(200, body=b"b" * 120)
+
+    class Flagged:
+        async def __call__(self, req):
+            injector.active = bool(flag.value)
+            return await injector.and_then(FnService(backend_a))(req)
+
+    async def main():
+        servers = [await serve(FnService(Flagged())),
+                   await serve(FnService(backend_b)),
+                   await MuxServer(FnService(mux_echo)).start()]
+        conn.send([s.bound_port for s in servers])
+        await asyncio.get_running_loop().run_in_executor(None, conn.recv)
+        for s in servers:
+            await s.close()
+
+    asyncio.run(main())
+
+
+async def thrift_answerer(name: str, mode):
+    """A framed-binary thrift server that takes the TTwitter upgrade and
+    answers every call with ``mux_reply(method, seqid, name)``; while
+    ``mode()`` reads "exception" it answers a TApplicationException, and
+    while it reads "drop" it closes the connection on each message."""
+    from linkerd_tpu_torch.protocol.thrift import ttwitter as ttw
+    from linkerd_tpu_torch.protocol.thrift.codec import (
+        encode_exception, parse_message_header, read_framed, write_framed,
+    )
+
+    async def on_conn(reader, writer):
+        upgraded = False
+        try:
+            while True:
+                payload = await read_framed(reader)
+                if payload is None or mode() == "drop":
+                    return
+                if upgraded:
+                    _, payload = ttw.peel_struct(ttw.TRequestHeader, payload)
+                method, seqid, _ = parse_message_header(payload)
+                if method == ttw.CAN_TRACE_METHOD and not upgraded:
+                    upgraded = True
+                    write_framed(writer, ttw.encode_upgrade_reply(seqid))
+                    await writer.drain()
+                    continue
+                reply = (encode_exception(method, seqid, f"{name} faulted")
+                         if mode() == "exception" else
+                         mux_reply(method, seqid, name.encode()))
+                if upgraded:
+                    reply = ttw.prepend_struct(ttw.TResponseHeader(), reply)
+                write_framed(writer, reply)
+                await writer.drain()
+        except (OSError, asyncio.IncompleteReadError):
+            pass
+        finally:
+            writer.close()
+
+    return await asyncio.start_server(on_conn, "127.0.0.1", 0)
+
+
+def mux_service(name: str, faulted=lambda: False):
+    """A mux backend: a REPLY of the call's method and seqid whose body
+    is ``name:<the Tdispatch dest>``; an Rerr while ``faulted()``."""
+    from linkerd_tpu_torch.protocol.thrift.codec import parse_message_header
+    from linkerd_tpu_torch.router.service import FnService
+
+    async def handle(td):
+        if faulted():
+            raise RuntimeError(f"{name} faulted")
+        method, seqid, _ = parse_message_header(td.payload)
+        return mux_reply(method, seqid, f"{name}:{td.dest}".encode())
+
+    return FnService(handle)
+
+
+def mux_dst_backends(conn, dsts, flag) -> None:
+    """Child process: for each destination index of ``dsts``, two
+    replicas of a thrift server (``thrift_answerer``) and of a mux server
+    (``MuxServer``), named ``tele-DD/R``; a mux answer's body is the name
+    and the Tdispatch dest it got. While ``flag`` is up, MUX_EXCEPTION_DST
+    answers thrift EXCEPTION replies, MUX_DROP_DST's replica 0 drops its
+    thrift connections and MUX_RERR_DST's replica 0 answers mux Rerr.
+    Sends back ``{(kind, d, r): port}``."""
+    from linkerd_tpu_torch.protocol.mux.server import MuxServer
+
+    def thrift_mode(d, r):
+        def mode():
+            if not flag.value:
+                return None
+            if d == MUX_EXCEPTION_DST:
+                return "exception"
+            return "drop" if d == MUX_DROP_DST and r == 0 else None
+        return mode
+
+    def mux_handler(name, d, r):
+        return mux_service(name, lambda: bool(
+            flag.value and d == MUX_RERR_DST and r == 0))
+
+    async def main():
+        ports, servers = {}, []
+        for d in dsts:
+            for r in range(LINKER_REPLICAS):
+                name = f"tele-{d:02d}/{r}"
+                t = await thrift_answerer(name, thrift_mode(d, r))
+                m = await MuxServer(mux_handler(name, d, r)).start()
+                servers += [t, m]
+                ports[("thrift", d, r)] = t.sockets[0].getsockname()[1]
+                ports[("mux", d, r)] = m.bound_port
+        conn.send(ports)
+        await asyncio.get_running_loop().run_in_executor(None, conn.recv)
+        for s in servers:
+            if isinstance(s, asyncio.base_events.Server):
+                s.close()
+                await s.wait_closed()
+            else:
+                await s.close()
+
+    asyncio.run(main())
+
+
+async def mux_job(job) -> dict:
+    """One job of the load process. ``("http", port, host, n, conns)``: n
+    requests with that Host over ``conns`` keep-alive connections;
+    ``("tmx", port, n, conns, seq0)``: n thriftmux calls of MUX_METHOD;
+    ``("thrift", port, plans, seq0)`` and ``("mux", port, plans, seq0)``:
+    a connection a plan, each call to ``tele-DD`` of its plan (the thrift
+    method, or the mux dest ``/mtele-DD/rK``). Returns per call: status
+    (http status; 2 REPLY, 3 EXCEPTION; 0 answered; -1 an error), who
+    answered, whether the answer was right for the call, and ms."""
+    from linkerd_tpu_torch.protocol.http.client import HttpClient
+    from linkerd_tpu_torch.protocol.http.message import Request
+    from linkerd_tpu_torch.protocol.mux.client import MuxClient
+    from linkerd_tpu_torch.protocol.mux.codec import Tdispatch
+    from linkerd_tpu_torch.protocol.thrift.client import ThriftClient
+    from linkerd_tpu_torch.protocol.thrift.codec import (
+        CALL, ThriftCall, parse_message_header,
+    )
+    from linkerd_tpu_torch.testing.config3 import mk_call
+
+    kind, port = job[0], job[1]
+    if kind == "http":
+        _, _, host, n, conns = job
+        plans = np.array_split(np.zeros(n, np.int16), conns)
+    elif kind == "tmx":
+        _, _, n, conns, seq0 = job
+        plans = np.array_split(np.zeros(n, np.int16), conns)
+    else:
+        _, _, plans, seq0 = job
+    n = sum(len(p) for p in plans)
+    out = {"dst": np.concatenate(plans).astype(np.int16),
+           "status": np.zeros(n, np.int16), "who": np.zeros(n, np.int8),
+           "right": np.zeros(n, bool), "ms": np.zeros(n)}
+    offs = np.cumsum([0] + [len(p) for p in plans])
+
+    async def one_conn(plan, off):
+        if kind == "http":
+            client = HttpClient("127.0.0.1", port, max_connections=1)
+        elif kind == "thrift":
+            client = ThriftClient("127.0.0.1", port, attempt_ttwitter=True)
+        else:
+            client = MuxClient("127.0.0.1", port)
+        try:
+            for i, d in enumerate(plan):
+                k, d = off + i, int(d)
+                seqid = seq0 + k + 1 if kind != "http" else 0
+                t0 = time.perf_counter()
+                try:
+                    if kind == "http":
+                        req = Request(uri="/")
+                        req.headers.set("Host", host)
+                        rsp = await client(req)
+                        status, body = rsp.status, rsp.body
+                        who = {b"a" * 200: 0, b"b" * 120: 1}.get(body, -1)
+                        right = who == {"svc-a": 0, "svc-b": 1}[host]
+                    elif kind == "tmx":
+                        rsp = await client(Tdispatch(
+                            0, [], "", [], mk_call(MUX_METHOD, seqid)))
+                        status, who = 0, 0
+                        right = parse_message_header(rsp)[:2] == (
+                            MUX_METHOD, seqid)
+                    elif kind == "thrift":
+                        method = f"tele-{d:02d}"
+                        rsp = await client(ThriftCall(
+                            mk_call(method, seqid), method, seqid, CALL))
+                        m, s, status = parse_message_header(rsp)
+                        who = answer_of(mux_body(rsp), d)[0] \
+                            if status == 2 else -1
+                        right = (m, s) == (method, seqid)
+                    else:
+                        dest = f"/mtele-{d:02d}/r{k % 3}"
+                        rsp = await client(Tdispatch(
+                            0, [], dest, [], mk_call(MUX_METHOD, seqid)))
+                        who, rest = answer_of(mux_body(rsp), d)
+                        status = 0
+                        # the bound residual, never the logical dest
+                        right = parse_message_header(rsp)[:2] == (
+                            MUX_METHOD, seqid) and rest == \
+                            f":/r{k % 3}".encode()
+                except Exception:  # noqa: BLE001 — counted as status -1
+                    status, who, right = -1, -1, False
+                out["ms"][k] = (time.perf_counter() - t0) * 1e3
+                out["status"][k], out["who"][k] = status, who
+                out["right"][k] = right
+        finally:
+            await client.close()
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(one_conn(p, int(o))
+                           for p, o in zip(plans, offs)))
+    out["wall"] = time.perf_counter() - t0
+    out["kind"] = kind
+    return out
+
+
+def mux_load(conn) -> None:
+    """Child process: runs each ``(id, job)`` from ``conn`` as a task of
+    its own (``mux_job``) and sends back ``(id, result)`` when it ends;
+    ``None`` ends it."""
+    import threading
+
+    async def main():
+        loop = asyncio.get_running_loop()
+        done, lock = asyncio.Event(), threading.Lock()
+
+        async def run(jid, job):
+            res = await mux_job(job)
+            with lock:
+                conn.send((jid, res))
+
+        def reader():
+            while True:
+                msg = conn.recv()
+                if msg is None:
+                    loop.call_soon_threadsafe(done.set)
+                    return
+                asyncio.run_coroutine_threadsafe(run(*msg), loop)
+
+        threading.Thread(target=reader, daemon=True).start()
+        await done.wait()
+
+    asyncio.run(main())
+
+
+class MuxLoad:
+    """The parent's side of ``mux_load``: ``await run(job)``."""
+
+    def __init__(self, conn):
+        import threading
+
+        self.conn, self.futs, self.n = conn, {}, 0
+        self.loop = None
+        self.thread = threading.Thread(target=self._reader, daemon=True)
+
+    def _reader(self):
+        while True:
+            try:
+                jid, res = self.conn.recv()
+            except (EOFError, OSError):
+                return
+            self.loop.call_soon_threadsafe(
+                lambda j=jid, r=res: self.futs.pop(j).set_result(r))
+
+    async def run(self, job) -> dict:
+        if self.loop is None:
+            self.loop = asyncio.get_running_loop()
+            self.thread.start()
+        jid, self.n = self.n, self.n + 1
+        fut = self.futs[jid] = self.loop.create_future()
+        self.conn.send((jid, job))
+        return await fut
+
+
+def mux_times(res: dict) -> dict:
+    ms = res["ms"]
+    return {"calls": len(ms), "calls_per_s": len(ms) / res["wall"],
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def merge_results(results) -> dict:
+    """One job result of several (walls overlapping: the longest)."""
+    out = {k: np.concatenate([r[k] for r in results])
+           for k in ("dst", "status", "who", "right", "ms")}
+    out["wall"] = max(r["wall"] for r in results)
+    return out
+
+
+class SnapTap:
+    """Wraps, on a telemeter, its scorer's ``score`` (each call's rows,
+    scores and the model it read: a snapshot taken just before, under
+    the lock a fit holds) and its board's folds, in order."""
+
+    def __init__(self, tele):
+        self.scored, self.folds = [], []
+        self.tele = tele
+        scorer, board = tele._ensure_scorer(), tele.board
+        score, fold = scorer.score, board.update_batch
+
+        async def scoring(x):
+            snap = scorer.snapshot()
+            s = await score(x)
+            self.scored.append((x, s, snap))
+            return s
+
+        def folding(dsts, scores, endpoints=None):
+            self.folds.append((list(dsts), scores, endpoints))
+            return fold(dsts, scores, endpoints=endpoints)
+
+        scorer.score, board.update_batch = scoring, folding
+
+    async def settle(self, what: str, task=None) -> None:
+        """Until every recorded row is scored (``run()``'s task, when
+        given, still alive)."""
+        tele, t0 = self.tele, time.monotonic()
+        while tele.ring or tele._scored.value != tele._requests.value:
+            if task is not None and task.done():
+                task.result()
+                raise AssertionError(f"mux {what}: run() ended early")
+            if time.monotonic() - t0 > LINKER_SETTLE_S:
+                raise AssertionError(
+                    f"mux {what}: {tele._scored.value} of "
+                    f"{tele._requests.value} rows scored after "
+                    f"{LINKER_SETTLE_S} s")
+            await asyncio.sleep(1e-3)
+
+
+def snap_checks(what: str, tele, tap, calls: int, launches: int,
+                dev: str) -> dict:
+    """The first ``calls`` score calls, each under the model it read:
+    kernel against plain on every row (TOL; at most ROW_SHARE past
+    ROW_TOL), one launch a call with rows, and the board against a fresh
+    one folded in the same order with the plain scores."""
+    scored = tap.scored[:calls]
+    plain = [plain_scores(snap, x, dev) for x, _, snap in scored]
+    with_rows = sum(len(x) > 0 for x, _, _ in scored)
+    if launches != (0 if dev == "cpu" else with_rows):
+        raise AssertionError(f"mux {what}: {launches} kernel launches for "
+                             f"{with_rows} batches with rows")
+    got = np.concatenate([s for _, s, _ in scored])
+    gap = np.abs(got - np.concatenate(plain))
+    past = int((gap > ROW_TOL).sum())
+    print(f"mux {what}: {len(scored)} batches, {launches} launches, "
+          f"kernel vs plain max|diff| {gap.max():.3e}, {past} of "
+          f"{len(gap)} rows past {ROW_TOL}")
+    if gap.max() > TOL or past > ROW_SHARE * len(gap):
+        raise AssertionError(f"mux {what}: kernel vs plain max "
+                             f"{gap.max()}, {past} of {len(gap)} rows past "
+                             f"{ROW_TOL}")
+    board = linker_board_check(tele, tap, 0, {
+        batch_key(s): p for (_, s, _), p in zip(scored, plain)},
+        f"mux {what}")
+    print(f"mux {what}: board vs plain fold {board:.3e}")
+    if board > TOL:
+        raise AssertionError(f"mux {what}: board off the plain fold by "
+                             f"{board} > {TOL}")
+    return {"launches": launches, "batches": len(scored),
+            "batches_with_rows": with_rows, "rows": len(gap),
+            "kernel_vs_plain_max": float(gap.max()),
+            "rows_past_row_tol": past, "board_vs_plain_fold_max": board}
+
+
+def http_checks(res: dict, what: str, host: str, faulted: bool) -> dict:
+    """Every request answered 200 by its destination (with ``faulted``,
+    svc-a's may be the injected 503 after the latency)."""
+    ok = (res["status"] == 200) & res["right"]
+    if faulted:
+        ok |= res["status"] == 503
+    if not ok.all():
+        i = int(np.flatnonzero(~ok)[0])
+        raise AssertionError(f"mux {what}: {int((~ok).sum())} {host} "
+                             f"requests misrouted or failed, e.g. status "
+                             f"{res['status'][i]}")
+    return mux_times(res)
+
+
+async def mux_part_a(loads, flag, ports, dev: str):
+    """BASELINE config 3 through ``testing/config3.drive`` at MUX_REQUESTS,
+    the senders jobs of the load process. Launches counted over the
+    drive; the fault window's AUC scored after it."""
+    from linkerd_tpu_torch.linker import load_linker
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+    from linkerd_tpu_torch.testing import config3
+
+    load = loads[0]
+    with tempfile.TemporaryDirectory() as disco:
+        for name, port in zip(("svc-a", "svc-b", "thriftmux"), ports):
+            (Path(disco) / name).write_text(f"127.0.0.1 {port}\n")
+        linker = load_linker(config3.CONFIG.format(disco=disco), device=dev)
+        await linker.start()
+        tele = linker.telemeters[0]
+        tap = SnapTap(tele)
+        http_port, tmx_port = (r.server_ports[0] for r in linker.routers)
+        sent = {"http": [], "tmx": []}
+        seq = [0]
+
+        async def send_http(host: str, n: int):
+            res = await load.run(("http", http_port, host, n, MUX_CONNS))
+            sent["http"].append((host, bool(flag.value), res))
+
+        async def send_tmx(n: int):
+            seq[0] += n
+            res = await load.run(("tmx", tmx_port, n, MUX_CONNS,
+                                  seq[0] - n))
+            sent["tmx"].append(res)
+
+        def set_fault(on: bool):
+            flag.value = int(on)
+
+        try:
+            fused_anomaly_scores.launches = 0
+            t0 = time.perf_counter()
+            out = await config3.drive(
+                linker, config3.Traffic(send_http, send_tmx, set_fault),
+                MUX_REQUESTS)
+            drive_s = time.perf_counter() - t0
+            launches = fused_anomaly_scores.launches
+            calls = len(tap.scored)
+            n_http = sum(len(r["ms"]) for _, _, r in sent["http"])
+            n_tmx = sum(len(r["ms"]) for r in sent["tmx"])
+            recorded = tele._requests.value
+            if recorded != n_http:
+                raise AssertionError(f"mux A: {n_http} http requests, "
+                                     f"{recorded} rows recorded")
+            items = out.pop("items")
+            out.update(await config3.evaluate(tele, items))
+            flat = linker.metrics.flatten()
+        finally:
+            flag.value = 0
+            await linker.close()
+    for key, n in (("rt/web/server/requests", n_http),
+                   ("rt/tmx/server/requests", n_tmx)):
+        if flat[key] != n:
+            raise AssertionError(f"mux A: {key} {flat[key]}, sent {n}")
+    for r in sent["tmx"]:
+        if not r["right"].all():
+            raise AssertionError(f"mux A: {int((~r['right']).sum())} tmx "
+                                 f"calls without their method and seqid")
+    times = {"tmx": mux_times(merge_results(sent["tmx"]))}
+    for host in ("svc-a", "svc-b"):
+        for faulted in (False, True):
+            rs = [r for h, f, r in sent["http"] if h == host and f == faulted]
+            if rs:
+                times[f"{host}{' faulted' if faulted else ''}"] = \
+                    http_checks(merge_results(rs), "A", host, faulted)
+    # every recorded row scored once, and the epochs' copies again
+    rows = flat["anomaly/scored_total"]
+    if flat["anomaly/requests_total"] != n_http or \
+            rows != n_http + config3.EPOCHS * out["ring_copy"] or \
+            flat["anomaly/score_failures"] or flat["anomaly/dropped_batches"]:
+        raise AssertionError(
+            f"mux A: {n_http} http requests, "
+            f"{flat['anomaly/requests_total']} recorded, {rows} scored "
+            f"(epochs {config3.EPOCHS} x {out['ring_copy']})")
+    out.update(snap_checks("A", tele, tap, calls, launches, dev))
+    if not out["score_anomalous"] > out["score_baseline"]:
+        raise AssertionError(f"mux A: /svc/svc-a scored "
+                             f"{out['score_anomalous']} under the faults, "
+                             f"{out['score_baseline']} before them")
+    out.update(http_requests=n_http, tmx_requests=n_tmx, drive_s=drive_s,
+               times=times, fault_auc_target=MUX_AUC_TARGET)
+    print(f"mux A (config 3, {MUX_REQUESTS} requests): fault_auc "
+          f"{out['fault_auc']:.4f} (BASELINE target {MUX_AUC_TARGET}), "
+          f"score_baseline {out['score_baseline']:.4f}, score_anomalous "
+          f"{out['score_anomalous']:.4f}; {n_http} http + {n_tmx} tmx "
+          f"requests, {rows} rows scored in {out['batches']} batches, "
+          f"drive {drive_s:.2f} s; " + ", ".join(
+              f"{k} {v['calls_per_s']:.0f}/s p50 {v['p50_ms']:.2f} p99 "
+              f"{v['p99_ms']:.2f} ms" for k, v in times.items()))
+    return out, launches
+
+
+MUX_DTAB = "/svc => /#/io.l5d.fs ;"
+
+
+def mux_config(work: Path, interpreter=None) -> str:
+    """Part B and C's linker as JSON text: the http router of config 3,
+    a thrift router (thriftMethodInDst, service retries) and a mux router
+    over one fs namer's directory (``mux_discos``), and io.l5d.jaxAnomaly
+    without training; with ``interpreter``, every router binds through
+    it instead of MUX_DTAB. (One namer: an io.l5d.fs namer names its ids
+    /#/io.l5d.fs/<file> whatever its prefix, so two would share ids
+    through namerd; ROADMAP Queue 3.)"""
+    retries = {"retries": {"budget": {"minRetriesPerSec": 1000,
+                                      "percentCanRetry": 1.0}}}
+    routers = [
+        {"protocol": "http", "label": "web",
+         "client": {"failureAccrual": {"kind": "none"}}},
+        {"protocol": "thrift", "label": "thr", "thriftMethodInDst": True,
+         "attemptTTwitterUpgrade": True, "service": retries},
+        {"protocol": "mux", "label": "mx"}]
+    for r in routers:
+        r["servers"] = [{"port": 0}]
+        if interpreter is None:
+            r["dtab"] = MUX_DTAB
+        else:
+            r["interpreter"] = interpreter
+    return json.dumps({
+        "routers": routers,
+        "telemetry": [{"kind": "io.l5d.jaxAnomaly", "maxBatch": 512,
+                       "trainEveryBatches": 0, "reconWeight": 1.0}],
+        "namers": mux_namers(work)})
+
+
+def mux_namers(work: Path) -> list:
+    return [{"kind": "io.l5d.fs", "rootDir": str(work / "disco")}]
+
+
+def mux_discos(work: Path, ports, dports) -> None:
+    """The fs namer's directory ``work/disco``: svc-a and svc-b, and for
+    each destination ``tele-DD`` over its thrift replicas and
+    ``mtele-DD`` over its mux replicas."""
+    disco = work / "disco"
+    disco.mkdir()
+    for name, port in zip(("svc-a", "svc-b"), ports):
+        (disco / name).write_text(f"127.0.0.1 {port}\n")
+    for k, file in (("thrift", "tele"), ("mux", "mtele")):
+        for d in range(MUX_DSTS):
+            (disco / f"{file}-{d:02d}").write_text("".join(
+                f"127.0.0.1 {dports[(k, d, r)]}\n"
+                for r in range(LINKER_REPLICAS)))
+
+
+def mux_plans(rng, n: int, conns: int = MUX_CONNS):
+    return np.array_split(rng.integers(MUX_DSTS, size=n), conns)
+
+
+def proto_checks(res: dict, what: str, faults_on: bool,
+                 moved: dict = None) -> dict:
+    """Every calm call answered by a replica of its destination (``moved``:
+    destination -> the ``who`` codes that must answer it instead), right
+    for the call (thrift: its method and seqid; mux: the bound residual as
+    dest). With ``faults_on``: MUX_EXCEPTION_DST's thrift calls come back
+    EXCEPTION, MUX_DROP_DST's are answered (retried onto replica 1 when
+    replica 0 drops), MUX_RERR_DST's mux calls are answered or fail."""
+    moved = moved or {}
+    dst, who, st = res["dst"], res["who"], res["status"]
+    own = np.array([w in moved.get(int(d), (0, 1)) for d, w in zip(dst, who)])
+    answered = (st >= 0) & (st != 3) & res["right"] & own
+    calm = np.ones(len(dst), bool)
+    if faults_on:
+        calm &= ~np.isin(dst, (MUX_EXCEPTION_DST, MUX_RERR_DST))
+        exc = dst == MUX_EXCEPTION_DST
+        if what.startswith("thrift") and not ((st[exc] == 3).all()
+                                              and exc.any()):
+            raise AssertionError(f"mux {what}: tele-{MUX_EXCEPTION_DST:02d}"
+                                 f" calls not passed through as EXCEPTION")
+    bad = calm & ~answered
+    if bad.any():
+        i = int(np.flatnonzero(bad)[0])
+        raise AssertionError(
+            f"mux {what}: {int(bad.sum())} calls not answered by their "
+            f"destination, e.g. tele-{dst[i]:02d} -> status {st[i]}, who "
+            f"{who[i]}, right {res['right'][i]}")
+    return mux_times(res)
+
+
+async def mux_part_b(loads, flag, ports, dports, dev: str):
+    """Part B: the http, thrift and mux routers in one linker over the
+    destination backends; a calm window, then one with the faults up.
+    Every calm call answered by its destination, the faulted thrift
+    endpoint retried around and removed by failure accrual (the mux one
+    too), the calm ones kept; a Tdispatch dtab override; the http rows
+    scored as in part A."""
+    from linkerd_tpu_torch.core.tasks import monitor
+    from linkerd_tpu_torch.linker import load_linker
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+    from linkerd_tpu_torch.protocol.mux.client import MuxClient
+    from linkerd_tpu_torch.protocol.mux.codec import Tdispatch
+    from linkerd_tpu_torch.testing.config3 import mk_call
+
+    load, rng = loads[0], np.random.default_rng(14)
+    work = Path(tempfile.mkdtemp(prefix="mux-b-"))
+    mux_discos(work, ports, dports)
+    linker = load_linker(mux_config(work), device=dev)
+    await linker.start()
+    tele = linker.telemeters[0]
+    tap, accrual = SnapTap(tele), AccrualTap()
+    task = monitor(asyncio.create_task(tele.run()),
+                   what=f"telemeter-{type(tele).__name__}")
+    web, thr, mx = (r.server_ports[0] for r in linker.routers)
+    out, runs, seq = {}, {}, 0
+    try:
+        fused_anomaly_scores.launches = 0
+        for window in ("calm", "faulted"):
+            flag.value = int(window == "faulted")
+            jobs = [("thrift", thr, mux_plans(rng, MUX_CALLS), seq),
+                    ("mux", mx, mux_plans(rng, MUX_CALLS), seq + MUX_CALLS),
+                    ("http", web, "svc-b", MUX_HTTP, MUX_CONNS)]
+            seq += 2 * MUX_CALLS
+            thrift, mux, http = await asyncio.gather(
+                *(load.run(j) for j in jobs))
+            runs[window] = (thrift, mux, http)
+            faults = window == "faulted"
+            out[window] = {
+                "thrift": proto_checks(thrift, f"thrift B {window}", faults),
+                "mux": proto_checks(mux, f"mux B {window}", faults),
+                "http": http_checks(http, f"B {window}", "svc-b", False)}
+        flag.value = 0
+        client = MuxClient("127.0.0.1", mx)
+        try:
+            # the caller's dtab moves mtele-03 onto tele-04's replicas
+            rsp = await asyncio.wait_for(client(Tdispatch(
+                0, [], "/mtele-03/x", [("/svc/mtele-03",
+                                        "/#/io.l5d.fs/mtele-04")],
+                mk_call(MUX_METHOD, seq + 1))), 10)
+        finally:
+            await client.close()
+        who, rest = answer_of(mux_body(rsp), 4)
+        if who < 0 or rest != b":/x":
+            raise AssertionError(f"mux B: the dtab override was answered "
+                                 f"{mux_body(rsp)}")
+        out["override_answer"] = mux_body(rsp).decode()
+        sent_http = MUX_HTTP * 2
+        await tap.settle("B", task)
+        launches = fused_anomaly_scores.launches
+        flat = linker.metrics.flatten()
+    finally:
+        flag.value = 0
+        accrual.close()
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+        await linker.close()
+        shutil.rmtree(work, ignore_errors=True)
+    for label, kind in (("thr", "thrift"), ("mx", "mux")):
+        n = sum(len(r[0 if kind == "thrift" else 1]["ms"])
+                for r in runs.values()) + (kind == "mux")
+        if flat[f"rt/{label}/server/requests"] != n:
+            raise AssertionError(f"mux B: rt/{label}/server/requests "
+                                 f"{flat[f'rt/{label}/server/requests']}, "
+                                 f"sent {n}")
+    retries = flat.get(f"rt/thr/service/svc.tele-{MUX_DROP_DST:02d}/"
+                       f"retries/total", 0)
+    exceptions = flat.get(f"rt/thr/service/svc.tele-"
+                          f"{MUX_EXCEPTION_DST:02d}/failures", 0)
+    faulted_ports = {dports[("thrift", MUX_DROP_DST, 0)],
+                     dports[("mux", MUX_RERR_DST, 0)]}
+    removed = set(accrual.removals)
+    print(f"mux B: thrift retries on tele-{MUX_DROP_DST:02d} {retries}, "
+          f"EXCEPTION replies counted as failures {exceptions}, endpoints "
+          f"removed {sorted(removed)} (faulted {sorted(faulted_ports)})")
+    if not retries or not exceptions or removed != faulted_ports:
+        raise AssertionError(
+            f"mux B: retries {retries}, EXCEPTION failures {exceptions}, "
+            f"removed {sorted(removed)}, faulted {sorted(faulted_ports)}")
+    if flat["anomaly/requests_total"] != sent_http:
+        raise AssertionError(f"mux B: {flat['anomaly/requests_total']} http "
+                             f"rows recorded, {sent_http} sent")
+    out.update(snap_checks("B", tele, tap, len(tap.scored), launches, dev))
+    out.update(retries=retries, exception_failures=exceptions,
+               removed=len(removed))
+    return out, launches
+
+
+async def until_answered(kind: str, port: int, prefix: str, t0: float,
+                         timeout: float, seq0: int, dest: str = "") -> tuple:
+    """Calls of tele-<MUX_MOVED> through the ``kind`` ("thrift" or "mux",
+    to the Tdispatch ``dest``) router on ``port``, one after another,
+    until one is answered by a backend whose name starts with
+    ``prefix``: (ms from the ``time.perf_counter()`` instant ``t0`` to
+    that answer, calls made). Fails ``timeout`` s after ``t0``."""
+    from linkerd_tpu_torch.protocol.mux.client import MuxClient
+    from linkerd_tpu_torch.protocol.mux.codec import Tdispatch
+    from linkerd_tpu_torch.protocol.thrift.client import ThriftClient
+    from linkerd_tpu_torch.protocol.thrift.codec import (
+        CALL, ThriftCall, parse_message_header,
+    )
+    from linkerd_tpu_torch.testing.config3 import mk_call
+
+    method = f"tele-{MUX_MOVED:02d}"
+    client = (ThriftClient("127.0.0.1", port, attempt_ttwitter=True)
+              if kind == "thrift" else MuxClient("127.0.0.1", port))
+    calls = 0
+    try:
+        while time.perf_counter() - t0 < timeout:
+            calls += 1
+            seqid = seq0 + calls
+            call = (ThriftCall(mk_call(method, seqid), method, seqid, CALL)
+                    if kind == "thrift" else
+                    Tdispatch(0, [], dest, [], mk_call(MUX_METHOD, seqid)))
+            try:
+                rsp = await asyncio.wait_for(client(call), 10)
+            except Exception:  # noqa: BLE001 — unbound for now: again
+                await asyncio.sleep(0.002)
+                continue
+            if parse_message_header(rsp)[2] == 2 and \
+                    mux_body(rsp).startswith(prefix.encode()):
+                return (time.perf_counter() - t0) * 1e3, calls
+            await asyncio.sleep(0.002)
+    finally:
+        await client.close()
+    raise AssertionError(f"mux C: the {kind} router's {method} {dest} "
+                         f"not answered by {prefix}* within {timeout} s")
+
+
+async def both_answered(thr: int, mx: int, prefix: str, t0: float,
+                        timeout: float, seq0: int) -> dict:
+    """``until_answered`` on the thrift router, then on the mux router
+    for each dest the bursts send (each of its paths binds through a
+    long poll of its own): ms from ``t0`` until every one answers from
+    ``prefix``."""
+    out, calls = {"mux_ms": 0.0}, 0
+    out["thrift_ms"], calls = await until_answered(
+        "thrift", thr, prefix, t0, timeout, seq0)
+    for k in range(3):  # mux_job's dests /mtele-DD/r0, r1, r2
+        ms, n = await until_answered(
+            "mux", mx, prefix, t0, timeout, seq0 + calls,
+            dest=f"/mtele-{MUX_MOVED:02d}/r{k}")
+        out["mux_ms"], calls = max(out["mux_ms"], ms), calls + n
+    out["calls"] = calls
+    return out
+
+
+async def mux_part_c(loads, flag, ports, dports, dev: str):
+    """Part C: the http, thrift and mux routers bound through the namerd
+    CLI's thrift interface (``io.l5d.namerd``): a burst; a dtab write
+    through namerd's HTTP API moving tele-<MUX_MOVED> (thrift and mux) to
+    its -b replicas (in this process), the ms to their first answer, a
+    burst; namerd stopped, a burst (the held bindings serve); namerd
+    started again (its in-memory namespace back to MUX_DTAB), the ms to
+    the first answer of the destination's own replicas, a burst. Every
+    call answered as the dtab of the moment says, every http row scored
+    under its destination."""
+    from linkerd_tpu_torch.core.tasks import monitor
+    from linkerd_tpu_torch.linker import load_linker
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+    from linkerd_tpu_torch.protocol.mux.server import MuxServer
+
+    load, rng = loads[0], np.random.default_rng(15)
+    moved = f"tele-{MUX_MOVED:02d}"
+    work = Path(tempfile.mkdtemp(prefix="mux-c-"))
+    mux_discos(work, ports, dports)
+    backs = []
+    for r in range(LINKER_REPLICAS):
+        t = await thrift_answerer(f"{moved}-b/{r}", lambda: None)
+        m = await MuxServer(mux_service(f"{moved}-b/{r}")).start()
+        backs.append((t, m))
+    (work / "disco" / f"{moved}-b").write_text("".join(
+        f"127.0.0.1 {t.sockets[0].getsockname()[1]}\n" for t, _ in backs))
+    (work / "disco" / f"m{moved}-b").write_text("".join(
+        f"127.0.0.1 {m.bound_port}\n" for _, m in backs))
+    thrift_port, api, admin = free_port(), free_port(), free_port()
+    cfg = work / "namerd.json"
+    cfg.write_text(json.dumps({
+        "storage": {"kind": "io.l5d.inMemory",
+                    "namespaces": {"default": MUX_DTAB}},
+        "interfaces": [
+            {"kind": "io.l5d.thriftNameInterpreter", "port": thrift_port},
+            {"kind": "io.l5d.httpController", "port": api}],
+        "namers": mux_namers(work), "admin": {"port": admin}}))
+    namerd = start_namerd(cfg, work / "namerd.log")
+    linker = task = None
+    out, runs, seq = {}, {}, 10**6
+    b_who = {MUX_MOVED: (FAILOVER_WHO, FAILOVER_WHO + 1)}
+    try:
+        out["namerd_boot_ms"] = await wait_ping(
+            admin, lambda: namerd.poll() is None, "namerd", timeout=60.0)
+        linker = load_linker(mux_config(work, interpreter={
+            "kind": "io.l5d.namerd",
+            "dst": f"/$/inet/127.0.0.1/{thrift_port}",
+            "namespace": "default"}), device=dev)
+        await linker.start()
+        tele = linker.telemeters[0]
+        tap = SnapTap(tele)
+        task = monitor(asyncio.create_task(tele.run()),
+                       what=f"telemeter-{type(tele).__name__}")
+        web, thr, mx = (r.server_ports[0] for r in linker.routers)
+        fused_anomaly_scores.launches = 0
+
+        async def burst(name: str, moved_to=None):
+            nonlocal seq
+            jobs = [("thrift", thr, mux_plans(rng, MUX_BURST), seq),
+                    ("mux", mx, mux_plans(rng, MUX_BURST), seq + MUX_BURST),
+                    ("http", web, "svc-b", MUX_HTTP // 2, MUX_CONNS)]
+            seq += 2 * MUX_BURST
+            thrift, mux, http = await asyncio.gather(
+                *(load.run(j) for j in jobs))
+            runs[name] = (thrift, mux, http)
+            out[name] = {
+                "thrift": proto_checks(thrift, f"thrift C {name}", False,
+                                       moved_to),
+                "mux": proto_checks(mux, f"mux C {name}", False, moved_to),
+                "http": http_checks(http, f"C {name}", "svc-b", False)}
+
+        await burst("before")
+        t0 = time.perf_counter()
+        await namerd_put(api, MUX_DTAB + f" /svc/{moved} => "
+                         f"/#/io.l5d.fs/{moved}-b ; /svc/m{moved} => "
+                         f"/#/io.l5d.fs/m{moved}-b ;")
+        put_ms = (time.perf_counter() - t0) * 1e3
+        out["reroute"] = await both_answered(thr, mx, f"{moved}-b/", t0,
+                                             MUX_REROUTE_S, seq)
+        seq += out["reroute"]["calls"] + 1
+        out["reroute"].update(put_ms=put_ms, write_to_first_answer_ms=max(
+            out["reroute"]["thrift_ms"], out["reroute"]["mux_ms"]))
+        await burst("moved", b_who)
+        out["namerd_stop"] = stop_process(namerd, "namerd")
+        await burst("outage", b_who)
+        t0 = time.perf_counter()
+        namerd = start_namerd(cfg, work / "namerd.log")
+        out["restart"] = await both_answered(thr, mx, f"{moved}/", t0,
+                                             MUX_RESTART_S, seq)
+        seq += out["restart"]["calls"] + 1
+        out["restart"]["start_to_first_answer_ms"] = max(
+            out["restart"]["thrift_ms"], out["restart"]["mux_ms"])
+        await burst("after")
+        await tap.settle("C", task)
+        launches = fused_anomaly_scores.launches
+        http_sent = sum(len(r[2]["ms"]) for r in runs.values())
+        folded: dict = {}
+        for dsts, _, _ in tap.folds:
+            for d in dsts:
+                folded[d] = folded.get(d, 0) + 1
+        if folded != {"/svc/svc-b": http_sent}:
+            raise AssertionError(f"mux C: http rows folded {folded}, "
+                                 f"{http_sent} sent to /svc/svc-b")
+        out.update(snap_checks("C", tele, tap, len(tap.scored), launches,
+                               dev))
+        out["namerd_reboot_ms"] = await wait_ping(
+            admin, lambda: namerd.poll() is None, "namerd", timeout=60.0)
+        return out, launches
+    finally:
+        if task is not None:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        if linker is not None:
+            await linker.close()
+        if namerd.poll() is None:
+            stop_process(namerd, "namerd")
+        for t, m in backs:
+            t.close()
+            await t.wait_closed()
+            await m.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+@contextlib.asynccontextmanager
+async def mux_topology():
+    """Config 3's downstreams, the destination backends and the load
+    client in spawned processes; yields ``(loads, flag, ports, dports)``
+    and stops every process after."""
+    import multiprocessing
+
+    mp = multiprocessing.get_context("spawn")
+    flag = mp.RawValue("b", 0)
+    loop = asyncio.get_running_loop()
+    procs, conns = [], []
+    try:
+        for target, args in ((mux_config3_backends, (flag,)),
+                             (mux_dst_backends,
+                              (list(range(MUX_DSTS)), flag)),
+                             (mux_load, ())):
+            ours, theirs = mp.Pipe()
+            p = mp.Process(target=target, args=(theirs, *args), daemon=True)
+            p.start()
+            procs.append(p)
+            conns.append(ours)
+        ports, dports = await asyncio.gather(
+            *(loop.run_in_executor(None, c.recv) for c in conns[:2]))
+        yield [MuxLoad(conns[2])], flag, ports, dports
+    finally:
+        for conn in conns:
+            try:
+                conn.send(None)
+            except OSError:
+                pass
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+
+
+async def mux_phase(dev: str = "cuda", parts=("A", "B", "C")):
+    """Parts A (BASELINE config 3), B (the thrift and mux routers) and C
+    (bound through namerd's thrift interface) over ``mux_topology``.
+    Returns the results and the kernel's launches."""
+    res, launches = {}, 0
+    async with mux_topology() as (loads, flag, ports, dports):
+        if "A" in parts:
+            res["part_a"], n = await mux_part_a(loads, flag, ports[:3], dev)
+            launches += n
+        if "B" in parts:
+            res["part_b"], n = await mux_part_b(loads, flag, ports[:2],
+                                                dports, dev)
+            launches += n
+        if "C" in parts:
+            res["part_c"], n = await mux_part_c(loads, flag, ports[:2],
+                                                dports, dev)
+            launches += n
+    if "part_b" in res:
+        b = res["part_b"]
+        for w in ("calm", "faulted"):
+            print(f"mux B {w}: " + ", ".join(
+                f"{k} {v['calls_per_s']:.0f} calls/s p50 {v['p50_ms']:.3f} "
+                f"p99 {v['p99_ms']:.3f} ms" for k, v in b[w].items()))
+        print(f"mux B: {b['launches']} launches for {b['batches']} batches, "
+              f"kernel vs plain max|diff| {b['kernel_vs_plain_max']:.3e}; "
+              f"override answered by {b['override_answer']}")
+    if "part_c" in res:
+        c = res["part_c"]
+        print(f"mux C: namerd /ping after {c['namerd_boot_ms']:.1f} ms; "
+              f"write to the first -b answer "
+              f"{c['reroute']['write_to_first_answer_ms']:.1f} ms (PUT "
+              f"{c['reroute']['put_ms']:.1f} ms); namerd restart to the "
+              f"first own-replica answer "
+              f"{c['restart']['start_to_first_answer_ms']:.1f} ms; "
+              + ", ".join(f"{k} thrift {c[k]['thrift']['calls_per_s']:.0f}"
+                          f"/s mux {c[k]['mux']['calls_per_s']:.0f}/s"
+                          for k in ("before", "moved", "outage", "after"))
+              + f"; {c['launches']} launches for {c['batches']} batches")
+    return res, launches
+
+
 # The witness of the kernel's sums (``--witness``): on a phase's window
 # rows, an "exact" forward in float64 with the kernel's rounding points
 # (the float64 sum of bf16 products rounded to float32 and then to bf16,
@@ -7060,7 +8072,7 @@ CHECKS = ("kernel", "served")  # what --mutants runs on every mutant
 LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker,
                                 # fastpath and control phases
 PHASES = ("telemeter", "linker", "fastpath", "fastpath_d", "control",
-          "cli", "h2", "h2fast")  # --check and --mutant take these too
+          "cli", "h2", "h2fast", "mux")  # --check and --mutant take these too
                                   # (fastpath_d: the fastpath phase's
                                   # part D alone)
 # Broken copies of the port that the cli phase's checks must catch, one
@@ -7176,8 +8188,44 @@ H2FAST_MUTANTS = {
         "                engine.set_flood_guard(\n",
         "                (lambda **kw: None)(\n")],
 }
+# Broken copies of the port that the mux phase must catch: the thrift
+# server zeroing each reply's seqid; the mux router's bound layer sending
+# the caller's logical dest instead of the bound residual; the thrift
+# namerd interpreter keeping the first bound tree and ignoring every
+# stamped update; the http router's recorder left off (config 3 then
+# records no row).
+MUX_MUTANTS = {
+    "seqid_dropped": [(
+        "linkerd_tpu_torch/protocol/thrift/server.py",
+        "                if call.oneway or reply is None:\n"
+        "                    return None\n",
+        "                if call.oneway or reply is None:\n"
+        "                    return None\n"
+        "                from linkerd_tpu_torch.protocol.thrift.binary "
+        "import header_len\n"
+        "                h = header_len(reply)\n"
+        "                reply = reply[:h - 4] + bytes(4) + reply[h:]\n")],
+    "logical_dest": [(
+        "linkerd_tpu_torch/linker.py",
+        "                    td.tag, td.contexts, self._dest, [], "
+        "td.payload,\n",
+        "                    td.tag, td.contexts, td.dest, [], "
+        "td.payload,\n")],
+    "thrift_interp_frozen": [(
+        "linkerd_tpu_torch/interpreter/namerd_thrift.py",
+        "                    act.set_value(tree)\n",
+        "                    if not isinstance(act.current, Ok):\n"
+        "                        act.set_value(tree)\n")],
+    "no_config3_recorder": [(
+        "linkerd_tpu_torch/linker.py",
+        "        for t in self.telemeters:\n"
+        "            if hasattr(t, \"recorder\"):\n"
+        "                server_filters.append(t.recorder())\n"
+        "        # protocol-surgery filters",
+        "        # protocol-surgery filters")],
+}
 EDIT_MUTANTS = {**CLI_MUTANTS, **FASTPATH_MUTANTS, **H2_MUTANTS,
-                **H2FAST_MUTANTS}
+                **H2FAST_MUTANTS, **MUX_MUTANTS}
 
 
 def run_check(which: str) -> int:
@@ -7193,7 +8241,7 @@ def run_check(which: str) -> int:
     elif which == "served":
         asyncio.run(drive_service(cfg, rng))
     elif which in ("linker", "fastpath", "fastpath_d", "control", "cli",
-                   "h2", "h2fast"):
+                   "h2", "h2fast", "mux"):
         from linkerd_tpu_torch import native
         from linkerd_tpu_torch.native import _build as native_build
         from linkerd_tpu_torch.ops import _build
@@ -7205,7 +8253,8 @@ def run_check(which: str) -> int:
         phase = {"linker": linker_phase, "fastpath": fastpath_phase,
                  "fastpath_d": lambda: fastpath_phase(parts=("D",)),
                  "control": control_phase, "cli": cli_phase,
-                 "h2": h2_phase, "h2fast": h2fast_phase}[which]
+                 "h2": h2_phase, "h2fast": h2fast_phase,
+                 "mux": mux_phase}[which]
         res, _ = asyncio.run(phase())
         name, _, limit = card_line().partition(",")
         print(json.dumps({which: res, "card": name.strip(),
@@ -7325,13 +8374,14 @@ def check_mutants() -> int:
         results += [run_mutant(n, "served", tmp) for n in MUTANTS]
         results += [run_mutant(LINKER_MUTANT, phase, tmp)
                     for phase in ("linker", "fastpath", "control", "cli",
-                                  "h2", "h2fast")]
+                                  "h2", "h2fast", "mux")]
         results += [run_mutant(name, "cli", tmp) for name in CLI_MUTANTS]
         results += [run_mutant(name, "fastpath_d", tmp)
                     for name in FASTPATH_MUTANTS]
         results += [run_mutant(name, "h2", tmp) for name in H2_MUTANTS]
         results += [run_mutant(name, "h2fast", tmp)
                     for name in H2FAST_MUTANTS]
+        results += [run_mutant(name, "mux", tmp) for name in MUX_MUTANTS]
     missed = []
     for name, which, rc, last in results:
         print(f"mutant {name}, {which} check: "
@@ -7558,6 +8608,7 @@ def main() -> int:
     cli, cli_launches = asyncio.run(cli_phase(linker_a=linker["part_a"]))
     h2, h2_launches = asyncio.run(h2_phase())
     h2fast, h2fast_launches = asyncio.run(h2fast_phase())
+    mux, mux_launches = asyncio.run(mux_phase())
     telemeter["recorder"] = recorder_us()
     print(f"recorder filter: {telemeter['recorder']['recorder_us']:.2f} us "
           f"a request, the downstream alone "
@@ -7589,7 +8640,8 @@ def main() -> int:
                                   fastpath=fastpath_launches,
                                   control=control_launches,
                                   cli=cli_launches, h2=h2_launches,
-                                  h2fast=h2fast_launches),
+                                  h2fast=h2fast_launches,
+                                  mux=mux_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -7621,6 +8673,8 @@ def main() -> int:
                       "power_limit": limit.strip()}))
     print(json.dumps({"h2fast": h2fast, "card": name.strip(),
                       "power_limit": limit.strip()}))
+    print(json.dumps({"mux": mux, "card": name.strip(),
+                      "power_limit": limit.strip()}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,13 @@
-"""Interpreter config kinds: the ``default``, ``io.l5d.mesh`` and
-``io.l5d.namerd.http`` kinds of ``linkerd_tpu/interpreter/configs.py``.
+"""Interpreter config kinds: the ``default``, ``io.l5d.mesh``,
+``io.l5d.namerd.http`` and ``io.l5d.namerd`` kinds of
+``linkerd_tpu/interpreter/configs.py``.
 
 Ref: namer/core/.../InterpreterInitializer.scala:9-57 (SPI) and
 interpreter/mesh/.../MeshInterpreterInitializer.scala:79 (kind io.l5d.mesh:
 dst + root). The default interpreter is the in-process recursive dtab
-namer (DefaultInterpreterInitializer.scala). The reference's thrift
-``io.l5d.namerd``, ``io.l5d.fs`` and ``io.l5d.k8s.configMap`` kinds are
-refused by name by the linker (ROADMAP Queue 1 items 13 and 5).
+namer (DefaultInterpreterInitializer.scala). The reference's
+``io.l5d.fs`` and ``io.l5d.k8s.configMap`` kinds are refused by name by
+the linker (ROADMAP Queue 1 items 13 and 5).
 """
 
 from __future__ import annotations
@@ -64,3 +65,21 @@ class NamerdHttpInterpreterConfig:
         from linkerd_tpu_torch.interpreter.namerd_http import NamerdHttpInterpreter
         host, port = parse_inet_dst(self.dst)
         return NamerdHttpInterpreter(host, port, namespace=self.namespace)
+
+
+@register("interpreter", "io.l5d.namerd")
+@dataclass
+class NamerdThriftInterpreterConfig:
+    """The thrift long-poll interpreter — the reference's default remote
+    interpreter (ref: NamerdInterpreterInitializer.scala:133, client
+    ThriftNamerClient.scala:1-347)."""
+
+    dst: str = "/$/inet/127.0.0.1/4100"
+    namespace: str = "default"
+
+    def mk(self, namers) -> NameInterpreter:
+        from linkerd_tpu_torch.interpreter.namerd_thrift import (
+            ThriftNamerInterpreter,
+        )
+        host, port = parse_inet_dst(self.dst)
+        return ThriftNamerInterpreter(host, port, namespace=self.namespace)

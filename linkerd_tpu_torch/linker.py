@@ -1,5 +1,5 @@
-"""Linker: parse config -> namers -> routers -> servers, for HTTP/1.1 and
-h2: the ``protocol: http`` and ``protocol: h2`` subset of
+"""Linker: parse config -> namers -> routers -> servers, for HTTP/1.1,
+h2, thrift, mux and thriftmux: the counterpart of
 ``linkerd_tpu/linker.py``.
 
 Reference parity: linkerd/core/.../Linker.scala:101-196 (LinkerConfig.mk:
@@ -7,12 +7,16 @@ metrics tree, telemeters, namers, per-router interpreter + binding params,
 port-conflict checks) and Router.scala / Server.scala for the per-router
 assembly.
 
-The port's linker builds HTTP/1.1 routers and h2 routers (the Python
+The port's linker builds HTTP/1.1 routers, h2 routers (the Python
 HTTP/2 stack, gRPC-aware classification and retries, and a stream
-sentinel under ``streamScoring``) with the ``io.l5d.fs`` namer (plus
-the in-process ``/$/inet`` and status utility namers), bound in process
-or through namerd's HTTP API (``interpreter: {kind:
-io.l5d.namerd.http}``), and the ``io.l5d.jaxAnomaly`` telemeter, whose
+sentinel under ``streamScoring``), thrift routers (framed or buffered,
+binary or compact, the TTwitter upgrade, service retries on connection
+failures) and mux and thriftmux routers (the bound residual as the
+downstream Tdispatch dest), with the ``io.l5d.fs`` namer (plus the
+in-process ``/$/inet`` and status utility namers), bound in process,
+through namerd's HTTP API (``interpreter: {kind: io.l5d.namerd.http}``)
+or its thrift interface (``interpreter: {kind: io.l5d.namerd}``), and
+the ``io.l5d.jaxAnomaly`` telemeter, whose
 scorer runs on ``device``, beside the metric-exporter and tracer
 telemeters (``telemetry/exporters.py``), whose tracers are broadcast to
 every router's trace filters and to the anomaly telemeter's scorer
@@ -26,9 +30,11 @@ repository's ``native/`` sources, the HTTP/1.1 engine or, on ``protocol:
 h2``, the h2/gRPC engine: ``workers`` sharded epoll workers, native TLS
 on its servers and toward its endpoints, ``connectionGuard`` (with the h2
 flood caps) and ``streamScoring``, and on h2 the strictest server
-``timeoutMs``; its rows feed the telemeter's native ring. A router binds
-in process, through namerd's HTTP API or through its gRPC mesh API
-(``interpreter: {kind: io.l5d.mesh}``). What the reference's linker also
+``timeoutMs``; its rows feed the telemeter's native ring; a thrift or
+mux router with ``fastPath: true`` is served by Python, as the
+reference's. A router binds in process or through namerd's HTTP API,
+its gRPC mesh API (``interpreter: {kind: io.l5d.mesh}``) or its thrift
+interface. What the reference's linker also
 takes is refused by name with the ROADMAP item that brings it
 (``REFUSED_ROUTER_KEYS``, ``UNPORTED_KINDS``): a config naming one fails
 at load rather than serving without it.
@@ -78,14 +84,16 @@ from linkerd_tpu_torch.router.retries import (
     backoff_jittered,
 )
 from linkerd_tpu_torch.router.routing import (
-    ErrorResponder, RoutingService, StatsFilter, StatusCodeStatsFilter,
+    BasicStatsFilter, ErrorResponder, IdentificationError, RoutingService,
+    StatsFilter, StatusCodeStatsFilter,
 )
 from linkerd_tpu_torch.router.service import (
-    FnService, Service, filters_to_service,
+    Filter, FnService, Service, filters_to_service,
 )
 from linkerd_tpu_torch.router.stages import StageTimerFilter
 from linkerd_tpu_torch.router.tracing import (
-    ClientTraceFilter, ServerTraceFilter,
+    ClientTraceFilter, MuxClientTraceFilter, MuxServerTraceFilter,
+    ServerTraceFilter,
 )
 from linkerd_tpu_torch.telemetry.anomaly import (
     JaxAnomalyTelemeter, ScoreBoard,
@@ -108,7 +116,6 @@ log = logging.getLogger(__name__)
 DEFAULT_ADMIN_PORT = 9990  # ref: Linker.scala:37
 
 # The ROADMAP items (Queue 1) that bring what this linker refuses.
-_PROTOCOLS = "ROADMAP Queue 1 item 12 (thrift/mux)"
 _EDGE = "ROADMAP Queue 1 item 10 (tenants and loggers)"
 _ANNOUNCERS = "ROADMAP Queue 1 item 11 (the announcers)"
 _K8S = "ROADMAP Queue 1 item 5 (the namers of the fault benchmarks)"
@@ -125,8 +132,10 @@ REFUSED_ROUTER_KEYS: Dict[str, str] = {
     "httpAccessLog": _EDGE,
 }
 
-REFUSED_PROTOCOLS: Dict[str, str] = {
-    p: _PROTOCOLS for p in ("thrift", "mux", "thriftmux")}
+# Protocols the reference's linker builds and the port does not yet:
+# none since the thrift, mux and thriftmux routers (ROADMAP Queue 1
+# item 12).
+REFUSED_PROTOCOLS: Dict[str, str] = {}
 
 # Kinds the reference registers and the port has not ported yet, by
 # category, each with the item that brings it. A kind in neither
@@ -149,7 +158,7 @@ UNPORTED_KINDS: Dict[str, Dict[str, str]] = {
         "io.l5d.k8s.istio-ingress": _K8S,
     },
     "interpreter": {
-        "io.l5d.namerd": _NAMING, "io.l5d.fs": _NAMING,
+        "io.l5d.fs": _NAMING,
         "io.l5d.k8s.configMap": _NAMING, "io.l5d.k8s.istio": _NAMING,
     },
 }
@@ -633,7 +642,7 @@ class _FastPathRouter(Router):
 
 
 class Linker:
-    """The reference's ``Linker`` for HTTP/1.1 and h2 routers, with its
+    """The reference's ``Linker`` for its five router protocols, with its
     telemeters built on ``device``. ``config_dict`` and ``config_text``
     are what the admin server's ``/config.json`` serves."""
 
@@ -729,7 +738,8 @@ class Linker:
             if rspec.protocol in REFUSED_PROTOCOLS:
                 raise _refusal(f"protocol {rspec.protocol!r}",
                                REFUSED_PROTOCOLS[rspec.protocol])
-            if rspec.protocol not in ("http", "h2"):
+            if rspec.protocol not in (
+                    "http", "h2", "thrift", "mux", "thriftmux"):
                 raise ConfigError(
                     f"protocol {rspec.protocol!r} not yet supported")
             label = rspec.label or rspec.protocol
@@ -737,12 +747,16 @@ class Linker:
             labels_seen[label] = n + 1
             if n:
                 label = f"{label}-{n}"
-            if rspec.fastPath:
-                self._check_fastpath_spec(rspec, label)
-            for key, item in REFUSED_ROUTER_KEYS.items():
-                value = getattr(rspec, key)
-                if value is not None and value is not False:
-                    raise _refusal(f"{label}.{key}", item)
+            # the thrift and mux routers take neither the native engine
+            # nor these keys: they refuse tenants in the reference's own
+            # words and, as the reference's, leave the rest unread
+            if rspec.protocol in ("http", "h2"):
+                if rspec.fastPath:
+                    self._check_fastpath_spec(rspec, label)
+                for key, item in REFUSED_ROUTER_KEYS.items():
+                    value = getattr(rspec, key)
+                    if value is not None and value is not False:
+                        raise _refusal(f"{label}.{key}", item)
             for i, s in enumerate(rspec.servers or []):
                 if s.compressionLevel is None:
                     continue
@@ -756,6 +770,12 @@ class Linker:
                         f"supports http routers")
             if rspec.protocol == "h2":
                 self.routers.append(self._mk_h2_router(rspec, label))
+            elif rspec.protocol == "thrift":
+                self.routers.append(self._mk_thrift_router(rspec, label))
+            elif rspec.protocol in ("mux", "thriftmux"):
+                self.routers.append(self._mk_mux_router(
+                    rspec, label,
+                    thrift_semantics=(rspec.protocol == "thriftmux")))
             else:
                 self.routers.append(self._mk_http_router(rspec, label))
 
@@ -859,7 +879,7 @@ class Linker:
 
     def _per_server_stack_fn(self, label: str, server_filters: List[Any],
                              routing: Service, shared_stack: Service,
-                             clear_filter: Callable[[], Any]):
+                             clear_filter: Optional[Callable] = None):
         """The optional per-server TimeoutFilter (ref
         ServerConfig.timeoutMs, Server.scala:85,96) sits INNERMOST —
         below the responder and stats filters, so the mapped 504 is
@@ -875,7 +895,7 @@ class Linker:
             chain = list(server_filters)
             if s.timeoutMs is not None:
                 chain.append(TotalTimeout(s.timeoutMs / 1e3))
-            if s.clearContext:
+            if s.clearContext and clear_filter is not None:
                 chain.insert(0, clear_filter())
             return filters_to_service(chain, routing)
 
@@ -1566,6 +1586,328 @@ class Linker:
                      ssl_context=(s.tls.mk_context() if s.tls else None),
                      h2_settings=h2_settings,
                      stream_observer_factory=mk_observer)
+            for s in (rspec.servers or [ServerSpec()])
+        ]
+        return Router(rspec, label, server_stack, binding, servers,
+                      interpreter=interpreter)
+
+    def _mk_mux_router(self, rspec: RouterSpec, label: str,
+                       thrift_semantics: bool) -> Router:
+        """mux / thriftmux routers (ref: router/mux Mux.scala:83 +
+        router/thriftmux ThriftMux.scala:66). mux identifies by the
+        Tdispatch ``dest`` path; thriftmux identifies like thrift
+        (static dst, or the thrift method with thriftMethodInDst)."""
+        from linkerd_tpu_torch.protocol.mux.client import MuxClient
+        from linkerd_tpu_torch.protocol.mux.codec import Tdispatch
+        from linkerd_tpu_torch.protocol.mux.server import MuxServer
+        from linkerd_tpu_torch.protocol.thrift.codec import parse_message_header
+
+        for i, s in enumerate(rspec.servers or []):
+            if s.tls is not None or s.clearContext or \
+                    s.maxConcurrentRequests is not None:
+                raise ConfigError(
+                    f"{label}.servers[{i}]: tls/clearContext/"
+                    f"maxConcurrentRequests not supported for "
+                    f"{rspec.protocol} servers")
+        if rspec.admissionControl is not None:
+            raise ConfigError(
+                f"{label}: admissionControl is only supported on "
+                f"http/h2 routers")
+        if rspec.tenantIdentifier is not None or rspec.tenants is not None \
+                or rspec.connectionGuard is not None \
+                or rspec.streamScoring is not None:
+            raise ConfigError(
+                f"{label}: tenantIdentifier/tenants/connectionGuard/"
+                f"streamScoring are only supported on http/h2 routers")
+
+        base_dtab = Dtab.read(rspec.dtab) if rspec.dtab else Dtab.empty()
+        prefix = Path.read(rspec.dstPrefix)
+        method_in_dst = rspec.thriftMethodInDst
+
+        def identifier(td: Tdispatch) -> DstPath:
+            local = Dtab.empty()
+            if td.dtab:
+                try:
+                    local = Dtab.read(";".join(
+                        f"{src} => {dst}" for src, dst in td.dtab))
+                except ValueError as e:
+                    raise IdentificationError(
+                        f"bad mux dtab: {e}") from None
+            if thrift_semantics:
+                seg = "thriftmux"
+                if method_in_dst:
+                    try:
+                        seg, _, _ = parse_message_header(td.payload)
+                    except Exception:  # noqa: BLE001
+                        raise IdentificationError(
+                            "unparseable thrift message") from None
+                return DstPath(prefix + Path.of(seg), base_dtab, local)
+            if td.dest.startswith("/"):
+                return DstPath(prefix + Path.read(td.dest),
+                               base_dtab, local)
+            return DstPath(prefix + Path.of("mux"), base_dtab, local)
+
+        interpreter = self._mk_interpreter(rspec, label)
+        client_lookup = per_prefix_lookup(
+            rspec.client, ClientSpec, f"{label}.client",
+            self._mk_client_validator(label))
+        metrics = self.metrics
+        mk_policy_factory = self._mk_policy_factory_fn(label)
+
+        MuxStatsFilter = BasicStatsFilter
+
+        class _MuxEncodeResidual(Filter):
+            """The downstream Tdispatch carries the BOUND residual path
+            as its dest — not the client-sent logical dest — and no dtab
+            (the local dtab was consumed during binding; re-sending it
+            would double-apply). Ref: MuxEncodeResidual.scala:1-18."""
+
+            def __init__(self, residual: Path):
+                self._dest = residual.show if len(residual) else "/"
+
+            async def apply(self, td: Tdispatch, service: Service):
+                # ctx rides along: the client trace filter below this
+                # layer reads td.ctx["trace"] to propagate the span
+                return await service(Tdispatch(
+                    td.tag, td.contexts, self._dest, [], td.payload,
+                    td.ctx))
+
+        def client_factory(bound: BoundName) -> Service:
+            if _status_code_of(bound) is not None:
+                raise ConfigError(
+                    "/$/io.buoyant.http.status is only available to "
+                    "http/h2 routers")
+            cid = bound.id_.show.lstrip("/").replace("/", ".") or "client"
+            cspec, _cvars = client_lookup(bound.id_)
+            mk_policy = mk_policy_factory(cspec)
+            ep_wrap, extra_filters = self._client_stack_extras(
+                cspec, label, cid)
+
+            def endpoint_factory(addr: Address) -> Service:
+                client: Service = MuxClient(
+                    addr.host, addr.port,
+                    connect_timeout=cspec.connectTimeoutMs / 1e3)
+                return FailureAccrualService(ep_wrap(client),
+                                             mk_policy())
+
+            bal_kind = (cspec.loadBalancer or BalancerSpec()).kind
+            bal = self._mk_balancer(bal_kind, bound.addr,
+                                    endpoint_factory)
+            metrics.scope("rt", label, "client", cid).gauge(
+                "endpoints", fn=lambda b=bal: b.size)
+            client_filters: List[Any] = [
+                MuxStatsFilter(metrics.scope("rt", label, "client", cid)),
+                *extra_filters]
+            if not isinstance(self.tracer, NullTracer):
+                # propagate l5d-ctx-trace in the Tdispatch context
+                # section (the mux analogue of the http header)
+                client_filters.append(
+                    MuxClientTraceFilter(self.tracer, cid))
+            return _PruneOnClose(
+                filters_to_service(client_filters, bal),
+                metrics, ("rt", label, "client", cid))
+
+        def bound_filters(bound: BoundName, svc: Service) -> Service:
+            # the BOUND layer is keyed by (id, residual) — the client
+            # layer below is shared across residuals, so the rewrite
+            # must happen here (ref: Router.scala boundStack placement)
+            if thrift_semantics:
+                return svc
+            return _MuxEncodeResidual(bound.residual).and_then(svc)
+
+        svc_lookup = per_prefix_lookup(
+            rspec.service, SvcSpec, f"{label}.service")
+
+        def path_filters(dst: DstPath, svc: Service) -> Service:
+            sspec, _ = svc_lookup(dst.path)
+            name = dst.path.show.lstrip("/").replace("/", ".") or "root"
+            filters: List[Any] = [MuxStatsFilter(
+                metrics.scope("rt", label, "service", name))]
+            if sspec.totalTimeoutMs is not None:
+                filters.append(TotalTimeout(sspec.totalTimeoutMs / 1e3))
+            return filters_to_service(filters, svc)
+
+        cache_cfg = rspec.bindingCache or {}
+        binding = DstBindingFactory(
+            interpreter, client_factory, path_filters=path_filters,
+            bound_filters=bound_filters,
+            capacity=int(cache_cfg.get("capacity", 1000)),
+            idle_ttl=float(cache_cfg.get("idleTtlSecs", 600.0)),
+            bind_timeout=rspec.bindingTimeoutMs / 1e3)
+        routing = self._mk_routing(identifier, binding, base_dtab)
+        server_filters: List[Any] = [
+            StageTimerFilter(metrics, "rt", label),
+            MuxStatsFilter(metrics.scope("rt", label, "server"))]
+        if not isinstance(self.tracer, NullTracer):
+            server_filters.insert(0, MuxServerTraceFilter(
+                self.tracer, label, rspec.sampleRate))
+        server_stack = filters_to_service(server_filters, routing)
+        per_server_stack = self._per_server_stack_fn(
+            label, server_filters, routing, server_stack)
+        servers = [
+            MuxServer(per_server_stack(s), s.ip, s.port)
+            for s in (rspec.servers or [ServerSpec()])
+        ]
+        return Router(rspec, label, server_stack, binding, servers,
+                      interpreter=interpreter)
+
+    def _mk_thrift_router(self, rspec: RouterSpec, label: str) -> Router:
+        """Thrift router: static (or method) identification, framed
+        transport passthrough (ref: router/thrift + ThriftInitializer)."""
+        from linkerd_tpu_torch.protocol.thrift import ThriftCall, ThriftClient
+        from linkerd_tpu_torch.protocol.thrift.codec import EXCEPTION
+        from linkerd_tpu_torch.protocol.thrift.server import ThriftServer
+
+        # reject config we'd otherwise silently ignore (a plaintext
+        # listener the operator believes is TLS is worse than an error)
+        for i, s in enumerate(rspec.servers or []):
+            if s.tls is not None:
+                raise ConfigError(f"{label}.servers[{i}].tls: "
+                                  f"not supported for thrift servers")
+            if s.maxConcurrentRequests is not None:
+                raise ConfigError(
+                    f"{label}.servers[{i}].maxConcurrentRequests: "
+                    f"not supported for thrift servers")
+            if s.clearContext:
+                raise ConfigError(
+                    f"{label}.servers[{i}].clearContext: "
+                    f"not supported for thrift servers")
+
+        if rspec.admissionControl is not None:
+            raise ConfigError(
+                f"{label}: admissionControl is only supported on "
+                f"http/h2 routers")
+        if rspec.tenantIdentifier is not None or rspec.tenants is not None \
+                or rspec.connectionGuard is not None \
+                or rspec.streamScoring is not None:
+            raise ConfigError(
+                f"{label}: tenantIdentifier/tenants/connectionGuard/"
+                f"streamScoring are only supported on http/h2 routers")
+        if rspec.thriftProtocol not in ("binary", "compact"):
+            raise ConfigError(
+                f"{label}.thriftProtocol must be binary or compact, "
+                f"got {rspec.thriftProtocol!r}")
+        if not rspec.thriftFramed and rspec.thriftProtocol != "binary":
+            raise ConfigError(
+                f"{label}: thriftFramed: false requires "
+                f"thriftProtocol: binary (the buffered transport scans "
+                f"binary-protocol message boundaries)")
+
+        base_dtab = Dtab.read(rspec.dtab) if rspec.dtab else Dtab.empty()
+        prefix = Path.read(rspec.dstPrefix)
+        method_in_dst = rspec.thriftMethodInDst
+
+        def identifier(call: ThriftCall) -> DstPath:
+            seg = call.name if method_in_dst else "thrift"
+            # an upgraded caller's dtab delegations act as the local dtab
+            # (the thrift analogue of the l5d-dtab header)
+            local = call.ctx.get("dtab") or Dtab.empty()
+            return DstPath(prefix + Path.of(seg), base_dtab, local)
+
+        interpreter = self._mk_interpreter(rspec, label)
+        client_lookup = per_prefix_lookup(
+            rspec.client, ClientSpec, f"{label}.client",
+            self._mk_client_validator(label))
+        metrics = self.metrics
+        mk_policy_factory = self._mk_policy_factory_fn(label)
+
+        def thrift_classifier(req, rsp, exc):
+            from linkerd_tpu_torch.router.classifiers import ResponseClass
+            from linkerd_tpu_torch.protocol.thrift.codec import parse_header
+            if exc is not None:
+                return ResponseClass.RETRYABLE_FAILURE \
+                    if isinstance(exc, ConnectionError) \
+                    else ResponseClass.FAILURE
+            try:
+                _, _, mtype = parse_header(rsp or b"",
+                                           rspec.thriftProtocol)
+                if mtype == EXCEPTION:
+                    return ResponseClass.FAILURE
+            except Exception:  # noqa: BLE001 - unparseable: assume ok
+                pass
+            return ResponseClass.SUCCESS
+
+        from linkerd_tpu_torch.router.classifiers import ResponseClass
+
+        def ThriftStatsFilter(node):
+            return BasicStatsFilter(
+                node, classify=lambda req, rsp: thrift_classifier(
+                    req, rsp, None) is ResponseClass.SUCCESS)
+
+        def client_factory(bound: BoundName) -> Service:
+            if _status_code_of(bound) is not None:
+                raise ConfigError(
+                    "/$/io.buoyant.http.status is only available to "
+                    "http/h2 routers")
+            cid = bound.id_.show.lstrip("/").replace("/", ".") or "client"
+            cspec, _cvars = client_lookup(bound.id_)
+            mk_policy = mk_policy_factory(cspec)
+            ep_wrap, extra_filters = self._client_stack_extras(
+                cspec, label, cid)
+
+            def endpoint_factory(addr: Address) -> Service:
+                client: Service = ThriftClient(
+                    addr.host, addr.port,
+                    connect_timeout=cspec.connectTimeoutMs / 1e3,
+                    attempt_ttwitter=rspec.attemptTTwitterUpgrade,
+                    dest=bound.id_.show, client_id=label,
+                    framed=rspec.thriftFramed,
+                    protocol=rspec.thriftProtocol)
+                return FailureAccrualService(ep_wrap(client),
+                                             mk_policy())
+
+            bal_kind = (cspec.loadBalancer or BalancerSpec()).kind
+            bal = self._mk_balancer(bal_kind, bound.addr,
+                                    endpoint_factory)
+            metrics.scope("rt", label, "client", cid).gauge(
+                "endpoints", fn=lambda b=bal: b.size)
+            return _PruneOnClose(
+                filters_to_service(
+                    [ThriftStatsFilter(
+                        metrics.scope("rt", label, "client", cid)),
+                     *extra_filters], bal),
+                metrics, ("rt", label, "client", cid))
+
+        svc_lookup = per_prefix_lookup(
+            rspec.service, SvcSpec, f"{label}.service")
+
+        def path_filters(dst: DstPath, svc: Service) -> Service:
+            sspec, _ = svc_lookup(dst.path)
+            budget_spec = (
+                sspec.retries.budget if sspec.retries else None) or BudgetSpec()
+            budget = RetryBudget(
+                budget_spec.ttlSecs, budget_spec.minRetriesPerSec,
+                budget_spec.percentCanRetry)
+            name = dst.path.show.lstrip("/").replace("/", ".") or "root"
+            filters: List[Any] = [
+                ThriftStatsFilter(metrics.scope("rt", label, "service", name))]
+            if sspec.totalTimeoutMs is not None:
+                filters.append(TotalTimeout(sspec.totalTimeoutMs / 1e3))
+            filters.append(ClassifiedRetries(
+                thrift_classifier, budget, self._mk_backoffs(sspec),
+                max_retries=(sspec.retries.maxRetries
+                             if sspec.retries else 25),
+                metrics=metrics, scope=("rt", label, "service", name)))
+            return filters_to_service(filters, svc)
+
+        cache_cfg = rspec.bindingCache or {}
+        binding = DstBindingFactory(
+            interpreter, client_factory, path_filters=path_filters,
+            capacity=int(cache_cfg.get("capacity", 1000)),
+            idle_ttl=float(cache_cfg.get("idleTtlSecs", 600.0)),
+            bind_timeout=rspec.bindingTimeoutMs / 1e3)
+        routing = self._mk_routing(identifier, binding, base_dtab)
+        server_filters: List[Any] = [
+            StageTimerFilter(metrics, "rt", label),
+            ThriftStatsFilter(metrics.scope("rt", label, "server"))]
+        server_stack = filters_to_service(server_filters, routing)
+        per_server_stack = self._per_server_stack_fn(
+            label, server_filters, routing, server_stack)
+        servers = [
+            ThriftServer(per_server_stack(s), s.ip, s.port,
+                         ttwitter=rspec.attemptTTwitterUpgrade,
+                         framed=rspec.thriftFramed,
+                         protocol=rspec.thriftProtocol)
             for s in (rspec.servers or [ServerSpec()])
         ]
         return Router(rspec, label, server_stack, binding, servers,

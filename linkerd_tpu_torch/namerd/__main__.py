@@ -1,7 +1,7 @@
 """namerd CLI: ``python -m linkerd_tpu_torch.namerd path/to/namerd.yaml``:
 the counterpart of ``linkerd_tpu/namerd/__main__.py`` over the port's
-``namerd/config.py``, which serves the HTTP control and gRPC mesh
-interfaces and refuses the reference's thrift interface and its remote
+``namerd/config.py``, which serves the HTTP control, gRPC mesh and
+thrift name interpreter interfaces and refuses the reference's remote
 stores by name. namerd does no device work.
 
 Ref: namerd/main/src/main/scala/io/buoyant/namerd/Main.scala:10-55 — load

@@ -1,6 +1,7 @@
 """namerd config parsing and process assembly: the counterpart of
 ``linkerd_tpu/namerd/config.py`` for the in-memory and fs stores, the
-HTTP control interface and the gRPC mesh interface.
+HTTP control interface, the gRPC mesh interface and the thrift name
+interpreter interface.
 
 Ref: namerd/core/.../NamerdConfig.scala:28-95 (storage + namers + ifaces ->
 Namerd of Servables) and namerd/main/.../Main.scala:10-55. YAML shape:
@@ -9,13 +10,13 @@ Namerd of Servables) and namerd/main/.../Main.scala:10-55. YAML shape:
     namers: [{kind: io.l5d.fs, rootDir: ...}]
     interfaces:
       - {kind: io.l5d.mesh, port: 4321}
+      - {kind: io.l5d.thriftNameInterpreter, port: 4100}
       - {kind: io.l5d.httpController, port: 4180}
     admin: {port: 9991}
 
 The reference's other kinds are refused by name with the ROADMAP item
-that brings each (``UNPORTED_KINDS``): its thrift interface needs the
-thrift codec, and its zk, etcd, consul and k8s stores
-(``namerd/stores.py``) their clients.
+that brings each (``UNPORTED_KINDS``): its zk, etcd, consul and k8s
+stores (``namerd/stores.py``) need their clients.
 """
 
 from __future__ import annotations
@@ -43,14 +44,12 @@ DEFAULT_HTTP_CONTROL_PORT = 4180
 # analogue; ref: Linker.scala:64-75 SPI loading).
 import linkerd_tpu_torch.namer.fs  # noqa: E402,F401
 
-_THRIFT = ("ROADMAP Queue 1 items 12 and 15 (thrift, and namerd's thrift "
-           "interface)")
 _STORES = "ROADMAP Queue 1 item 15 (namerd's remaining stores)"
 
 # Kinds the reference registers and the port has not ported yet, by
 # category, each with the item that brings it.
 UNPORTED_KINDS: Dict[str, Dict[str, str]] = {
-    "namerdIface": {"io.l5d.thriftNameInterpreter": _THRIFT},
+    "namerdIface": {},
     "dtabStore": {k: _STORES for k in (
         "io.l5d.etcd", "io.l5d.consul", "io.l5d.zk", "io.l5d.k8s")},
 }
@@ -111,6 +110,25 @@ class MeshIfaceConfig:
     def mk(self, namerd: Namerd):
         iface = MeshIface(namerd)
         return H2Server(iface.dispatcher, host=self.ip, port=self.port)
+
+
+@register("namerdIface", "io.l5d.thriftNameInterpreter")
+@dataclass
+class ThriftIfaceConfig:
+    """The stamped long-poll thrift interface (the reference's default
+    linkerd<->namerd protocol; ref ThriftNamerInterface.scala:1-573)."""
+
+    port: int = 4100
+    ip: str = "127.0.0.1"
+    bindingCacheActive: int = 1000
+    addrCacheActive: int = 1000
+
+    def mk(self, namerd: Namerd):
+        from linkerd_tpu_torch.namerd.thrift_iface import ThriftNamerIface
+        return ThriftNamerIface(
+            namerd, host=self.ip, port=self.port,
+            binding_cache=self.bindingCacheActive,
+            addr_cache=self.addrCacheActive)
 
 
 # ---- assembly --------------------------------------------------------------

@@ -14,8 +14,10 @@ linkerd_tpu_torch.namerd``, run as users run them, on the CPU.
   reference does with no ``sidecarAddress``).
 - The namerd CLI on ``tests/configs/namerd.yml`` less its mesh and thrift
   interfaces answers the HTTP API and its admin pages as the
-  reference's namerd CLI does; with its thrift interface it refuses it
-  by name (the mesh interface is served: ``tests/test_torch_mesh.py``).
+  reference's namerd CLI does; on the whole fixture it serves all three
+  interfaces, its thrift interface answering a dtab call as the
+  reference's does (the mesh interface: ``tests/test_torch_mesh.py``;
+  the thrift one: ``tests/test_torch_namerd_thrift.py``).
 """
 
 import dataclasses
@@ -296,17 +298,24 @@ def test_namerd_cli_answers_as_the_reference(tmp_path):
 
 @pytest.mark.parametrize("kind", ["io.l5d.thriftNameInterpreter"])
 def test_namerd_refuses_unported_interfaces_by_name(kind, tmp_path):
-    from linkerd_tpu_torch.config import ConfigError
+    """No interface kind is refused any more: the thrift interface,
+    refused by name until the port took it, builds to the reference's
+    config, field for field."""
+    import linkerd_tpu.namerd.config as ref_config
     from linkerd_tpu_torch.namerd.config import (
-        NamerdProcess, parse_namerd_spec,
+        UNPORTED_KINDS, NamerdProcess, parse_namerd_spec,
     )
 
+    assert UNPORTED_KINDS["namerdIface"] == {}
     path, *_ = namerd_config(tmp_path, ("io.l5d.httpController", kind))
-    with pytest.raises(ConfigError) as e:
-        NamerdProcess(parse_namerd_spec(path.read_text()))
-    msg = str(e.value)
-    assert repr(kind) in msg and "not supported by the port yet" in msg \
-        and "ROADMAP Queue 1 item" in msg, msg
+    text = path.read_text()
+    port = NamerdProcess(parse_namerd_spec(text))
+    ref = ref_config.NamerdProcess(ref_config.parse_namerd_spec(text))
+    got = [(type(c).__name__, dataclasses.asdict(c))
+           for c in port._iface_cfgs]
+    assert got == [(type(c).__name__, dataclasses.asdict(c))
+                   for c in ref._iface_cfgs]
+    assert got[1][0] == "ThriftIfaceConfig"
 
 
 @pytest.mark.parametrize("kind", ["io.l5d.zk", "io.l5d.etcd",
@@ -336,15 +345,52 @@ def test_namerd_unported_kinds_are_the_reference_kinds():
             sorted(ref_kinds(cat))
 
 
+def thrift_dtab_call(port: int, module: str) -> str:
+    """The namespace ``default``'s dtab through a namerd's thrift
+    interface, read with ``module``'s client (run in a child, as a
+    linkerd would read it)."""
+    code = (
+        "import asyncio\n"
+        f"from {module}.interpreter.namerd_thrift import _decode_reply, "
+        "_encode_call\n"
+        f"from {module}.namerd import thrift_idl as idl\n"
+        f"from {module}.protocol.thrift.client import ThriftClient\n"
+        f"from {module}.protocol.thrift.codec import CALL, ThriftCall\n"
+        "async def go():\n"
+        f"    c = ThriftClient('127.0.0.1', {port})\n"
+        "    p = _encode_call('dtab', 1, idl.DtabReq(stamp=b'', "
+        "ns='default', clientId=[b't']))\n"
+        "    r = await c(ThriftCall(payload=p, name='dtab', seqid=1, "
+        "type=CALL))\n"
+        "    await c.close()\n"
+        "    print(_decode_reply(r, idl.DtabRef, idl.DtabFailure).dtab)\n"
+        "asyncio.run(go())\n")
+    out = subprocess.run([sys.executable, "-c", code], env=env(),
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return out.stdout.strip()
+
+
 def test_namerd_cli_refuses_the_fixture_with_mesh_and_thrift(tmp_path):
-    path, _, admin = namerd_config(
-        tmp_path, ("io.l5d.httpController", "io.l5d.mesh",
-                   "io.l5d.thriftNameInterpreter"))
-    proc = subprocess.run(
-        [sys.executable, "-m", "linkerd_tpu_torch.namerd", path], env=env(),
-        capture_output=True, text=True, timeout=120, cwd=tmp_path)
-    assert proc.returncode != 0
-    assert "'io.l5d.thriftNameInterpreter' is not supported by the port " \
-        "yet" in proc.stderr
-    with pytest.raises(OSError):
-        http("GET", admin, "/ping")
+    """The whole fixture, refused until the port took the thrift
+    interface, now serves: /ping answers, and the thrift interface
+    answers the dtab call with the reference namerd CLI's answer."""
+    answers = []
+    for module in ("linkerd_tpu.namerd", "linkerd_tpu_torch.namerd"):
+        d = tmp_path / module
+        path, _, admin = namerd_config(
+            d, ("io.l5d.httpController", "io.l5d.mesh",
+                "io.l5d.thriftNameInterpreter"))
+        thrift_port = next(i["port"] for i in json.loads(
+            path.read_text())["interfaces"]
+            if i["kind"] == "io.l5d.thriftNameInterpreter")
+        proc = spawn(module, path, cwd=d)
+        try:
+            wait_ping(proc, admin)
+            answers.append(thrift_dtab_call(
+                thrift_port, module.split(".")[0]))
+        finally:
+            rc = stop(proc)
+        assert rc == 0, proc.stderr.read()[-3000:]
+    assert answers[1] == answers[0]
+    assert "/svc=>/srv" in answers[1].replace(" ", "")

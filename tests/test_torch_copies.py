@@ -64,6 +64,15 @@ COPIES = (
     "mesh/__init__.py", "mesh/api.py", "mesh/messages.py",
     "mesh/converters.py", "namerd/mesh_iface.py", "interpreter/mesh.py",
     "interpreter/__init__.py",
+    # the thrift, mux and thriftmux routers, namerd's thrift interface
+    # and its io.l5d.namerd interpreter, and the fault harness
+    "protocol/thrift/__init__.py", "protocol/thrift/binary.py",
+    "protocol/thrift/codec.py", "protocol/thrift/ttwitter.py",
+    "protocol/thrift/server.py", "protocol/thrift/client.py",
+    "protocol/mux/__init__.py", "protocol/mux/codec.py",
+    "protocol/mux/server.py", "protocol/mux/client.py",
+    "namerd/thrift_idl.py", "namerd/thrift_iface.py",
+    "interpreter/namerd_thrift.py", "testing/__init__.py",
 )
 
 # Modules that differ on purpose: reason, and the top-level names that
@@ -102,17 +111,24 @@ DIFFERENT = {
         {"USAGE", "amain", "parse_args", "main", "log", "List", "Optional",
          "Tuple"}),
     "namerd/config.py": (
-        "the in-memory and fs stores, the HTTP control interface and "
-        "the mesh interface; the thrift interface and namerd/stores.py's "
-        "kinds are refused by name (ROADMAP Queue 1 items 12 and 15)",
+        "the in-memory and fs stores, the HTTP control interface, the "
+        "mesh interface and the thrift interface; namerd/stores.py's "
+        "kinds are refused by name (ROADMAP Queue 1 item 15)",
         None),
     "namerd/__main__.py": (
-        "runs the port's namerd/config.py, which refuses the thrift "
-        "interface and the remote stores by name; its logger and usage "
-        "line name the port", {"log", "main"}),
+        "runs the port's namerd/config.py, which refuses the remote "
+        "stores by name; its logger and usage line name the port",
+        {"log", "main"}),
     "linker.py": (
-        "the protocol: http subset, with a device for the telemeters and "
-        "by-name refusals of what is not ported", None),
+        "the five router protocols, with a device for the telemeters and "
+        "by-name refusals of what is not ported (tenants, loggers, "
+        "announcers, the other namers and interpreters); "
+        "_mk_thrift_router and _mk_mux_router are the reference's",
+        None),
+    "testing/faults.py": (
+        "auc is the port's NaN-safe one (lifecycle/promote.py): the "
+        "reference's tie scan never ends on a NaN score",
+        {"auc"}),
     "telemetry/anomaly.py": (
         "the telemeter ported to PyTorch: the scorer, training "
         "and kernel are the port's own", None),
@@ -149,10 +165,10 @@ DIFFERENT = {
         {"ControlConfig", "FleetConfig", "ConfigRefused",
          "REFUSED_KEYS"}),
     "interpreter/configs.py": (
-        "the default, io.l5d.mesh and io.l5d.namerd.http kinds; the "
-        "thrift namerd, fs and configMap kinds are refused by the linker "
-        "(ROADMAP Queue 1 item 13)",
-        {"NamerdThriftInterpreterConfig", "linkerd_tpu"}),
+        "the default, io.l5d.mesh, io.l5d.namerd.http and io.l5d.namerd "
+        "kinds; the fs and configMap kinds are refused by the linker "
+        "(ROADMAP Queue 1 item 13), so their modules are not imported",
+        {"linkerd_tpu"}),
     "router/fastpath.py": (
         "the controller of both engines: no tenant board and "
         "admission (ROADMAP Queue 1 item 10; the guard counters are "

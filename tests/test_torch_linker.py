@@ -368,13 +368,18 @@ REFUSALS = {
 
 # Cases this test refused by name until the port took their keys (the
 # native engine's workers, TLS, connectionGuard and streamScoring, the
-# h2 router, the h2 engine and the io.l5d.mesh interpreter): each now
+# h2 router, the h2 engine, the io.l5d.mesh interpreter, the thrift, mux
+# and thriftmux routers and the io.l5d.namerd interpreter): each now
 # does what the reference's linker does with the same text, loading or
 # failing with the same message.
 FP = "routers:\n- protocol: http\n  fastPath: true\n"
 FP0 = FP + "  servers: [{port: 0}]\n"
 PORTED = {
     "protocol h2": "routers:\n- protocol: h2\n",
+    **{f"protocol {p}": f"routers:\n- protocol: {p}\n"
+       for p in ("thrift", "mux", "thriftmux")},
+    "interpreter kind io.l5d.namerd": (
+        "routers:\n- protocol: http\n  interpreter: {kind: io.l5d.namerd}\n"),
     "fastPath on h2": ("routers:\n- protocol: h2\n  fastPath: true\n"
                        "  servers: [{port: 0}]\n"),
     "interpreter kind io.l5d.mesh": (
