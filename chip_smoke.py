@@ -12,9 +12,11 @@
     python3 chip_smoke.py --check h2         # the h2 phase alone
     python3 chip_smoke.py --check h2fast     # the h2fast phase alone
     python3 chip_smoke.py --check mux        # the mux phase alone
+    python3 chip_smoke.py --check k8s        # the k8s phase alone
     python3 chip_smoke.py --mutant one_rounding telemeter  # one mutant, one check
     python3 chip_smoke.py --witness  # the kernel's sums against exact ones
     python3 chip_smoke.py --repeat-control-a 16  # control part A, 16 times
+    python3 chip_smoke.py --repeat-control-b 8   # control part B, 8 times
 
 Builds every CUDA kernel of the scoring path, and the native engine
 (``native/`` through ``linkerd_tpu_torch/native/_build.py``), from the
@@ -141,24 +143,48 @@ as in part A); part C, the three routers bound through the namerd CLI's
 thrift interface (``io.l5d.namerd``) around a dtab write and a namerd
 restart (every call answered as the dtab of the moment says, every http
 row scored under its destination, the write- and restart-to-answer ms).
+Then the k8s phase, in this process: part A, BASELINE config 4 (the
+io.l5d.k8s namer over a scripted API server, the dtab in a ConfigMap
+read by io.l5d.k8s.configMap, zipkin spans to a collector, a rolling
+restart of svc-3 whose survivor answers 4-16 ms late) on
+``testing/config4.py``'s schedule at 4,096 requests, one at a time
+(every request answered by its own service, the router's counter equal
+to what was sent, no request reaching a pod after the binding showed it
+gone, a span for every request, every row scored with one launch a
+batch, each batch's kernel scores and the board against plain under the
+model it read, fault_auc_subtle_k8s printed beside BASELINE's 0.9 and
+failing at 0.5 or less, a ConfigMap update timed to its first answer);
+part B, BASELINE config 5 (two routers over 50 services in three tiers,
+the io.l5d.istio telemeter reporting to a mixer on the port's gRPC
+runtime, a latency-only cascade and 15% 503s) on ``testing/config5.py``'s
+schedule at 2,048 front requests (a mixer report for every request of
+either router, every 502 a svc-47 503 in its window, the kernel and
+board checks of part A, both AUCs printed and failing at 0.5 or less);
+part C, one linker of four routers: io.l5d.ingress (an Ingress update
+moving a path, timed to its first answer), the io.l5d.k8s.istio
+identifier, interpreter and namer over a fake pilot (an 80/20 route
+rule answered within 5 points over 2,048 requests), io.l5d.k8s.ns and
+io.l5d.k8s.external, each part's rows scored with one launch a batch and
+held against plain.
 Prints the card, a JSON line of kernel and
 service numbers, one of the train phase's, one of the distill
 phase's, one of the telemeter phase's, one of the linker phase's, one
 of the fastpath phase's, one of the control phase's, one of the cli
 phase's, one of the h2 phase's, one of the h2fast phase's, one of the
-mux phase's, and as its last line
+mux phase's, one of the k8s phase's, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; with no CUDA device, or
 outside the repository, it exits non-zero before printing any result.
 Imports nothing of JAX.
 
 ``--mutants`` builds deliberately broken copies of the kernel in a
 temporary copy of the port and runs the kernel and served checks
-against each, and the linker, fastpath, control, cli, h2, h2fast and mux
-phases against ``LINKER_MUTANT``, the cli phase against ``CLI_MUTANTS``, part D
+against each, and the linker, fastpath, control, cli, h2, h2fast, mux
+and k8s phases against ``LINKER_MUTANT``, the cli phase against ``CLI_MUTANTS``, part D
 against ``FASTPATH_MUTANTS`` (the sharded engine's stats merge and
 feature drain reading worker 0 alone), the h2 phase against
-``H2_MUTANTS``, the h2fast phase against ``H2FAST_MUTANTS`` and the
-mux phase against ``MUX_MUTANTS``, in a fresh interpreter; it fails
+``H2_MUTANTS``, the h2fast phase against ``H2FAST_MUTANTS``, the
+mux phase against ``MUX_MUTANTS`` and the k8s phase against
+``K8S_MUTANTS``, in a fresh interpreter; it fails
 unless every check fails on its mutant.
 
 ``--witness`` runs the linker phase's part A and, on its window rows,
@@ -169,6 +195,10 @@ holds the kernel and the plain version against an exact forward
 one topology and prints each run's weight margins (the faulted
 replicas' weights under every calm replica's: averaged to the drain as
 the check reads them, at the worst instant before it, and after it).
+``--repeat-control-b N`` runs part B N times over one topology and
+prints each run's events, the reactor's levels from the oscillation on,
+its stalled steps and the interpreter's full collections, or its
+failure.
 
 ``--sweep`` builds variants of the kernel in temporary copies and times
 each at ``TIMED_ROWS``, one after another on this card: the row tiles
@@ -181,6 +211,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -1917,10 +1948,12 @@ async def tele_layers(tele, dev: str, reps: int = 20) -> dict:
 
 
 def batch_key(scores: np.ndarray) -> int:
-    """One batch's scores, as a score call returned them (an array that
-    owns its memory) or as a board fold took them (that array or a
-    slice of it)."""
-    return id(scores if scores.base is None else scores.base)
+    """One batch's scores, as a score call returned them or as a board
+    fold took them (that array or a slice of it): the array that owns
+    their memory."""
+    while getattr(scores, "base", None) is not None:
+        scores = scores.base
+    return id(scores)
 
 
 def tele_plain(snap, rec, dev: str):
@@ -3879,6 +3912,45 @@ def control_config(namerd_port: int, failover: bool) -> str:
                        "reconWeight": 1.0, "control": control}]})
 
 
+class HeldHeap:
+    """The interpreter's heap held out of its full collections while a
+    control part runs: ``freeze`` collects, then moves every live object
+    to the permanent generation (``gc.freeze``), so a full collection
+    scans only what was made after it. Unfrozen, a full collection on the
+    router's loop took 0.13-0.53 s with the heap of imports and earlier
+    runs, every 5-8 s; the stall held every request in flight, the model
+    read the delay as a fault, and the reactor's levels rose by up to 0.5
+    for a few steps after it (``--repeat-control-b``, on an NVIDIA H100
+    80GB HBM3 host; PERF.md §6). Frozen, they took 9-101 ms. Objects
+    still die by their counts. Records each full collection's ms but its
+    own; ``close`` unfreezes."""
+
+    def __init__(self):
+        self.ms, self._began, self._own = [], 0.0, False
+        gc.callbacks.append(self._time)
+        self.freeze()
+
+    def freeze(self) -> None:
+        self._own = True
+        try:
+            gc.collect()
+        finally:
+            self._own = False
+        gc.freeze()
+
+    def _time(self, phase: str, info: dict) -> None:
+        if info["generation"] != 2 or self._own:
+            return
+        if phase == "start":
+            self._began = time.monotonic()
+        else:
+            self.ms.append((time.monotonic() - self._began) * 1e3)
+
+    def close(self) -> None:
+        gc.callbacks.remove(self._time)
+        gc.unfreeze()
+
+
 class ControlTap:
     """Records, on a linker's control loop, each admission factor and,
     with a reactor, each step's instant and cluster levels; and, on a
@@ -4364,6 +4436,7 @@ async def control_part(part: str, text: str, loads, flag, plans, disco,
     ctl = tele.control
     tap = LinkerTap(tele)
     ctap = ControlTap(ctl, namerd_port)
+    heap = HeldHeap()
     task = monitor(asyncio.create_task(tele.run()),
                    what="telemeter-control")
     what = f"control {part}"
@@ -4376,6 +4449,7 @@ async def control_part(part: str, text: str, loads, flag, plans, disco,
         warm = merge_segments([warm, await linker_traffic(loads, port,
                                                           plans[0])])
         await tap.settle(tele, task, f"{part} warm-up")
+        heap.freeze()       # the warm-up's rows too, before the window
         start, first = len(tap.folds), len(tap.batches)
         if part == "A":
             tele.cfg.trainEveryBatches = 0
@@ -4411,6 +4485,7 @@ async def control_part(part: str, text: str, loads, flag, plans, disco,
             held = await trained_window_checks(what, tele, tap, start,
                                                first, dev)
         out.update(held)
+        out["gc_full_ms"] = [round(ms, 1) for ms in heap.ms]
         flat = linker.metrics.flatten()
         status = ctl.status()
         out["admission"] = {
@@ -4452,7 +4527,17 @@ async def control_part(part: str, text: str, loads, flag, plans, disco,
                                              ev["fault"])
             print(f"{what}: events (s from the fault) {out['events_s']}; "
                   f"levels {out['levels']}")
-            out.update(shift_checks(window, ev, ctap.dtabs))
+            try:
+                out.update(shift_checks(window, ev, ctap.dtabs))
+            except AssertionError as e:
+                # the driver's log keeps standard error's end: what the
+                # reactor saw from the oscillation on goes there too
+                raise AssertionError(
+                    f"{e}; events (s from the fault) "
+                    f"{ {k: round(v, 3) for k, v in out['events_s'].items()} }"
+                    f"; each step's highest level from the oscillation "
+                    f"{level_trace(ctap.levels, ev['osc'], ev['fault'])}"
+                ) from None
             osc = (ev["osc_after"][0] - ev["osc_counts"][0],
                    ev["osc_after"][1] - ev["osc_counts"][1])
             calm = out["levels"]["calm_since_guard"]
@@ -4482,6 +4567,7 @@ async def control_part(part: str, text: str, loads, flag, plans, disco,
             out["unsafe_rejected"] = unsafe
         return out, launches
     finally:
+        heap.close()
         await ctap.close()
         task.cancel()
         await asyncio.gather(task, return_exceptions=True)
@@ -4553,6 +4639,10 @@ async def control_phase(seed: int = 12, dev: str = "cuda", linker_a=None):
           f"{a['board_vs_plain_fold_max']:.3e}; part B {b['launches']} "
           f"launches for {b['batches']} batches, kernel vs plain "
           f"{b['kernel_vs_plain_max']:.3e}, board {b['board_vs_plain_fold_max']:.3e}")
+    print("control: the interpreter's full collections, heap frozen: "
+          + "; ".join(f"part {name} {len(r['gc_full_ms'])}, longest "
+                      f"{max(r['gc_full_ms'], default=0.0):.1f} ms"
+                      for name, r in (("A", a), ("B", b))))
     print(f"control B: fault to first publish "
           f"{b['fault_to_first_publish_ms']:.1f} ms (last "
           f"{b['fault_to_last_publish_ms']:.1f}), to first failover answer "
@@ -7177,33 +7267,36 @@ class SnapTap:
 
 
 def snap_checks(what: str, tele, tap, calls: int, launches: int,
-                dev: str) -> dict:
+                dev: str, phase: str = "mux") -> dict:
     """The first ``calls`` score calls, each under the model it read:
-    kernel against plain on every row (TOL; at most ROW_SHARE past
-    ROW_TOL), one launch a call with rows, and the board against a fresh
-    one folded in the same order with the plain scores."""
+    kernel against plain on every row (TOL; at most ROW_SHARE of every
+    batch's rows past ROW_TOL), one launch a call with rows, and the
+    board against a fresh one folded in the same order with the plain
+    scores."""
     scored = tap.scored[:calls]
     plain = [plain_scores(snap, x, dev) for x, _, snap in scored]
     with_rows = sum(len(x) > 0 for x, _, _ in scored)
     if launches != (0 if dev == "cpu" else with_rows):
-        raise AssertionError(f"mux {what}: {launches} kernel launches for "
+        raise AssertionError(f"{phase} {what}: {launches} kernel launches for "
                              f"{with_rows} batches with rows")
-    got = np.concatenate([s for _, s, _ in scored])
-    gap = np.abs(got - np.concatenate(plain))
+    gaps = [np.abs(s - p) for (_, s, _), p in zip(scored, plain)]
+    gap = np.concatenate(gaps)
     past = int((gap > ROW_TOL).sum())
-    print(f"mux {what}: {len(scored)} batches, {launches} launches, "
+    worst_share = max((g > ROW_TOL).mean() for g in gaps if len(g))
+    print(f"{phase} {what}: {len(scored)} batches, {launches} launches, "
           f"kernel vs plain max|diff| {gap.max():.3e}, {past} of "
-          f"{len(gap)} rows past {ROW_TOL}")
-    if gap.max() > TOL or past > ROW_SHARE * len(gap):
-        raise AssertionError(f"mux {what}: kernel vs plain max "
+          f"{len(gap)} rows past {ROW_TOL} (at most {worst_share:.4f} of "
+          f"a batch)")
+    if gap.max() > TOL or worst_share > ROW_SHARE:
+        raise AssertionError(f"{phase} {what}: kernel vs plain max "
                              f"{gap.max()}, {past} of {len(gap)} rows past "
-                             f"{ROW_TOL}")
+                             f"{ROW_TOL}, up to {worst_share} of a batch")
     board = linker_board_check(tele, tap, 0, {
         batch_key(s): p for (_, s, _), p in zip(scored, plain)},
-        f"mux {what}")
-    print(f"mux {what}: board vs plain fold {board:.3e}")
+        f"{phase} {what}")
+    print(f"{phase} {what}: board vs plain fold {board:.3e}")
     if board > TOL:
-        raise AssertionError(f"mux {what}: board off the plain fold by "
+        raise AssertionError(f"{phase} {what}: board off the plain fold by "
                              f"{board} > {TOL}")
     return {"launches": launches, "batches": len(scored),
             "batches_with_rows": with_rows, "rows": len(gap),
@@ -7763,6 +7856,548 @@ async def mux_phase(dev: str = "cuda", parts=("A", "B", "C")):
     return res, launches
 
 
+K8S_REQUESTS = 4096        # config 4's requests (the benchmark: 600)
+ISTIO_REQUESTS = 2048      # config 5's front requests (the benchmark: 500)
+K8S_AUC_TARGET = 0.9       # BASELINE.json's fault_auc targets (printed)
+K8S_WAIT_S = 10.0          # a ConfigMap or Ingress update to its answer
+K8S_INGRESS = 1024         # part C requests through the ingress router
+K8S_SPLIT = 2048           # ... through the istio router (80/20 route)
+K8S_SPLIT_POINTS = 5.0     # the split's tolerance, in points of share
+K8S_NAMERS = 512           # ... through each of the ns and external routers
+K8S_SVCS = ("ing-a", "ing-b", "reviews-v1", "reviews-v2", "ext")
+
+
+class KTap(SnapTap):
+    """A SnapTap that also keeps the host time spent in the scorer's
+    score and fit calls (each returns once the card is done with it)."""
+
+    def __init__(self, tele):
+        super().__init__(tele)
+        self.scorer_s = 0.0
+        scorer = tele._ensure_scorer()
+        score, fit = scorer.score, scorer.fit
+
+        async def scoring(x):
+            t0 = time.perf_counter()
+            try:
+                return await score(x)
+            finally:
+                self.scorer_s += time.perf_counter() - t0
+
+        async def fitting(*a):
+            t0 = time.perf_counter()
+            try:
+                return await fit(*a)
+            finally:
+                self.scorer_s += time.perf_counter() - t0
+
+        scorer.score, scorer.fit = scoring, fitting
+
+
+async def answered_by(proxy, host: str, uri: str = "/") -> tuple:
+    """One request's (status, body) through ``proxy``."""
+    from linkerd_tpu_torch.protocol.http import Request
+
+    req = Request(method="GET", uri=uri)
+    req.headers.set("Host", host)
+    rsp = await proxy(req)
+    return rsp.status, rsp.body
+
+
+async def until_answer(proxy, host: str, want: bytes, what: str,
+                       uri: str = "/") -> tuple:
+    """Seconds until a request to ``host`` is answered ``want``, and the
+    requests sent; raises after K8S_WAIT_S."""
+    t0, sent = time.perf_counter(), 0
+    while True:
+        status, body = await answered_by(proxy, host, uri)
+        sent += 1
+        if status == 200 and body == want:
+            return time.perf_counter() - t0, sent
+        if time.perf_counter() - t0 > K8S_WAIT_S:
+            raise AssertionError(f"k8s {what}: still answered {status} "
+                                 f"{body[:40]!r} after {K8S_WAIT_S} s")
+        await asyncio.sleep(0.01)
+
+
+def auc_check(what: str, name: str, got: float) -> None:
+    print(f"k8s {what}: {name} {got:.4f} (BASELINE target "
+          f"{K8S_AUC_TARGET}, not gated; fails at <= 0.5)")
+    if not got > 0.5:
+        raise AssertionError(f"k8s {what}: {name} {got} <= 0.5")
+
+
+async def k8s_part_a(dev: str, n_requests: int = K8S_REQUESTS):
+    """BASELINE config 4 through ``testing/config4.py``'s schedule at
+    ``n_requests`` on its topology; then a ConfigMap update moving svc-0
+    to svc-1, timed to its first answer."""
+    from linkerd_tpu_torch.testing import config4
+
+    async with config4.Topology(dev) as top:
+        tele = top.linker.telemeters[0]
+        tap = KTap(tele)
+        t0 = time.perf_counter()
+        out, launches = await counted(config4.run_schedule(
+            top.linker, top.traffic(), n_requests))
+        drive_s = time.perf_counter() - t0
+        calls = len(tap.scored)
+        out.update(snap_checks("A", tele, tap, calls, launches, dev,
+                               phase="k8s"))
+        sent = sum(top.answers.values())
+        requests = top.linker.metrics.counter(
+            "rt", "k8s", "server", "requests").value
+        if top.answers != {"right": sent, "wrong": 0, "failed": 0} or \
+                requests != sent:
+            raise AssertionError(f"k8s A: answers {top.answers}, router "
+                                 f"counted {requests}")
+        if top.strays:
+            raise AssertionError(f"k8s A: {top.strays} requests reached a "
+                                 f"pod after the binding showed it gone")
+        served = {f"{s}/{p}": n for (s, p), n in sorted(top.served.items())}
+        spans_s = await top.wait_spans(sent)
+        if len(top.spans) < sent:
+            raise AssertionError(f"k8s A: {len(top.spans)} spans at the "
+                                 f"collector for {sent} requests")
+        # the ConfigMap's dtab moves svc-0 to svc-1's pods, then back
+        top.fake.set_dtab(config4.DTAB + " /svc/svc-0 => "
+                          "/#/io.l5d.k8s/default/http/svc-1 ;")
+        to_moved, _ = await until_answer(top.proxy, "svc-0",
+                                         config4.body_of("svc-1"),
+                                         "A ConfigMap update")
+        top.fake.set_dtab(config4.DTAB)
+        to_back, _ = await until_answer(top.proxy, "svc-0",
+                                        config4.body_of("svc-0"),
+                                        "A ConfigMap restore")
+    auc_check("A", "fault_auc_subtle_k8s", out["fault_auc_subtle_k8s"])
+    out.update(requests=sent, served=served, strays=top.strays,
+               binding_ms=[s * 1e3 for s in top.binding_s],
+               spans=len(top.spans), spans_wait_s=spans_s,
+               configmap_update_to_answer_ms=to_moved * 1e3,
+               configmap_restore_to_answer_ms=to_back * 1e3,
+               drive_s=drive_s, req_per_s=sent / drive_s,
+               scorer_s=tap.scorer_s, scorer_share=tap.scorer_s / drive_s,
+               fault_auc_target=K8S_AUC_TARGET)
+    print(f"k8s A (config 4, {n_requests} requests): "
+          f"fault_auc_subtle_k8s {out['fault_auc_subtle_k8s']:.4f}; {sent} "
+          f"requests in {drive_s:.2f} s ({out['req_per_s']:.0f}/s, one "
+          f"sender), scorer calls {tap.scorer_s:.2f} s "
+          f"({out['scorer_share']:.3f} of the drive); binding after a "
+          f"restart {min(out['binding_ms']):.1f}-"
+          f"{max(out['binding_ms']):.1f} ms; {len(top.spans)} spans; "
+          f"ConfigMap update to answer {to_moved * 1e3:.1f} ms")
+    return out, launches
+
+
+async def k8s_part_b(dev: str, n_requests: int = ISTIO_REQUESTS):
+    """BASELINE config 5 through ``testing/config5.py``'s schedule at
+    ``n_requests`` front requests on its topology, with both routers and
+    the mixer."""
+    from linkerd_tpu_torch.testing import config5
+
+    async with config5.Topology(dev) as top:
+        tele = top.linker.telemeters[0]
+        tap = KTap(tele)
+        t0 = time.perf_counter()
+        out, launches = await counted(config5.run_schedule(
+            top.linker, top.traffic(), n_requests))
+        drive_s = time.perf_counter() - t0
+        calls = len(tap.scored)
+        out.update(snap_checks("B", tele, tap, calls, launches, dev,
+                               phase="k8s"))
+        drain_s = await top.wait_reports()
+        front, back = top.served()
+        reports = len(top.reports)
+        injected = top.err_injector.injected
+    if reports != front + back:
+        raise AssertionError(f"k8s B: {reports} mixer reports for {front} "
+                             f"front and {back} back requests")
+    errors = int(config5.ERRORS.split("-")[1])
+    fronts = {i for i in range(config5.N_FRONT)
+              if config5.db_of(config5.mid_of(i)) == errors}
+    statuses = {}
+    for frontend, status, window in top.answers:
+        statuses[status] = statuses.get(status, 0) + 1
+        if status == 502 and (window != "errors" or frontend not in fronts):
+            raise AssertionError(f"k8s B: a 502 for svc-{frontend} in "
+                                 f"window {window}, not a {config5.ERRORS} "
+                                 f"503 window")
+    if set(statuses) - {200, 502} or statuses.get(502, 0) != injected or \
+            len(top.answers) != front:
+        raise AssertionError(f"k8s B: statuses {statuses}, {injected} "
+                             f"injected 503s, {len(top.answers)} sent, "
+                             f"{front} served")
+    for name in ("fault_auc_subtle_istio", "fault_auc_latency_only"):
+        auc_check("B", name, out[name])
+    out.update(front_requests=front, back_requests=back,
+               mixer_reports=reports, reports_drain_s=drain_s,
+               statuses=statuses, injected_503=injected,
+               drive_s=drive_s, front_req_per_s=front / drive_s,
+               router_req_per_s=(front + back) / drive_s,
+               scorer_s=tap.scorer_s, scorer_share=tap.scorer_s / drive_s,
+               fault_auc_target=K8S_AUC_TARGET)
+    print(f"k8s B (config 5, {n_requests} front requests): "
+          f"fault_auc_subtle_istio {out['fault_auc_subtle_istio']:.4f}, "
+          f"fault_auc_latency_only {out['fault_auc_latency_only']:.4f}; "
+          f"{front} front + {back} back requests in {drive_s:.2f} s "
+          f"({out['front_req_per_s']:.0f} front/s), {reports} mixer "
+          f"reports, {statuses.get(502, 0)} 502s from {injected} injected "
+          f"503s; scorer calls {out['scorer_share']:.3f} of the drive")
+    return out, launches
+
+
+class NamingFake:
+    """Part C's API server: config 4's fake (Endpoints by service) with
+    Services whose LoadBalancer ingress is a local pod, and Ingresses
+    listed and watched."""
+
+    def __init__(self, pods, lb):
+        from linkerd_tpu_torch.testing import config4
+
+        self.k8s = config4.FakeK8s(pods)
+        self.lb = lb  # service -> port
+        self.ingresses = []
+        self.ingress_queues = []
+
+    def ingress(self, paths, version: int) -> dict:
+        return {"kind": "Ingress",
+                "metadata": {"name": "shop", "namespace": "default",
+                             "resourceVersion": str(version)},
+                "spec": {"rules": [{"host": "shop.example.com", "http": {
+                    "paths": [{"path": p, "backend": {
+                        "serviceName": s, "servicePort": "http"}}
+                        for p, s in paths]}}]}}
+
+    def set_ingress(self, paths, version: int) -> None:
+        obj = self.ingress(paths, version)
+        evt = "MODIFIED" if self.ingresses else "ADDED"
+        self.ingresses[:] = [obj]
+        for q in self.ingress_queues:
+            q.put_nowait({"type": evt, "object": obj})
+
+    def service(self):
+        from linkerd_tpu_torch.protocol.http.message import Response
+        from linkerd_tpu_torch.router.service import FnService
+
+        inner = self.k8s.service()
+
+        async def handler(req):
+            uri = req.uri
+            if "/ingresses" in uri:
+                if "watch=true" in uri:
+                    q = asyncio.Queue()
+                    self.ingress_queues.append(q)
+                    return Response(status=200, body_stream=self.k8s._stream(
+                        self.ingress_queues, q))
+                return Response(status=200, body=json.dumps({
+                    "kind": "IngressList",
+                    "metadata": {"resourceVersion": "1"},
+                    "items": self.ingresses}).encode())
+            if "/services/" in uri:
+                svc = uri.split("?")[0].rsplit("/", 1)[1]
+                if svc in self.lb:
+                    return Response(status=200, body=json.dumps({
+                        "kind": "Service",
+                        "metadata": {"name": svc, "namespace": "default",
+                                     "resourceVersion": "1"},
+                        "spec": {"ports": [{"name": "http",
+                                            "port": self.lb[svc]}]},
+                        "status": {"loadBalancer": {"ingress": [
+                            {"ip": "127.0.0.1"}]}}}).encode())
+            return await inner(req)
+        return FnService(handler)
+
+    def close_watches(self) -> None:
+        self.k8s.close_watches()
+        for q in self.ingress_queues:
+            q.put_nowait(None)
+
+
+class NamingPilot:
+    """Part C's pilot: SDS for two versions of ``reviews``, RDS naming
+    it, and one route rule splitting it 80/20."""
+
+    DEST = "reviews.default.svc.cluster.local"
+
+    def __init__(self, v1: int, v2: int):
+        self.registrations = {f"{self.DEST}|http|version=v1":
+                              [("127.0.0.1", v1)],
+                              f"{self.DEST}|http|version=v2":
+                              [("127.0.0.1", v2)]}
+        self.routes = [{"virtual_hosts": [
+            {"name": f"{self.DEST}|http", "domains": ["reviews"]}]}]
+        self.rules = [{"type": "route-rule", "name": "split", "spec": {
+            "destination": self.DEST, "precedence": 1,
+            "route": [{"tags": {"version": "v1"}, "weight": 80},
+                      {"tags": {"version": "v2"}, "weight": 20}]}}]
+
+    def service(self):
+        from linkerd_tpu_torch.protocol.http.message import Response
+        from linkerd_tpu_torch.router.service import FnService
+
+        async def handler(req):
+            path = req.uri.split("?", 1)[0]
+            if path.startswith("/v1/registration/"):
+                hosts = [{"ip_address": ip, "port": p} for ip, p in
+                         self.registrations.get(
+                             path[len("/v1/registration/"):], [])]
+                return Response(200, body=json.dumps(
+                    {"hosts": hosts}).encode())
+            if path == "/v1/routes":
+                return Response(200, body=json.dumps(self.routes).encode())
+            if path == "/v1alpha1/config/route-rule":
+                return Response(200, body=json.dumps(self.rules).encode())
+            return Response(404)
+        return FnService(handler)
+
+
+def k8s_naming_config(k8s: int, pilot: int) -> str:
+    """Part C's linker: four routers over the k8s API server and pilot,
+    io.l5d.jaxAnomaly (frozen: no fit) on every router."""
+    api = f"host: 127.0.0.1, port: {k8s}"
+    pil = f"host: 127.0.0.1, port: {pilot}, pollIntervalMs: 100"
+    return f"""
+routers:
+- protocol: http
+  label: ingress
+  identifier: {{kind: io.l5d.ingress, {api}}}
+  dtab: |
+    /svc => /#/io.l5d.k8s ;
+  servers: [{{port: 0}}]
+- protocol: http
+  label: istio
+  identifier: {{kind: io.l5d.k8s.istio, {pil}, discoveryPort: {pilot}}}
+  interpreter: {{kind: io.l5d.k8s.istio, {pil}}}
+  servers: [{{port: 0}}]
+- protocol: http
+  label: ns
+  dtab: |
+    /svc => /#/io.l5d.k8s.ns/http ;
+  servers: [{{port: 0}}]
+- protocol: http
+  label: external
+  dtab: |
+    /svc => /#/io.l5d.k8s.external/default/http ;
+  servers: [{{port: 0}}]
+telemetry:
+- kind: io.l5d.jaxAnomaly
+  maxBatch: 1024
+  trainEveryBatches: 0
+namers:
+- {{kind: io.l5d.k8s, {api}}}
+- {{kind: io.l5d.k8s.ns, namespace: default, {api}}}
+- {{kind: io.l5d.k8s.external, {api}}}
+- {{kind: io.l5d.k8s.istio, {pil}}}
+"""
+
+
+async def k8s_part_c(dev: str):
+    """The naming pieces at traffic, one router each in one linker: the
+    io.l5d.ingress identifier (an Ingress update moving a path, timed to
+    its first answer), the io.l5d.k8s.istio identifier, interpreter and
+    namer over a fake pilot (an 80/20 route rule, answers split within
+    K8S_SPLIT_POINTS), an io.l5d.k8s.ns and an io.l5d.k8s.external
+    router; each part's rows drained and checked, launches = batches."""
+    from linkerd_tpu_torch.linker import load_linker
+    from linkerd_tpu_torch.protocol.http import Request, Response
+    from linkerd_tpu_torch.protocol.http.client import HttpClient
+    from linkerd_tpu_torch.protocol.http.server import HttpServer, serve
+    from linkerd_tpu_torch.router.service import FnService
+    from linkerd_tpu_torch.testing import config4
+
+    closers = []
+    res, launches_all = {}, 0
+    try:
+        ports = {}
+        for svc in K8S_SVCS:
+            async def handler(req: Request, _svc=svc) -> Response:
+                return Response(200, body=config4.body_of(_svc))
+            server = await serve(FnService(handler))
+            closers.append(server.close)
+            ports[svc] = server.bound_port
+        fake = NamingFake({s: [("127.0.0.1", p)] for s, p in ports.items()},
+                          {"ext": ports["ext"]})
+        fake.set_ingress([("/a/.*", "ing-a"), ("/b/.*", "ing-b")], 10)
+        k8s_srv = await HttpServer(fake.service()).start()
+        closers.append(k8s_srv.close)
+        pilot_srv = await HttpServer(NamingPilot(
+            ports["reviews-v1"], ports["reviews-v2"]).service()).start()
+        closers.append(pilot_srv.close)
+
+        async def end_watches():
+            fake.close_watches()
+            await asyncio.sleep(0)
+        closers.append(end_watches)
+        linker = load_linker(k8s_naming_config(
+            k8s_srv.bound_port, pilot_srv.bound_port), device=dev)
+        await linker.start()
+        closers.append(linker.close)
+        tele = linker.telemeters[0]
+        tap = KTap(tele)
+        proxies = {}
+        for r in linker.routers:
+            proxies[r.label] = HttpClient("127.0.0.1", r.server_ports[0])
+            closers.append(proxies[r.label].close)
+
+        async def part(label: str, plan, after=None):
+            """``plan``: [(host, uri, answers allowed)]; every request
+            answered 200 by an allowed service; then ``after()`` (its
+            result and the requests it sent), the ring drained and the
+            part's batches checked."""
+            start = len(tap.scored)
+            counts = {}
+            t0 = time.perf_counter()
+            for host, uri, allowed in plan:
+                status, body = await answered_by(proxies[label], host, uri)
+                who = next((s for s in K8S_SVCS
+                            if body == config4.body_of(s)), None)
+                if status != 200 or who not in allowed:
+                    raise AssertionError(
+                        f"k8s C {label}: {host}{uri} answered {status} by "
+                        f"{who}, not one of {allowed}")
+                counts[who] = counts.get(who, 0) + 1
+            wall = time.perf_counter() - t0
+            extra, probes = await after() if after else (None, 0)
+            rows, n = await counted(config4.drain(tele))
+            batches = len(tap.scored) - start
+            if rows != len(plan) + probes or \
+                    n != (0 if dev == "cpu" else batches):
+                raise AssertionError(
+                    f"k8s C {label}: {rows} rows scored for "
+                    f"{len(plan) + probes} requests, {n} launches for "
+                    f"{batches} batches")
+            return {"counts": counts, "requests": len(plan) + probes,
+                    "launches": n, "batches": batches, "wall_s": wall,
+                    "req_per_s": len(plan) / wall, "after": extra}, n
+
+        async def move_path():
+            """An Ingress update sends /a/ to ing-b: seconds to the
+            first answer by ing-b."""
+            fake.set_ingress([("/a/.*", "ing-b"), ("/b/.*", "ing-b")], 11)
+            return await until_answer(
+                proxies["ingress"], "shop.example.com",
+                config4.body_of("ing-b"), "C ingress update", uri="/a/x")
+
+        # the ingress router: rules by host and path
+        plan = [("shop.example.com", f"/{c}/x", (f"ing-{c}",))
+                for c in "ab" * (K8S_INGRESS // 2)]
+        res["ingress"], n = await part("ingress", plan, move_path)
+        launches_all += n
+        res["ingress"]["update_to_answer_ms"] = \
+            1e3 * res["ingress"].pop("after")
+        # the istio router: an 80/20 route rule over two versions
+        plan = [("reviews", "/", ("reviews-v1", "reviews-v2"))] * K8S_SPLIT
+        res["istio"], n = await part("istio", plan)
+        launches_all += n
+        counts = res["istio"]["counts"]
+        share = 100.0 * counts.get("reviews-v1", 0) / K8S_SPLIT
+        res["istio"]["v1_share_points"] = share
+        print(f"k8s C istio: v1 {share:.1f}% of {K8S_SPLIT} (route 80/20)")
+        if abs(share - 80.0) > K8S_SPLIT_POINTS:
+            raise AssertionError(f"k8s C istio: v1 answered {share:.1f}% "
+                                 f"of {K8S_SPLIT}, not 80 +- "
+                                 f"{K8S_SPLIT_POINTS}")
+        # the namespaced and external namers
+        plan = [(s, "/", (s,)) for s in ("ing-a", "ing-b", "ext")] * (
+            K8S_NAMERS // 3)
+        res["ns"], n = await part("ns", plan)
+        launches_all += n
+        res["external"], n = await part(
+            "external", [("ext", "/", ("ext",))] * K8S_NAMERS)
+        launches_all += n
+        # every part's batches, each under the model it read, and the
+        # board
+        res.update(snap_checks("C", tele, tap, len(tap.scored),
+                               launches_all, dev, phase="k8s"))
+    finally:
+        for close in reversed(closers):
+            await close()
+    print("k8s C: " + "; ".join(
+        f"{k} {res[k]['requests']} requests {res[k]['req_per_s']:.0f}/s, "
+        f"{res[k]['launches']} launches for {res[k]['batches']} batches"
+        for k in ("ingress", "istio", "ns", "external"))
+        + f"; Ingress update to answer "
+        f"{res['ingress']['update_to_answer_ms']:.1f} ms")
+    return res, launches_all
+
+
+def k8s_wait(conn, proc, part: str) -> tuple:
+    """(part, kind, what) from a part's process once it sends them, or
+    ("crash", its exit code) once it ends without sending."""
+    while not conn.poll(0.2):
+        if not proc.is_alive() and not conn.poll(0):
+            return part, "crash", f"exited with {proc.exitcode}"
+    return (part, *conn.recv())
+
+
+def k8s_child(conn, part: str, dev: str, n_requests: int) -> None:
+    """Part A or B of the k8s phase in a spawned process of its own; sends
+    back ("ok", (results, launches)), or the failure: ("assert", its
+    message) or ("crash", the traceback)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fn = {"A": k8s_part_a, "B": k8s_part_b}[part]
+    try:
+        conn.send(("ok", asyncio.run(fn(dev, n_requests))))
+    except AssertionError as e:
+        conn.send(("assert", str(e)))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        conn.send(("crash", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+async def k8s_phase(dev: str = "cuda", parts=("A", "B", "C")):
+    """Parts A (BASELINE config 4) and B (BASELINE config 5), each in a
+    spawned process of its own, beside part C (the ingress, istio, ns
+    and external naming pieces) in this one: each part sends its
+    requests one at a time, as the benchmarks do, and the three run at
+    once. Returns the results and the kernel's launches."""
+    import multiprocessing
+
+    mp = multiprocessing.get_context("spawn")
+    loop = asyncio.get_running_loop()
+    res, launches, procs, waits = {}, 0, [], {}
+    t0 = time.perf_counter()
+    try:
+        for part, n in (("A", K8S_REQUESTS), ("B", ISTIO_REQUESTS)):
+            if part in parts:
+                ours, theirs = mp.Pipe(duplex=False)
+                p = mp.Process(target=k8s_child, args=(theirs, part, dev, n),
+                               daemon=True)
+                p.start()
+                theirs.close()
+                procs.append(p)
+                waits[part] = loop.run_in_executor(
+                    None, k8s_wait, ours, p, part)
+        if "C" in parts:
+            res["part_c"], n = await k8s_part_c(dev)
+            launches += n
+        for fut in asyncio.as_completed(list(waits.values())):
+            part, kind, got = await fut
+            if kind == "assert":
+                raise AssertionError(got)
+            if kind == "crash":
+                raise RuntimeError(f"k8s part {part}:\n{got}")
+            res[f"part_{part.lower()}"], n = got
+            launches += n
+    finally:
+        # a part that failed stops the others at once
+        failed = len(res) < len(parts)
+        for p in procs:
+            p.join(timeout=0 if failed else 10)
+            for stop in (p.terminate, p.kill):
+                if p.is_alive():
+                    stop()
+                    p.join(timeout=10)
+        await asyncio.gather(*waits.values(), return_exceptions=True)
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"k8s: {launches} launches, {res['phase_s']:.1f} s")
+    return res, launches
+
+
 # The witness of the kernel's sums (``--witness``): on a phase's window
 # rows, an "exact" forward in float64 with the kernel's rounding points
 # (the float64 sum of bf16 products rounded to float32 and then to bf16,
@@ -8071,10 +8706,10 @@ BREAKDOWN = {
 CHECKS = ("kernel", "served")  # what --mutants runs on every mutant
 LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker,
                                 # fastpath and control phases
+# --check and --mutant take these too (fastpath_d: the fastpath phase's
+# part D alone)
 PHASES = ("telemeter", "linker", "fastpath", "fastpath_d", "control",
-          "cli", "h2", "h2fast", "mux")  # --check and --mutant take these too
-                                  # (fastpath_d: the fastpath phase's
-                                  # part D alone)
+          "cli", "h2", "h2fast", "mux", "k8s")
 # Broken copies of the port that the cli phase's checks must catch, one
 # a family: (file, text found once, its replacement) edits. The tracer
 # not installed; the router's request counter not incremented for a
@@ -8224,8 +8859,31 @@ MUX_MUTANTS = {
         "        # protocol-surgery filters",
         "        # protocol-surgery filters")],
 }
+# Broken copies of the port that the k8s phase must catch: the k8s namer
+# dropping MODIFIED events (a restart never leaves the binding); the
+# istio telemeter reporting nothing; the istio interpreter giving every
+# branch of a route rule the same weight; the configMap interpreter
+# never reading the ConfigMap after its first list.
+K8S_MUTANTS = {
+    "watch_ignored": [(
+        "linkerd_tpu_torch/k8s/namer.py",
+        '            if t in ("ADDED", "MODIFIED"):\n',
+        '            if t == "ADDED":\n')],
+    "no_mixer_report": [(
+        "linkerd_tpu_torch/istio/telemeter.py",
+        "            self.telemeter.enqueue_report(\n",
+        "            (lambda **kw: None)(\n")],
+    "istio_weights_ignored": [(
+        "linkerd_tpu_torch/istio/interpreter.py",
+        "        branches.append(Weighted(float(wd.weight), Leaf(dst_path)))\n",
+        "        branches.append(Weighted(1.0, Leaf(dst_path)))\n")],
+    "configmap_frozen": [(
+        "linkerd_tpu_torch/interpreter/k8s_configmap.py",
+        '        self._on_obj(evt.get("object") or {})\n',
+        "        return\n")],
+}
 EDIT_MUTANTS = {**CLI_MUTANTS, **FASTPATH_MUTANTS, **H2_MUTANTS,
-                **H2FAST_MUTANTS, **MUX_MUTANTS}
+                **H2FAST_MUTANTS, **MUX_MUTANTS, **K8S_MUTANTS}
 
 
 def run_check(which: str) -> int:
@@ -8241,7 +8899,7 @@ def run_check(which: str) -> int:
     elif which == "served":
         asyncio.run(drive_service(cfg, rng))
     elif which in ("linker", "fastpath", "fastpath_d", "control", "cli",
-                   "h2", "h2fast", "mux"):
+                   "h2", "h2fast", "mux", "k8s"):
         from linkerd_tpu_torch import native
         from linkerd_tpu_torch.native import _build as native_build
         from linkerd_tpu_torch.ops import _build
@@ -8254,7 +8912,7 @@ def run_check(which: str) -> int:
                  "fastpath_d": lambda: fastpath_phase(parts=("D",)),
                  "control": control_phase, "cli": cli_phase,
                  "h2": h2_phase, "h2fast": h2fast_phase,
-                 "mux": mux_phase}[which]
+                 "mux": mux_phase, "k8s": k8s_phase}[which]
         res, _ = asyncio.run(phase())
         name, _, limit = card_line().partition(",")
         print(json.dumps({which: res, "card": name.strip(),
@@ -8298,6 +8956,51 @@ def repeat_control_a(n: int, seed: int = 12) -> int:
         for k in keys[:3]}, "instant_inverted": sum(
             r["instant_weight_margin_min"] <= 0 for r in ok),
         "end_inverted": sum(r["end_weight_margin"] <= 0 for r in ok)}))
+    return 0 if len(ok) == n else 1
+
+
+def repeat_control_b(n: int, seed: int = 12) -> int:
+    """The control phase's part B ``n`` times over one
+    ``control_topology``: a line a run with its events and each reactor
+    step's highest level from the oscillation on (s from the fault), the
+    gaps over 0.25 s between steps, and the full collections' ms; or its
+    failure; then how many passed. Non-zero if a run failed."""
+    from linkerd_tpu_torch.ops import _build
+
+    _build.build("score_mlp")  # before the event loop serves
+    print(card_line())
+
+    async def runs():
+        out = []
+        async with control_topology(seed) as (loads, flag, plans, disco,
+                                              namerd_port):
+            for i in range(n):
+                try:
+                    res, _ = await control_part(
+                        "B", control_config(namerd_port, True), loads,
+                        flag, plans, disco, namerd_port, "cuda")
+                except AssertionError as e:
+                    out.append({"run": i, "failed": str(e)[:4000]})
+                else:
+                    osc = res["events_s"]["osc"]
+                    trace = res["level_trace"]
+                    out.append({
+                        "run": i, "events_s": res["events_s"],
+                        "levels": {k: res["levels"][k] for k in (
+                            "recovery", "settle", "oscillation", "after")},
+                        "from_oscillation": [
+                            s for s in trace if s[0] >= osc],
+                        "step_gaps": [
+                            (a[0], round(b[0] - a[0], 3))
+                            for a, b in zip(trace, trace[1:])
+                            if b[0] - a[0] > 0.25],
+                        "gc_full_ms": res["gc_full_ms"]})
+                print(json.dumps(out[-1]), flush=True)
+        return out
+
+    out = asyncio.run(runs())
+    ok = [r for r in out if "failed" not in r]
+    print(json.dumps({"runs": n, "passed": len(ok)}))
     return 0 if len(ok) == n else 1
 
 
@@ -8374,7 +9077,7 @@ def check_mutants() -> int:
         results += [run_mutant(n, "served", tmp) for n in MUTANTS]
         results += [run_mutant(LINKER_MUTANT, phase, tmp)
                     for phase in ("linker", "fastpath", "control", "cli",
-                                  "h2", "h2fast", "mux")]
+                                  "h2", "h2fast", "mux", "k8s")]
         results += [run_mutant(name, "cli", tmp) for name in CLI_MUTANTS]
         results += [run_mutant(name, "fastpath_d", tmp)
                     for name in FASTPATH_MUTANTS]
@@ -8382,6 +9085,7 @@ def check_mutants() -> int:
         results += [run_mutant(name, "h2fast", tmp)
                     for name in H2FAST_MUTANTS]
         results += [run_mutant(name, "mux", tmp) for name in MUX_MUTANTS]
+        results += [run_mutant(name, "k8s", tmp) for name in K8S_MUTANTS]
     missed = []
     for name, which, rc, last in results:
         print(f"mutant {name}, {which} check: "
@@ -8534,6 +9238,9 @@ def main() -> int:
     if len(args) == 2 and args[0] == "--repeat-control-a" and \
             args[1].isdigit():
         return repeat_control_a(int(args[1]))
+    if len(args) == 2 and args[0] == "--repeat-control-b" and \
+            args[1].isdigit():
+        return repeat_control_b(int(args[1]))
     if len(args) == 2 and args[0] == "--check" and \
             args[1] in CHECKS + PHASES:
         return run_check(args[1])
@@ -8609,6 +9316,7 @@ def main() -> int:
     h2, h2_launches = asyncio.run(h2_phase())
     h2fast, h2fast_launches = asyncio.run(h2fast_phase())
     mux, mux_launches = asyncio.run(mux_phase())
+    k8s, k8s_launches = asyncio.run(k8s_phase())
     telemeter["recorder"] = recorder_us()
     print(f"recorder filter: {telemeter['recorder']['recorder_us']:.2f} us "
           f"a request, the downstream alone "
@@ -8641,7 +9349,7 @@ def main() -> int:
                                   control=control_launches,
                                   cli=cli_launches, h2=h2_launches,
                                   h2fast=h2fast_launches,
-                                  mux=mux_launches),
+                                  mux=mux_launches, k8s=k8s_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -8674,6 +9382,8 @@ def main() -> int:
     print(json.dumps({"h2fast": h2fast, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"mux": mux, "card": name.strip(),
+                      "power_limit": limit.strip()}, default=str))
+    print(json.dumps({"k8s": k8s, "card": name.strip(),
                       "power_limit": limit.strip()}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,13 +1,11 @@
-"""Interpreter config kinds: the ``default``, ``io.l5d.mesh``,
-``io.l5d.namerd.http`` and ``io.l5d.namerd`` kinds of
-``linkerd_tpu/interpreter/configs.py``.
+"""Interpreter config kinds.
 
 Ref: namer/core/.../InterpreterInitializer.scala:9-57 (SPI) and
 interpreter/mesh/.../MeshInterpreterInitializer.scala:79 (kind io.l5d.mesh:
 dst + root). The default interpreter is the in-process recursive dtab
-namer (DefaultInterpreterInitializer.scala). The reference's
-``io.l5d.fs`` and ``io.l5d.k8s.configMap`` kinds are refused by name by
-the linker (ROADMAP Queue 1 items 13 and 5).
+namer (DefaultInterpreterInitializer.scala).
+
+A copy of ``linkerd_tpu/interpreter/configs.py``.
 """
 
 from __future__ import annotations
@@ -83,3 +81,8 @@ class NamerdThriftInterpreterConfig:
         )
         host, port = parse_inet_dst(self.dst)
         return ThriftNamerInterpreter(host, port, namespace=self.namespace)
+
+
+# file- and configmap-backed interpreters register on import
+import linkerd_tpu_torch.interpreter.fs  # noqa: E402,F401
+import linkerd_tpu_torch.interpreter.k8s_configmap  # noqa: E402,F401

@@ -12,8 +12,14 @@ HTTP/2 stack, gRPC-aware classification and retries, and a stream
 sentinel under ``streamScoring``), thrift routers (framed or buffered,
 binary or compact, the TTwitter upgrade, service retries on connection
 failures) and mux and thriftmux routers (the bound residual as the
-downstream Tdispatch dest), with the ``io.l5d.fs`` namer (plus the
-in-process ``/$/inet`` and status utility namers), bound in process,
+downstream Tdispatch dest), with the ``io.l5d.fs`` namer, the k8s
+family (the ``io.l5d.k8s``, ``io.l5d.k8s.ns`` and ``io.l5d.k8s.external``
+namers, the ``io.l5d.ingress`` identifiers and the
+``io.l5d.k8s.configMap`` interpreter), the istio family (pilot's
+``io.l5d.k8s.istio`` namer, interpreter and identifiers, the
+``io.l5d.k8s.istio-ingress`` identifiers and the ``io.l5d.istio`` mixer
+telemeter) and the ``io.l5d.fs`` interpreter (plus the in-process
+``/$/inet`` and status utility namers), bound in process,
 through namerd's HTTP API (``interpreter: {kind: io.l5d.namerd.http}``)
 or its thrift interface (``interpreter: {kind: io.l5d.namerd}``), and
 the ``io.l5d.jaxAnomaly`` telemeter, whose
@@ -103,9 +109,16 @@ from linkerd_tpu_torch.telemetry.telemeter import BroadcastTracer, NullTracer
 
 # The port's plugins register into its own registry when imported: the
 # identifiers, classifiers, failure accrual kinds and the telemeter by
-# the imports above, the fs namer, the interpreter kinds, the h2
-# identifiers and classifiers and the exporter telemeters here.
+# the imports above, the interpreter kinds, the istio and k8s families,
+# the fs namer, the h2 identifiers and classifiers and the exporter
+# telemeters here.
 import linkerd_tpu_torch.interpreter.configs  # noqa: F401
+import linkerd_tpu_torch.istio.identifier  # noqa: F401
+import linkerd_tpu_torch.istio.interpreter  # noqa: F401
+import linkerd_tpu_torch.istio.namer  # noqa: F401
+import linkerd_tpu_torch.istio.telemeter  # noqa: F401
+import linkerd_tpu_torch.k8s.ingress  # noqa: F401
+import linkerd_tpu_torch.k8s.namer  # noqa: F401
 import linkerd_tpu_torch.namer.fs  # noqa: F401
 import linkerd_tpu_torch.protocol.h2.classifiers  # noqa: F401
 import linkerd_tpu_torch.protocol.h2.identifiers  # noqa: F401
@@ -118,9 +131,7 @@ DEFAULT_ADMIN_PORT = 9990  # ref: Linker.scala:37
 # The ROADMAP items (Queue 1) that bring what this linker refuses.
 _EDGE = "ROADMAP Queue 1 item 10 (tenants and loggers)"
 _ANNOUNCERS = "ROADMAP Queue 1 item 11 (the announcers)"
-_K8S = "ROADMAP Queue 1 item 5 (the namers of the fault benchmarks)"
-_NAMING = ("ROADMAP Queue 1 item 13 (the other namers, transformers and "
-           "interpreters)")
+_NAMING = "ROADMAP Queue 1 item 13 (the other namers and transformers)"
 
 # Router keys the reference takes and the port does not yet, each with
 # the item that brings it. A key counts as given when it is not None and
@@ -142,24 +153,9 @@ REFUSED_PROTOCOLS: Dict[str, str] = {}
 # package keeps the reference's own "unknown ... kind" error.
 UNPORTED_KINDS: Dict[str, Dict[str, str]] = {
     "namer": {
-        "io.l5d.k8s": _K8S, "io.l5d.k8s.external": _K8S,
-        "io.l5d.k8s.ns": _K8S, "io.l5d.k8s.istio": _K8S,
         "io.l5d.consul": _NAMING, "io.l5d.curator": _NAMING,
         "io.l5d.marathon": _NAMING, "io.l5d.rewrite": _NAMING,
         "io.l5d.serversets": _NAMING, "io.l5d.zkLeader": _NAMING,
-    },
-    "telemeter": {"io.l5d.istio": _K8S},
-    "identifier": {
-        "io.l5d.ingress": _K8S, "io.l5d.k8s.istio": _K8S,
-        "io.l5d.k8s.istio-ingress": _K8S,
-    },
-    "h2identifier": {
-        "io.l5d.ingress": _K8S, "io.l5d.k8s.istio": _K8S,
-        "io.l5d.k8s.istio-ingress": _K8S,
-    },
-    "interpreter": {
-        "io.l5d.fs": _NAMING,
-        "io.l5d.k8s.configMap": _NAMING, "io.l5d.k8s.istio": _NAMING,
     },
 }
 

@@ -73,6 +73,14 @@ COPIES = (
     "protocol/mux/server.py", "protocol/mux/client.py",
     "namerd/thrift_idl.py", "namerd/thrift_iface.py",
     "interpreter/namerd_thrift.py", "testing/__init__.py",
+    # the k8s and istio families, the fs and configMap interpreters and
+    # the kinds they register
+    "protocol/http/simple_client.py", "k8s/__init__.py", "k8s/client.py",
+    "k8s/namer.py", "k8s/ingress.py", "interpreter/k8s_configmap.py",
+    "interpreter/fs.py", "interpreter/configs.py", "istio/__init__.py",
+    "istio/mixer_pb.py", "istio/mixer.py", "istio/telemeter.py",
+    "istio/pilot.py", "istio/namer.py", "istio/interpreter.py",
+    "istio/identifier.py",
 )
 
 # Modules that differ on purpose: reason, and the top-level names that
@@ -122,7 +130,7 @@ DIFFERENT = {
     "linker.py": (
         "the five router protocols, with a device for the telemeters and "
         "by-name refusals of what is not ported (tenants, loggers, "
-        "announcers, the other namers and interpreters); "
+        "announcers, the other namers and transformers); "
         "_mk_thrift_router and _mk_mux_router are the reference's",
         None),
     "testing/faults.py": (
@@ -164,11 +172,6 @@ DIFFERENT = {
         "(ROADMAP Queue 1 item 14), so FleetConfig is not imported",
         {"ControlConfig", "FleetConfig", "ConfigRefused",
          "REFUSED_KEYS"}),
-    "interpreter/configs.py": (
-        "the default, io.l5d.mesh, io.l5d.namerd.http and io.l5d.namerd "
-        "kinds; the fs and configMap kinds are refused by the linker "
-        "(ROADMAP Queue 1 item 13), so their modules are not imported",
-        {"linkerd_tpu"}),
     "router/fastpath.py": (
         "the controller of both engines: no tenant board and "
         "admission (ROADMAP Queue 1 item 10; the guard counters are "

@@ -19,6 +19,7 @@ configs, with real sockets on the CPU.
 """
 
 import asyncio
+import dataclasses
 
 import jax
 import numpy as np
@@ -326,6 +327,42 @@ def test_scenarios_route_as_the_reference_test_says(tmp_path):
 # -- refusals -------------------------------------------------------------
 
 BASE = ("routers:\n- protocol: http\n  servers: [{port: 0}]\n")
+
+
+# Keys a kind is given beside ``kind``: the pilot and mixer clients
+# point at the loopback address (the defaults name cluster hosts,
+# istio-pilot and istio-mixer), and the fs and configMap interpreters
+# take the key they need.
+EXTRA = {"io.l5d.k8s.istio": "host: 127.0.0.1",
+         "io.l5d.k8s.istio-ingress": "apiserverHost: 127.0.0.1",
+         "io.l5d.istio": "mixerHost: 127.0.0.1",
+         "io.l5d.fs": "dtabFile: dtab", "io.l5d.k8s.configMap": "name: d"}
+
+
+def kind_text(cat: str, k: str) -> str:
+    """A config naming kind ``k`` of category ``cat``."""
+    extra = f", {EXTRA[k]}" if k in EXTRA else ""
+    if cat in ("namer", "telemeter"):
+        return BASE + {"namer": "namers:\n", "telemeter": "telemetry:\n"}[
+            cat] + f"- {{kind: {k}{extra}}}\n"
+    if cat == "h2identifier":
+        return (f"routers:\n- protocol: h2\n  identifier: "
+                f"{{kind: {k}{extra}}}\n")
+    return f"routers:\n- protocol: http\n  {cat}: {{kind: {k}{extra}}}\n"
+
+
+# Kinds refused by name until the k8s and istio families and the fs
+# interpreter were ported (ROADMAP Queue 1 items 5 and 13).
+K8S_ISTIO_KINDS = (
+    *(("namer", k) for k in ("io.l5d.k8s", "io.l5d.k8s.external",
+                             "io.l5d.k8s.ns", "io.l5d.k8s.istio")),
+    ("telemeter", "io.l5d.istio"),
+    *((cat, k) for cat in ("identifier", "h2identifier")
+      for k in ("io.l5d.ingress", "io.l5d.k8s.istio",
+                "io.l5d.k8s.istio-ingress")),
+    *(("interpreter", k) for k in ("io.l5d.fs", "io.l5d.k8s.configMap",
+                                   "io.l5d.k8s.istio")),
+)
 REFUSALS = {
     **{f"router key {k}": (
         "routers:\n- protocol: http\n  " + {
@@ -350,14 +387,7 @@ REFUSALS = {
     "server announce": (
         "routers:\n- protocol: http\n  servers:\n  - port: 0\n    announce:"
         " [/#/io.l5d.fs/x]\n", "announce"),
-    **{f"{cat} kind {k}": (
-        BASE + {"namer": f"namers:\n- kind: {k}\n",
-                "telemeter": f"telemetry:\n- kind: {k}\n"}[cat]
-        if cat in ("namer", "telemeter") else
-        f"routers:\n- protocol: h2\n  identifier: {{kind: {k}}}\n"
-        if cat == "h2identifier" else
-        f"routers:\n- protocol: http\n  {cat}: {{kind: {k}}}\n",
-        repr(k))
+    **{f"{cat} kind {k}": (kind_text(cat, k), repr(k))
        for cat, kinds in UNPORTED_KINDS.items() for k in kinds},
     **{f"control {k}": (
         BASE + f"telemetry:\n- kind: io.l5d.jaxAnomaly\n  control:\n"
@@ -369,9 +399,10 @@ REFUSALS = {
 # Cases this test refused by name until the port took their keys (the
 # native engine's workers, TLS, connectionGuard and streamScoring, the
 # h2 router, the h2 engine, the io.l5d.mesh interpreter, the thrift, mux
-# and thriftmux routers and the io.l5d.namerd interpreter): each now
-# does what the reference's linker does with the same text, loading or
-# failing with the same message.
+# and thriftmux routers, the io.l5d.namerd interpreter, and the k8s and
+# istio kinds with the io.l5d.fs interpreter): each now does what the
+# reference's linker does with the same text, loading or failing with
+# the same message.
 FP = "routers:\n- protocol: http\n  fastPath: true\n"
 FP0 = FP + "  servers: [{port: 0}]\n"
 PORTED = {
@@ -401,17 +432,22 @@ PORTED = {
     "client tls": (
         FP0 + "  client:\n    kind: io.l5d.static\n    configs:\n"
         "    - prefix: /svc\n      tls: {commonName: x}\n"),
+    **{f"{cat} kind {k}": kind_text(cat, k) for cat, k in K8S_ISTIO_KINDS},
 }
 
 
 def load_outcome(pkg: str, text: str):
-    """"loads" (the linker closed again), or the ConfigError's text."""
-    try:
-        linker = load(pkg, text)
-    except (ConfigError, RefConfigError) as e:
-        return str(e)
-    run(linker.close())
-    return "loads"
+    """"loads" (the linker closed again), or the ConfigError's text.
+    The linker loads on a running loop, as the CLI's does: the istio
+    kinds start their pilot pollers when built."""
+    async def go():
+        try:
+            linker = load(pkg, text)
+        except (ConfigError, RefConfigError) as e:
+            return str(e)
+        await linker.close()
+        return "loads"
+    return run(go())
 
 
 @pytest.mark.parametrize("case", sorted({**REFUSALS, **PORTED}))
@@ -463,10 +499,25 @@ def test_admission_control_and_interpreter_load():
 def test_unported_kinds_are_the_reference_kinds():
     from linkerd_tpu.config import kinds as ref_kinds
     from linkerd_tpu_torch.config import kinds as port_kinds
-    for cat, unported in UNPORTED_KINDS.items():
+    for cat in {*UNPORTED_KINDS, *(c for c, _ in K8S_ISTIO_KINDS)}:
+        unported = UNPORTED_KINDS.get(cat, {})
         assert sorted(set(port_kinds(cat)) | set(unported)) == sorted(
             ref_kinds(cat)), cat
         assert not set(port_kinds(cat)) & set(unported)
+
+
+@pytest.mark.parametrize("cat,kind", K8S_ISTIO_KINDS)
+def test_ported_kind_config_is_the_references(cat, kind):
+    """Each kind that left the refusals builds, from the same mapping,
+    the reference's config class with the same fields and values."""
+    from linkerd_tpu.config import instantiate as ref_instantiate
+    from linkerd_tpu_torch.config import instantiate as port_instantiate
+    got = port_instantiate(cat, {"kind": kind}, "x")
+    want = ref_instantiate(cat, {"kind": kind}, "x")
+    assert type(got).__name__ == type(want).__name__
+    assert type(got).__module__.replace("linkerd_tpu_torch", "linkerd_tpu") \
+        == type(want).__module__
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 PORTED_TELEMETERS = ("io.l5d.zipkin", "io.l5d.tracelog",

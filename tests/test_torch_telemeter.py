@@ -1007,8 +1007,16 @@ def test_config_keys_and_defaults_match_reference():
     assert ours == theirs
     assert lookup("telemeter", "io.l5d.jaxAnomaly") is port.JaxAnomalyConfig
     assert port.JaxAnomalyConfig.kind == "io.l5d.jaxAnomaly"
-    with pytest.raises(ConfigError, match="unknown telemeter kind"):
-        lookup("telemeter", "io.l5d.istio")
+    # the mixer telemeter, ported with the istio family: the port's own
+    # config class, with the reference's fields and defaults
+    from linkerd_tpu.istio import telemeter as ref_istio
+    from linkerd_tpu_torch.istio import telemeter as port_istio
+    assert lookup("telemeter", "io.l5d.istio") is \
+        port_istio.IstioTelemeterConfig
+    assert {f.name: f.default for f in dataclasses.fields(
+        port_istio.IstioTelemeterConfig)} == {
+        f.name: f.default for f in dataclasses.fields(
+            ref_istio.IstioTelemeterConfig)}
 
 
 def test_cuda_by_default(snap, tmp_path):
