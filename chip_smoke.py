@@ -13,6 +13,7 @@
     python3 chip_smoke.py --check h2fast     # the h2fast phase alone
     python3 chip_smoke.py --check mux        # the mux phase alone
     python3 chip_smoke.py --check k8s        # the k8s phase alone
+    python3 chip_smoke.py --check edge       # the edge phase alone
     python3 chip_smoke.py --mutant one_rounding telemeter  # one mutant, one check
     python3 chip_smoke.py --witness  # the kernel's sums against exact ones
     python3 chip_smoke.py --repeat-control-a 16  # control part A, 16 times
@@ -147,7 +148,7 @@ Then the k8s phase, in this process: part A, BASELINE config 4 (the
 io.l5d.k8s namer over a scripted API server, the dtab in a ConfigMap
 read by io.l5d.k8s.configMap, zipkin spans to a collector, a rolling
 restart of svc-3 whose survivor answers 4-16 ms late) on
-``testing/config4.py``'s schedule at 4,096 requests, one at a time
+``testing/config4.py``'s schedule at 2,048 requests, one at a time
 (every request answered by its own service, the router's counter equal
 to what was sent, no request reaching a pod after the binding showed it
 gone, a span for every request, every row scored with one launch a
@@ -157,7 +158,7 @@ failing at 0.5 or less, a ConfigMap update timed to its first answer);
 part B, BASELINE config 5 (two routers over 50 services in three tiers,
 the io.l5d.istio telemeter reporting to a mixer on the port's gRPC
 runtime, a latency-only cascade and 15% 503s) on ``testing/config5.py``'s
-schedule at 2,048 front requests (a mixer report for every request of
+schedule at 1,024 front requests (a mixer report for every request of
 either router, every 502 a svc-47 503 in its window, the kernel and
 board checks of part A, both AUCs printed and failing at 0.5 or less);
 part C, one linker of four routers: io.l5d.ingress (an Ingress update
@@ -165,26 +166,50 @@ moving a path, timed to its first answer), the io.l5d.k8s.istio
 identifier, interpreter and namer over a fake pilot (an 80/20 route
 rule answered within 5 points over 2,048 requests), io.l5d.k8s.ns and
 io.l5d.k8s.external, each part's rows scored with one launch a batch and
-held against plain.
+held against plain. Then the edge phase, on the linker phases'
+topology with closed-loop load from 16 tenants (the l5d-tenant header)
+in three windows: calm, a storm (the faults on; 85% of the requests
+``t15``'s, to the faulted destinations) and recovery. Part A, the
+Python HTTP router with ``tenantIdentifier``, ``tenants``,
+``admissionControl``, an ``io.l5d.http.file`` request logger,
+``httpAccessLog``, an fs namer behind ``io.l5d.specificHost`` over disco
+files that also name a dead host, and an ``io.l5d.fs`` announcer: every
+batch's kernel scores and the board against plain under the model it
+read, ``t15`` SICK and shed retryably at its sub-limit of 6 and
+recovered with one transition each way, no calm tenant SICK or shed,
+every other request answered by its destination or its fault,
+``/tenants.json`` the board's and governor's state, one request log
+line a request that reached a client and one access log line a request
+served, the client scopes the transformed bound ids, the announcement
+withdrawn by ``close()``; part B, the HTTP/1.1 engine with 4 workers
+(``tenant_hash_native`` against ``tenant_hash``, the quota pushed as 1
+a worker and the excess shed 503 + l5d-retryable in the engine, every
+engine row's tenant column its request's, the
+``rt/<label>/fastpath/tenant/*`` counters the engine's own, the kernel
+on every batch); part C, the h2 engine with gRPC calls at ``nativeTier:
+primary`` (the excess reset REFUSED_STREAM as often as the engine's
+``tenant_shed`` says, each tenant's in-plane score EWMA on the board).
 Prints the card, a JSON line of kernel and
 service numbers, one of the train phase's, one of the distill
 phase's, one of the telemeter phase's, one of the linker phase's, one
 of the fastpath phase's, one of the control phase's, one of the cli
 phase's, one of the h2 phase's, one of the h2fast phase's, one of the
-mux phase's, one of the k8s phase's, and as its last line
+mux phase's, one of the k8s phase's, one of the edge phase's, and as
+its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; with no CUDA device, or
 outside the repository, it exits non-zero before printing any result.
 Imports nothing of JAX.
 
 ``--mutants`` builds deliberately broken copies of the kernel in a
 temporary copy of the port and runs the kernel and served checks
-against each, and the linker, fastpath, control, cli, h2, h2fast, mux
-and k8s phases against ``LINKER_MUTANT``, the cli phase against ``CLI_MUTANTS``, part D
+against each, and the linker, fastpath, control, cli, h2, h2fast, mux,
+k8s and edge phases against ``LINKER_MUTANT``, the cli phase against ``CLI_MUTANTS``, part D
 against ``FASTPATH_MUTANTS`` (the sharded engine's stats merge and
 feature drain reading worker 0 alone), the h2 phase against
 ``H2_MUTANTS``, the h2fast phase against ``H2FAST_MUTANTS``, the
-mux phase against ``MUX_MUTANTS`` and the k8s phase against
-``K8S_MUTANTS``, in a fresh interpreter; it fails
+mux phase against ``MUX_MUTANTS``, the k8s phase against
+``K8S_MUTANTS`` and the edge phase against ``EDGE_MUTANTS``, in a fresh
+interpreter; it fails
 unless every check fails on its mutant.
 
 ``--witness`` runs the linker phase's part A and, on its window rows,
@@ -220,6 +245,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -2998,11 +3024,14 @@ class FastPathTap:
     every raw engine block consumed from the native ring (copied, in
     order), each batch taken, each score call's rows and scores, each
     per-route fold (device-scored or engine-scored), the host ms of
-    ``_score_and_publish`` and the batches in flight."""
+    ``_score_and_publish`` and the batches in flight. Once a phase sets
+    ``model`` (see ``SnapTap``), each score call's model is kept in
+    ``snaps``."""
 
     def __init__(self, tele):
         self.raw, self.batches, self.scored, self.folds = [], [], [], []
         self.publish_ms, self.inflight, self._native = [], 0, False
+        self.model, self.snaps = None, []
         scorer, ring = tele._ensure_scorer(), tele.native_ring
         score, consume = scorer.score, ring.consume
         take, publish = tele._take_batch, tele._score_and_publish
@@ -3020,6 +3049,8 @@ class FastPathTap:
             return b
 
         async def scoring(x):
+            if self.model is not None:
+                self.snaps.append(self.model)
             s = await score(x)
             self.scored.append((x, s))
             return s
@@ -7229,17 +7260,20 @@ def merge_results(results) -> dict:
 
 class SnapTap:
     """Wraps, on a telemeter, its scorer's ``score`` (each call's rows,
-    scores and the model it read: a snapshot taken just before, under
-    the lock a fit holds) and its board's folds, in order."""
+    scores and the model it read) and its board's folds, in order. The
+    model a call read is a snapshot taken just before, under the lock a
+    fit holds; or, once a phase whose telemeter does not train sets
+    ``model`` (``freeze_model``), that one, the model it set last, so
+    that no snapshot holds the router's loop a batch."""
 
     def __init__(self, tele):
         self.scored, self.folds = [], []
-        self.tele = tele
+        self.tele, self.model = tele, None
         scorer, board = tele._ensure_scorer(), tele.board
         score, fold = scorer.score, board.update_batch
 
         async def scoring(x):
-            snap = scorer.snapshot()
+            snap = scorer.snapshot() if self.model is None else self.model
             s = await score(x)
             self.scored.append((x, s, snap))
             return s
@@ -7856,10 +7890,11 @@ async def mux_phase(dev: str = "cuda", parts=("A", "B", "C")):
     return res, launches
 
 
-K8S_REQUESTS = 4096        # config 4's requests (the benchmark: 600)
-ISTIO_REQUESTS = 2048      # config 5's front requests (the benchmark: 500)
+K8S_REQUESTS = 2048        # config 4's requests (the benchmark: 600)
+ISTIO_REQUESTS = 1024      # config 5's front requests (the benchmark: 500)
 K8S_AUC_TARGET = 0.9       # BASELINE.json's fault_auc targets (printed)
 K8S_WAIT_S = 10.0          # a ConfigMap or Ingress update to its answer
+K8S_TEARDOWN_S = 10.0      # a part's process, from its result to its end
 K8S_INGRESS = 1024         # part C requests through the ingress router
 K8S_SPLIT = 2048           # ... through the istio router (80/20 route)
 K8S_SPLIT_POINTS = 5.0     # the split's tolerance, in points of share
@@ -8321,12 +8356,18 @@ async def k8s_part_c(dev: str):
 
 
 def k8s_wait(conn, proc, part: str) -> tuple:
-    """(part, kind, what) from a part's process once it sends them, or
-    ("crash", its exit code) once it ends without sending."""
+    """(part, kind, what, exit_s) from a part's process once it sends
+    them, or (part, "crash", its exit code, None) once it ends without
+    sending: ``exit_s`` is the seconds from what it sent to its end, or
+    None if it did not end within K8S_TEARDOWN_S."""
     while not conn.poll(0.2):
         if not proc.is_alive() and not conn.poll(0):
-            return part, "crash", f"exited with {proc.exitcode}"
-    return (part, *conn.recv())
+            return part, "crash", f"exited with {proc.exitcode}", None
+    got = conn.recv()
+    t0 = time.perf_counter()
+    proc.join(K8S_TEARDOWN_S)
+    return (part, *got,
+            None if proc.is_alive() else time.perf_counter() - t0)
 
 
 def k8s_child(conn, part: str, dev: str, n_requests: int) -> None:
@@ -8338,8 +8379,24 @@ def k8s_child(conn, part: str, dev: str, n_requests: int) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     fn = {"A": k8s_part_a, "B": k8s_part_b}[part]
+
+    async def run_and_send():
+        # sent from inside the loop, with what the part left running: a
+        # part's result reaches the parent even when the loop's teardown
+        # (those tasks, the executor's threads) does not end; the parent
+        # times the teardown and stops the process after K8S_TEARDOWN_S
+        res, launches = await fn(dev, n_requests)
+        left = [t for t in asyncio.all_tasks()
+                if t is not asyncio.current_task()]
+        res["teardown"] = {
+            "tasks_left": len(left),
+            "task_kinds": sorted({t.get_coro().__qualname__
+                                  for t in left}),
+            "threads_left": threading.active_count() - 1}
+        conn.send(("ok", (res, launches)))
+
     try:
-        conn.send(("ok", asyncio.run(fn(dev, n_requests))))
+        asyncio.run(run_and_send())
     except AssertionError as e:
         conn.send(("assert", str(e)))
     except BaseException:  # noqa: BLE001 — reported to the parent
@@ -8376,18 +8433,25 @@ async def k8s_phase(dev: str = "cuda", parts=("A", "B", "C")):
             res["part_c"], n = await k8s_part_c(dev)
             launches += n
         for fut in asyncio.as_completed(list(waits.values())):
-            part, kind, got = await fut
+            part, kind, got, exit_s = await fut
             if kind == "assert":
                 raise AssertionError(got)
             if kind == "crash":
                 raise RuntimeError(f"k8s part {part}:\n{got}")
             res[f"part_{part.lower()}"], n = got
             launches += n
+            down = got[0]["teardown"]
+            down["exit_after_s"] = exit_s
+            print(f"k8s {part}: teardown left {down['tasks_left']} tasks "
+                  f"({', '.join(down['task_kinds']) or 'none'}) and "
+                  f"{down['threads_left']} threads; " + (
+                      f"the process did not end within {K8S_TEARDOWN_S} s "
+                      f"of its result and was stopped" if exit_s is None
+                      else f"the process ended {exit_s:.2f} s after its "
+                      f"result"))
     finally:
         # a part that failed stops the others at once
-        failed = len(res) < len(parts)
         for p in procs:
-            p.join(timeout=0 if failed else 10)
             for stop in (p.terminate, p.kill):
                 if p.is_alive():
                     stop()
@@ -8395,6 +8459,872 @@ async def k8s_phase(dev: str = "cuda", parts=("A", "B", "C")):
         await asyncio.gather(*waits.values(), return_exceptions=True)
     res["phase_s"] = time.perf_counter() - t0
     print(f"k8s: {launches} launches, {res['phase_s']:.1f} s")
+    return res, launches
+
+
+# The edge phase: tenant isolation, the request loggers, the access log,
+# a namer's transformers and the fs announcer, on the linker phases'
+# topology (seed 12), each router with the io.l5d.jaxAnomaly telemeter.
+# Spawned closed-loop load processes send with 16 tenants in the
+# l5d-tenant header, in three windows: calm (every tenant at an equal
+# share over every destination), storm (the faults on; EDGE_STORM_SHARE
+# of the requests carry EDGE_STORMER to the faulted destinations, a
+# retry storm against a failing service, the rest spread over the other
+# tenants and every destination) and recovery (calm again, until the
+# stormer's quota clears or EDGE_RECOVERY_S pass). Part A, the Python
+# HTTP router; part B, the native HTTP/1.1 engine with 4 workers
+# (nativeTier off: every row through the kernel); part C, the native h2
+# engine with gRPC calls (nativeTier primary: the engine scores its rows
+# with the published model and keeps each tenant's score EWMA).
+EDGE_TENANTS = tuple(f"t{i:02d}" for i in range(16))
+EDGE_STORMER = EDGE_TENANTS[-1]
+EDGE_STORM_SHARE = 0.85
+EDGE_CALM_S, EDGE_STORM_S, EDGE_RECOVERY_S = 5.0, 15.0, 15.0
+EDGE_WARM_S = 1.0          # a settled segment before the calm window
+EDGE_SEGMENT_S = 1.0       # the load's segments (the recovery test's cadence)
+EDGE_SAMPLE_S = 0.1        # the governor's sick set, sampled this often
+EDGE_TENANT_CFG = {"floor": 0.1, "enterThreshold": 0.7,
+                   "exitThreshold": 0.3, "quorum": 3, "cooldownS": 2}
+EDGE_ADMISSION = 64        # part A's maxConcurrency
+EDGE_SUBLIMIT = 6          # round(0.1 x 64): the stormer's quota, A and C
+EDGE_WORKERS = 4           # part B: 6 // 4 = 1 a worker
+EDGE_HASH_IDS = 10_000
+EDGE_LABEL = "edge"
+EDGE_DEAD_HOST = "127.0.0.2"   # in the disco files; the transformer drops it
+EDGE_MODEL_SEED = 16
+EDGE_CALM_LOGIT = -4.0     # part C: the calm rows' mean classifier logit
+EDGE_C_RECON_WEIGHT = 0.2
+EDGE_H2_CONNS, EDGE_H2_STREAMS = 8, 8
+EDGE_COLS = ("tenant", "dst", "status", "shed", "right", "fault", "t", "ms")
+REFUSED_STREAM_CODE = -7   # a call reset REFUSED_STREAM, in the load's columns
+
+
+def edge_pick(rng, mix: str):
+    """One request's (tenant index, destination index) for ``mix``."""
+    if mix == "storm":
+        if rng.random() < EDGE_STORM_SHARE:
+            return len(EDGE_TENANTS) - 1, int(rng.integers(TELE_FAULTED))
+        return (int(rng.integers(len(EDGE_TENANTS) - 1)),
+                int(rng.integers(TELE_ROUTES)))
+    return int(rng.integers(len(EDGE_TENANTS))), int(rng.integers(TELE_ROUTES))
+
+
+class _Tenanted:
+    """An h2 service that stamps ``tenant`` into each request's
+    l5d-tenant header."""
+
+    def __init__(self, svc):
+        self.svc, self.tenant = svc, ""
+
+    async def __call__(self, req):
+        req.headers.set("l5d-tenant", self.tenant)
+        return await self.svc(req)
+
+
+async def edge_segment(clients: dict, kind: str, port: int, conns,
+                       seconds: float, mix: str, seed: int) -> dict:
+    """``edge_load``'s work for one message: closed-loop requests on the
+    connections ``conns`` (indices into ``clients``, opened on first use)
+    for ``seconds``."""
+    from linkerd_tpu_torch.grpc import ClientDispatcher, GrpcError
+    from linkerd_tpu_torch.protocol.h2.client import H2Client
+    from linkerd_tpu_torch.protocol.h2.stream import StreamReset
+    from linkerd_tpu_torch.protocol.http.client import HttpClient
+    from linkerd_tpu_torch.protocol.http.message import Request
+
+    cols = {k: [] for k in EDGE_COLS}
+    deadline = time.monotonic() + seconds
+
+    def record(tn, d, status, shed, right, fault, t0):
+        now = time.monotonic()
+        for k, v in zip(EDGE_COLS, (tn, d, status, shed, right, fault,
+                                    now, (now - t0) * 1e3)):
+            cols[k].append(v)
+
+    async def http_conn(i):
+        rng = np.random.default_rng([seed, i])
+        client = clients.get((kind, port, i))
+        if client is None:
+            client = clients[(kind, port, i)] = HttpClient(
+                "127.0.0.1", port, max_connections=1)
+        while time.monotonic() < deadline:
+            tn, d = edge_pick(rng, mix)
+            req = Request(uri="/")
+            req.headers.set("Host", f"tele-{d:02d}")
+            req.headers.set("l5d-tenant", EDGE_TENANTS[tn])
+            t0 = time.monotonic()
+            try:
+                rsp = await client(req)
+            except Exception:  # noqa: BLE001 — counted as status -1
+                record(tn, d, -1, False, False, False, t0)
+                continue
+            body = rsp.body
+            record(tn, d, rsp.status,
+                   rsp.status == 503
+                   and rsp.headers.get("l5d-retryable") == "true",
+                   body.startswith(f"tele-{d:02d}/".encode()),
+                   rsp.status == 503 and body == b"injected fault", t0)
+
+    async def h2_stream(i, j):
+        tele_msg, svc = h2_proto()
+        rng = np.random.default_rng([seed, i, j])
+        client = clients.get((kind, port, i))
+        if client is None:
+            client = clients[(kind, port, i)] = H2Client("127.0.0.1", port)
+        tenanted = _Tenanted(client)
+        stubs: dict = {}
+        while time.monotonic() < deadline:
+            tn, d = edge_pick(rng, mix)
+            tenanted.tenant = EDGE_TENANTS[tn]
+            stub = stubs.get(d)
+            if stub is None:
+                stub = stubs[d] = ClientDispatcher(
+                    tenanted, authority=f"tele-{d:02d}")
+            text, code, t0 = "", 0, time.monotonic()
+            try:
+                rep = await stub.unary(svc, "Echo", tele_msg(text="x"))
+                text = rep.text
+            except GrpcError as e:
+                code = e.status.code
+            except StreamReset as e:
+                code = (REFUSED_STREAM_CODE if e.error_code == 7
+                        else -1)
+            except Exception:  # noqa: BLE001 — counted as code -1
+                code = -1
+            record(tn, d, code, code == REFUSED_STREAM_CODE,
+                   text.startswith(f"tele-{d:02d}/"), code == 14, t0)
+
+    if kind == "http":
+        await asyncio.gather(*(http_conn(i) for i in conns))
+    else:
+        await asyncio.gather(*(h2_stream(i, j) for i in conns
+                               for j in range(EDGE_H2_STREAMS)))
+    return {k: np.asarray(v) for k, v in cols.items()}
+
+
+def edge_load(conn) -> None:
+    """Child process: on each ``(kind, port, conns, seconds, mix,
+    seed)`` from ``conn``, closed-loop load with a tenant a request
+    (``edge_segment``) for ``seconds``, then every request's tenant,
+    destination, status (the grpc code for h2, REFUSED_STREAM_CODE for a
+    REFUSED_STREAM reset), whether it was shed (a 503 with
+    ``l5d-retryable: true``, or that reset), whether a replica of its
+    destination answered, whether its destination's injected fault did,
+    the instant it completed and its ms. Connections stay open from
+    message to message; ``None`` ends it."""
+    # the clients' modules (torch under the package) load while the
+    # topology starts, not in the first window
+    import linkerd_tpu_torch.grpc  # noqa: F401
+    import linkerd_tpu_torch.protocol.h2.client  # noqa: F401
+    import linkerd_tpu_torch.protocol.http.client  # noqa: F401
+
+    async def main():
+        loop = asyncio.get_running_loop()
+        clients: dict = {}
+        try:
+            while True:
+                msg = await loop.run_in_executor(None, conn.recv)
+                if msg is None:
+                    return
+                conn.send(await edge_segment(clients, *msg))
+        finally:
+            for c in clients.values():
+                await c.close()
+
+    asyncio.run(main())
+
+
+async def edge_window(loads, kind: str, port: int, seconds: float,
+                      mix: str, seed: int, until=None) -> dict:
+    """Closed-loop load through the router at ``port`` for ``seconds``,
+    in segments of EDGE_SEGMENT_S (with ``until``, it ends after the
+    first segment after which ``until()`` holds): every request's
+    columns, the wall seconds and whether ``until`` ended it."""
+    loop = asyncio.get_running_loop()
+    conns = LINKER_CONNS if kind == "http" else EDGE_H2_CONNS
+    shares = np.array_split(np.arange(conns), len(loads))
+    t0, parts, seg, ended = time.monotonic(), [], 0, False
+    while True:
+        left = seconds - (time.monotonic() - t0)
+        if left <= 0.05:
+            break
+        for (c, _), idx in zip(loads, shares):
+            c.send((kind, port, idx.tolist(), min(EDGE_SEGMENT_S, left),
+                    mix, seed * 1000 + seg))
+        parts += await asyncio.gather(*(loop.run_in_executor(None, c.recv)
+                                        for c, _ in loads))
+        seg += 1
+        if until is not None and until():
+            ended = True
+            break
+    res = {k: np.concatenate([p[k] for p in parts]) for k in EDGE_COLS}
+    res["wall"], res["ended"] = time.monotonic() - t0, ended
+    return res
+
+
+class EdgeSampler:
+    """Samples the quota governor's sick set (by tenant name) every
+    EDGE_SAMPLE_S on the router's loop."""
+
+    def __init__(self, adm, names: dict):
+        self.adm, self.names, self.samples = adm, names, []
+        self._task = asyncio.create_task(self._run())
+
+    def sick(self) -> tuple:
+        return tuple(sorted(self.names.get(k, k)
+                            for k in self.adm.status()["sick"]))
+
+    async def _run(self):
+        while True:
+            self.samples.append((time.monotonic(), self.sick()))
+            await asyncio.sleep(EDGE_SAMPLE_S)
+
+    async def stop(self) -> None:
+        if not self._task.done():
+            self._task.cancel()
+            await asyncio.gather(self._task, return_exceptions=True)
+            self.samples.append((time.monotonic(), self.sick()))
+
+    def between(self, t0: float, t1: float) -> list:
+        return [s for t, s in self.samples if t0 <= t < t1]
+
+
+def edge_hashes() -> dict:
+    """The board's key of each tenant on an engine (``#<hash>``) ->
+    its name."""
+    from linkerd_tpu_torch.router.tenancy import tenant_hash
+
+    return {f"#{tenant_hash(t):08x}": t for t in EDGE_TENANTS}
+
+
+def edge_config(part: str, disco: Path, work: Path) -> str:
+    """The edge router of part A (the Python HTTP router with admission,
+    a file request logger, the access log and an announced server), B
+    (the HTTP/1.1 engine, 4 workers) or C (the h2 engine) as JSON text:
+    tenants by the l5d-tenant header at the reference's defaults, the fs
+    namer (behind io.l5d.specificHost on A and B) and the telemeter
+    without training."""
+    router = {"protocol": "http", "label": EDGE_LABEL,
+              "dtab": "/svc => /#/io.l5d.fs ;", "servers": [{"port": 0}],
+              "tenantIdentifier": {"kind": "header"},
+              "tenants": dict(EDGE_TENANT_CFG)}
+    namer = {"kind": "io.l5d.fs", "rootDir": str(disco)}
+    tele = {"kind": "io.l5d.jaxAnomaly", "trainEveryBatches": 0,
+            "reconWeight": 1.0}
+    cfg = {"routers": [router], "namers": [namer], "telemetry": [tele]}
+    if part in ("A", "B"):
+        namer["transformers"] = [{"kind": "io.l5d.specificHost",
+                                  "host": "127.0.0.1"}]
+    if part == "A":
+        router.update(
+            admissionControl={"maxConcurrency": EDGE_ADMISSION},
+            client={"failureAccrual": {"kind": "none"}},
+            loggers=[{"kind": "io.l5d.http.file",
+                      "path": str(work / "requests.log")}],
+            httpAccessLog=str(work / "access.log"),
+            servers=[{"port": 0,
+                      "announce": [f"/#/io.l5d.fs/{EDGE_LABEL}"]}])
+        cfg["announcers"] = [{"kind": "io.l5d.fs",
+                              "rootDir": str(work / "announce")}]
+    elif part == "B":
+        router.update(fastPath=True, workers=EDGE_WORKERS)
+        tele["nativeTier"] = "off"
+    else:
+        router.update(protocol="h2", fastPath=True)
+        tele.update(nativeTier="primary", reconWeight=EDGE_C_RECON_WEIGHT)
+    return json.dumps(cfg)
+
+
+def edge_model(tele, x: np.ndarray, seed: int = EDGE_MODEL_SEED,
+               calm_logit=None):
+    """Restores into the telemeter's scorer, and returns, a frozen model
+    for the rows still to come, as ``traffic_model`` makes it from the
+    rows ``x`` seen so far. With ``calm_logit`` the classifier's output
+    bias moves so that those rows' mean logit is ``calm_logit``: calm
+    traffic then scores low, as under a trained model, and every
+    tenant's score EWMA in an engine can fall under exitThreshold."""
+    import torch
+
+    from linkerd_tpu_torch.models.anomaly import (
+        apply_model, normalize_features,
+    )
+    from linkerd_tpu_torch.models.convert import params_from_numpy
+
+    snap = tele._scorer.snapshot()
+    snap.params = random_params(seed, snap.cfg)
+    snap.mu = x.mean(axis=0).astype(np.float32)
+    snap.var = (x.var(axis=0) + 1e-6).astype(np.float32)
+    snap.norm_initialized = True
+    if calm_logit is not None:
+        z = normalize_features(torch.tensor(x), torch.tensor(snap.mu),
+                               torch.tensor(snap.var))
+        _, _, logits = apply_model(params_from_numpy(snap.params, "cpu"),
+                                   z, snap.cfg, exact_sums=True)
+        cls = snap.params["cls"][-1]
+        cls["b"] = (cls["b"] - np.float32(float(logits.mean())
+                                          - calm_logit)).astype(np.float32)
+    tele._scorer.restore(snap)
+    return tele._scorer.snapshot()
+
+
+def batch_rows(tap) -> np.ndarray:
+    """The features of every row of every batch a FastPathTap saw,
+    device- and engine-scored."""
+    return np.concatenate(
+        [b["x"] for b in tap.batches]
+        + [b["nat_scored"]["x"] for b in tap.batches
+           if b.get("nat_scored")])
+
+
+def freeze_model(tap, tele):
+    """Sets ``tap.model`` (a ``SnapTap``'s or a ``FastPathTap``'s) to
+    the model ``tele``'s scorer holds now, for a telemeter that does not
+    train: each score call then records it, or the one the phase sets
+    after it, as the model it read. Returns the tap."""
+    tap.model = tele._ensure_scorer().snapshot()
+    return tap
+
+
+def edge_engine_checks(what: str, tele, tap, launches: int,
+                       dev: str) -> dict:
+    """Every device score call of an engine part under the model it
+    read: kernel against plain on every row (TOL; at most ROW_SHARE of a
+    batch's rows past ROW_TOL), one launch a call, and the board against
+    a fold with the plain scores."""
+    plain = [plain_scores(snap, x, dev)
+             for (x, _), snap in zip(tap.scored, tap.snaps)]
+    if launches != (0 if dev == "cpu" else len(tap.scored)):
+        raise AssertionError(f"edge {what}: {launches} kernel launches for "
+                             f"{len(tap.scored)} batches with device rows")
+    gaps = [np.abs(s - p) for (_, s), p in zip(tap.scored, plain)]
+    out = {"launches": launches, "batches": len(tap.batches),
+           "device_batches": len(tap.scored),
+           "device_rows": int(sum(len(g) for g in gaps))}
+    if gaps:
+        gap = np.concatenate(gaps)
+        share = max((g > ROW_TOL).mean() for g in gaps if len(g))
+        out.update(kernel_vs_plain_max=float(gap.max()),
+                   rows_past_row_tol=int((gap > ROW_TOL).sum()),
+                   worst_batch_share_past_row_tol=float(share))
+        if gap.max() > TOL or share > ROW_SHARE:
+            raise AssertionError(f"edge {what}: kernel vs plain max "
+                                 f"{gap.max()}, up to {share} of a batch's "
+                                 f"rows past {ROW_TOL}")
+    out["board_vs_plain_fold_max"] = fastpath_board_check(tele, tap, 0,
+                                                          plain)
+    if out["board_vs_plain_fold_max"] > TOL:
+        raise AssertionError(f"edge {what}: board off the plain fold by "
+                             f"{out['board_vs_plain_fold_max']}")
+    print(f"edge {what}: {launches} launches for {len(tap.scored)} batches "
+          f"with device rows ({out['device_rows']} rows) of "
+          f"{len(tap.batches)}; kernel vs plain max "
+          f"{out.get('kernel_vs_plain_max', 0.0):.3e}; board vs plain "
+          f"fold {out['board_vs_plain_fold_max']:.3e}")
+    return out
+
+
+def edge_answer_checks(what: str, windows: dict) -> dict:
+    """Every request not shed was answered by the destination it named,
+    or in the storm by its faulted destination's injected fault; no
+    tenant but the stormer was ever shed; the stormer was shed in the
+    storm. Returns requests/s, counts and the calm tenants' p50/p99 ms
+    (their faulted answers apart) a window."""
+    out = {}
+    stormer = len(EDGE_TENANTS) - 1
+    for name, r in windows.items():
+        faulted = (r["dst"] < TELE_FAULTED) & (name == "storm")
+        ok = r["shed"] | r["right"] | (faulted & r["fault"])
+        if not ok.all():
+            i = int(np.flatnonzero(~ok)[0])
+            raise AssertionError(
+                f"edge {what} {name}: {int((~ok).sum())} requests not "
+                f"answered by their destination, e.g. tenant "
+                f"{EDGE_TENANTS[r['tenant'][i]]} to tele-{r['dst'][i]:02d} "
+                f"-> status {r['status'][i]}")
+        calm_shed = r["shed"] & (r["tenant"] != stormer)
+        if calm_shed.any():
+            raise AssertionError(
+                f"edge {what} {name}: {int(calm_shed.sum())} requests of "
+                f"calm tenants shed, e.g. "
+                f"{EDGE_TENANTS[r['tenant'][np.flatnonzero(calm_shed)[0]]]}")
+        st = r["tenant"] == stormer
+        calm_ms = r["ms"][~st & ~r["fault"]]
+        out[name] = {"requests": len(r["t"]),
+                     "calm_p50_ms": float(np.percentile(calm_ms, 50)),
+                     "calm_p99_ms": float(np.percentile(calm_ms, 99)),
+                     "requests_per_s": len(r["t"]) / r["wall"],
+                     "stormer": int(st.sum()),
+                     "stormer_shed": int((st & r["shed"]).sum()),
+                     "injected_faults": int(r["fault"].sum()),
+                     "wall_s": r["wall"]}
+    if not out["storm"]["stormer_shed"]:
+        raise AssertionError(f"edge {what}: {EDGE_STORMER} was never shed "
+                             f"in the storm")
+    return out
+
+
+def edge_sick_checks(what: str, sampler, t_storm: float, t_rec: float,
+                     adm, ended: bool) -> dict:
+    """The governor's sick set: never a calm tenant; the stormer SICK at
+    the end of the storm and cleared in the recovery window, with one
+    transition each way (no flap)."""
+    calm = {s for t, sick in sampler.samples for s in sick
+            if s != EDGE_STORMER}
+    if calm:
+        raise AssertionError(f"edge {what}: calm tenants SICK: {calm}")
+    storm = sampler.between(t_storm, t_rec)
+    first = next((t for t, sick in sampler.samples
+                  if t >= t_storm and EDGE_STORMER in sick), None)
+    if not storm or EDGE_STORMER not in storm[-1]:
+        raise AssertionError(f"edge {what}: {EDGE_STORMER} not SICK at the "
+                             f"end of the storm")
+    cleared = next((t for t, sick in sampler.samples
+                    if t >= t_rec and EDGE_STORMER not in sick), None)
+    if not ended or cleared is None:
+        raise AssertionError(f"edge {what}: {EDGE_STORMER} still SICK "
+                             f"{EDGE_RECOVERY_S} s into the recovery")
+    flips = sum(1 for (_, a), (_, b) in zip(sampler.samples,
+                                            sampler.samples[1:])
+                if (EDGE_STORMER in a) != (EDGE_STORMER in b))
+    if adm.transitions != 2 or flips != 2:
+        raise AssertionError(f"edge {what}: {adm.transitions} quota "
+                             f"transitions ({flips} in the samples), want "
+                             f"SICK and back: it flapped")
+    return {"stormer_sick_after_s": first - t_storm,
+            "stormer_cleared_after_s": cleared - t_rec,
+            "transitions": adm.transitions}
+
+
+async def edge_windows(loads, kind: str, port: int, flag, settle,
+                       set_model, cleared, storm_end) -> tuple:
+    """A warm-up segment, then calm, storm and recovery through the
+    router at ``port``. ``settle(*windows)`` waits for the rows of the
+    windows so far to be scored (after the warm-up, so that the
+    scorer's first build and warm-up fall before the calm window, and
+    after the calm window); ``set_model()`` then sets the model of the
+    storm and the recovery; ``storm_end()`` runs as the storm's load
+    ends (the faults still on); ``cleared()`` ends the recovery. Returns
+    the windows, what ``storm_end`` returned, and the storm's and
+    recovery's start instants."""
+    flag.value = 0
+    warm = await edge_window(loads, kind, port, EDGE_WARM_S, "calm", 0)
+    await settle(warm)
+    calm = await edge_window(loads, kind, port, EDGE_CALM_S, "calm", 1)
+    await settle(warm, calm)
+    await set_model()
+    flag.value = 1
+    t_storm = time.monotonic()
+    storm = await edge_window(loads, kind, port, EDGE_STORM_S, "storm", 2)
+    at_end = storm_end()
+    flag.value = 0
+    t_rec = time.monotonic()
+    rec = await edge_window(loads, kind, port, EDGE_RECOVERY_S, "calm", 3,
+                            until=cleared)
+    return ({"warm": warm, "calm": calm, "storm": storm, "recovery": rec},
+            at_end, t_storm, t_rec)
+
+
+async def edge_part_a(loads, flag, disco: Path, work: Path, dev: str):
+    """The Python HTTP router (``edge_config("A")``) through the three
+    windows: kernel and board against plain under the model each batch
+    read, the stormer SICK and shed at its sub-limit with retryable 503s
+    and recovered, no calm tenant SICK or shed, every other request
+    answered by its destination or its fault, /tenants.json, one file
+    log line a request that reached a client, one access log line a
+    request the server answered, the client scopes the transformed
+    bound ids, and the announcement while the router runs and withdrawn
+    after."""
+    from linkerd_tpu_torch.admin.handlers import mk_tenants_handler
+    from linkerd_tpu_torch.core.tasks import monitor
+    from linkerd_tpu_torch.linker import load_linker
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+    from linkerd_tpu_torch.protocol.http.message import Request
+    from linkerd_tpu_torch.router.tenancy import tenant_hash
+
+    linker = load_linker(edge_config("A", disco, work), device=dev)
+    await linker.start()
+    port = linker.routers[0].server_ports[0]
+    tele = linker.telemeters[0]
+    _, board, adm = linker.tenant_views[0]
+    admission = adm._filters[0]
+    announced = work / "announce" / EDGE_LABEL
+    out = {"announced": announced.read_text()}
+    if out["announced"] != f"127.0.0.1 {port}\n":
+        raise AssertionError(f"edge A: announce file {out['announced']!r}")
+    tap = freeze_model(SnapTap(tele), tele)
+    task = monitor(asyncio.create_task(tele.run()), what="telemeter-edge-A")
+    sampler = EdgeSampler(adm, {})
+    th = tenant_hash(EDGE_STORMER)
+    closed = False
+    try:
+        fused_anomaly_scores.launches = 0
+
+        async def settle(*_windows):
+            await tap.settle("edge A", task)
+
+        async def set_model():
+            tap.model = edge_model(
+                tele, np.concatenate([x for x, _, _ in tap.scored]))
+
+        def cleared():
+            return (EDGE_STORMER not in sampler.sick()
+                    and admission.tenant_limit_of(th) is None)
+
+        windows, limit, t_storm, t_rec = await edge_windows(
+            loads, "http", port, flag, settle, set_model, cleared,
+            lambda: admission.tenant_limit_of(th))
+        await tap.settle("edge A recovery", task)
+        launches = fused_anomaly_scores.launches
+        await sampler.stop()
+        out.update(snap_checks("A", tele, tap, len(tap.scored), launches,
+                               dev, phase="edge"))
+        out["windows"] = edge_answer_checks("A", windows)
+        out["sick"] = edge_sick_checks("A", sampler, t_storm, t_rec, adm,
+                                       windows["recovery"]["ended"])
+        out["stormer_sublimit"] = limit
+        if limit != EDGE_SUBLIMIT:
+            raise AssertionError(f"edge A: {EDGE_STORMER}'s sub-limit "
+                                 f"{limit} at the end of the storm, want "
+                                 f"{EDGE_SUBLIMIT}")
+        flat = linker.metrics.flatten()
+        out["router_ms"] = stage_ms(flat, EDGE_LABEL)
+        out["tenant_transitions"] = flat[
+            f"rt/{EDGE_LABEL}/server/tenants/tenant_transitions"]
+        out["tenant_shed_total"] = flat[
+            f"rt/{EDGE_LABEL}/server/admission/tenant_shed_total"]
+        print(f"edge A: rt/{EDGE_LABEL}/server/tenants/tenant_transitions "
+              f"{out['tenant_transitions']} (SICK at "
+              f"+{out['sick']['stormer_sick_after_s']:.2f} s into the "
+              f"storm, cleared +{out['sick']['stormer_cleared_after_s']:.2f}"
+              f" s into the recovery); tenant sheds "
+              f"{out['tenant_shed_total']}")
+        rsp = await mk_tenants_handler(linker)(Request(uri="/tenants.json"))
+        got = json.loads(rsp.body)[EDGE_LABEL]
+        status = adm.status()
+        want = json.loads(json.dumps({
+            "tenants": board.snapshot(), "evicted": board.evicted,
+            "quotas": {k: v for k, v in status.items() if k != "tenants"}}))
+        if got != want:
+            raise AssertionError("edge A: /tenants.json differs from the "
+                                 "board's snapshot and the governor's status")
+        clients = {k.split("/")[3] for k in flat
+                   if k.startswith(f"rt/{EDGE_LABEL}/client/")}
+        want_clients = {f"%.io.l5d.specificHost.#.io.l5d.fs.tele-{d:02d}"
+                        for d in range(TELE_ROUTES)}
+        if clients != want_clients:
+            raise AssertionError(f"edge A: client scopes "
+                                 f"{sorted(clients)[:3]}..., want the "
+                                 f"transformed bound ids")
+        endpoints = set(tele.board.effective_endpoint_scores())
+        if any(not e.startswith("127.0.0.1:") for e in endpoints):
+            raise AssertionError(f"edge A: endpoints {sorted(endpoints)[:3]}")
+        client_requests = sum(
+            v for k, v in flat.items()
+            if k.startswith(f"rt/{EDGE_LABEL}/client/")
+            and k.endswith("/requests"))
+        served = flat[f"rt/{EDGE_LABEL}/server/requests"]
+        sent = sum(len(w["t"]) for w in windows.values())
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+        await linker.close()
+        closed = True
+        log_lines = len((work / "requests.log").read_text().splitlines())
+        access_lines = len((work / "access.log").read_text().splitlines())
+        out.update(sent=sent, served=served, client_requests=client_requests,
+                   request_log_lines=log_lines,
+                   access_log_lines=access_lines,
+                   withdrawn=not announced.exists(),
+                   board_keys=len(tele.board.effective_scores()))
+        if log_lines != client_requests:
+            raise AssertionError(f"edge A: {log_lines} request log lines, "
+                                 f"{client_requests} requests reached a "
+                                 f"client")
+        if access_lines != served or served != sent:
+            raise AssertionError(f"edge A: {access_lines} access log lines, "
+                                 f"{served} requests served, {sent} sent")
+        if announced.exists():
+            raise AssertionError("edge A: the announcement outlived "
+                                 "close()")
+        return out, launches
+    finally:
+        await sampler.stop()
+        if not closed:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+            await linker.close()
+
+
+def edge_hash_check() -> dict:
+    """The engines' ``tenant_hash_native`` against the port's
+    ``tenant_hash`` on the 16 tenants and EDGE_HASH_IDS seeded ids."""
+    from linkerd_tpu_torch import native
+    from linkerd_tpu_torch.router.tenancy import tenant_hash
+
+    rng = np.random.default_rng(EDGE_MODEL_SEED)
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz0123456789-_."))
+    ids = list(EDGE_TENANTS) + ["".join(rng.choice(alphabet,
+                                                   rng.integers(1, 41)))
+                                for _ in range(EDGE_HASH_IDS)]
+    bad = [i for i in ids
+           if native.tenant_hash_native(i.encode()) != tenant_hash(i)]
+    if bad:
+        raise AssertionError(f"edge: tenant_hash_native differs from "
+                             f"tenant_hash on {len(bad)} ids, e.g. {bad[0]!r}")
+    return {"ids": len(ids), "equal": len(ids)}
+
+
+async def edge_dead_host(disco: Path) -> dict:
+    """Adds a ``EDGE_DEAD_HOST <port>`` line beside each replica's line
+    of the disco files (the entry io.l5d.specificHost drops), after
+    checking that a connect there is refused: the replicas listen on
+    127.0.0.1 alone."""
+    port = int((disco / "tele-00").read_text().split()[1])
+    try:
+        _, w = await asyncio.wait_for(
+            asyncio.open_connection(EDGE_DEAD_HOST, port), 5)
+    except ConnectionRefusedError:
+        pass
+    else:
+        w.close()
+        raise AssertionError(f"edge: {EDGE_DEAD_HOST}:{port} reaches a "
+                             f"replica bound to 127.0.0.1")
+    for f in sorted(disco.iterdir()):
+        lines = f.read_text().splitlines()
+        f.write_text("".join(f"{EDGE_DEAD_HOST} {ln.split()[1]}\n{ln}\n"
+                             for ln in lines))
+    return {"refused": True, "port": port}
+
+
+def stormer_quotas(stats: dict) -> list:
+    """The stormer's quota in each worker's tenant table (-1: none)."""
+    from linkerd_tpu_torch.router.tenancy import tenant_hash
+
+    th = str(tenant_hash(EDGE_STORMER))
+    return [w["tenants"]["by_tenant"].get(th, {}).get("quota")
+            for w in stats.get("workers", [stats])]
+
+
+async def edge_engine_part(part: str, loads, flag, disco: Path, work: Path,
+                           dev: str):
+    """An engine router (``edge_config`` B or C) through the three
+    windows: the stormer SICK, its quota pushed into the engine (B: 1 a
+    worker) and its excess shed there (B: 503 + l5d-retryable; C:
+    REFUSED_STREAM resets, as many as the engine's tenant_shed), cleared
+    on recovery; no calm tenant SICK or shed; every engine row's tenant
+    column the hash of its request's tenant; the per-tenant counters the
+    engine's own; the board's keys; kernel and board against plain."""
+    from collections import Counter
+
+    from linkerd_tpu_torch.core.tasks import monitor
+    from linkerd_tpu_torch.linker import load_linker
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+    from linkerd_tpu_torch.router.tenancy import tenant_feature, tenant_hash
+
+    engine_cls = "FastPathEngine" if part == "B" else "H2FastPathEngine"
+    kind = "http" if part == "B" else "h2"
+    linker = load_linker(edge_config(part, disco, work), device=dev)
+    router = linker.routers[0]
+    ctl = getattr(router, "controller", None)
+    if type(getattr(ctl, "engine", None)).__name__ != engine_cls:
+        await linker.close()
+        raise AssertionError(f"edge {part}: the router came up without the "
+                             f"{engine_cls}")
+    eng = ctl.engine
+    await linker.start()
+    port = router.server_ports[0]
+    tele = linker.telemeters[0]
+    _, board, adm = linker.tenant_views[0]
+    names = edge_hashes()
+    th = tenant_hash(EDGE_STORMER)
+    tap = freeze_model(FastPathTap(tele), tele)
+    task = monitor(asyncio.create_task(tele.run()),
+                   what=f"telemeter-edge-{part}")
+    sampler = EdgeSampler(adm, names)
+    pushes = []
+    push = eng.set_tenant_quota
+
+    def pushing(h, limit):
+        pushes.append((int(h), limit))
+        return push(h, limit)
+
+    eng.set_tenant_quota = pushing
+    shed0 = eng.stats()["guard"]["tenant_shed"]
+    out = {}
+
+    def completed(*ws) -> int:
+        """Requests answered, not shed: one engine row each."""
+        return sum(int((~w["shed"] & (w["status"] != -1)).sum()) for w in ws)
+
+    try:
+        fused_anomaly_scores.launches = 0
+
+        async def settle(*ws):
+            await tap.settle(tele, task, completed(*ws), f"edge {part}")
+
+        async def set_model():
+            tap.model = edge_model(
+                tele, batch_rows(tap),
+                calm_logit=EDGE_CALM_LOGIT if part == "C" else None)
+            if part == "C":
+                if not await tele.refresh_native_weights():
+                    raise AssertionError("edge C: the model was not "
+                                         "published to the engine")
+
+        def storm_end():
+            return stormer_quotas(eng.stats())
+
+        def cleared():
+            return (EDGE_STORMER not in sampler.sick()
+                    and [lim for h, lim in pushes if h == th][-1:] == [None])
+
+        windows, quotas, t_storm, t_rec = await edge_windows(
+            loads, kind, port, flag, settle, set_model, cleared, storm_end)
+        await tap.settle(tele, task, completed(*windows.values()),
+                         f"edge {part} recovery")
+        launches = fused_anomaly_scores.launches
+        await sampler.stop()
+        ctl._export_stats()
+        stats = eng.stats()
+        out.update(edge_engine_checks(part, tele, tap, launches, dev))
+        out["windows"] = edge_answer_checks(part, windows)
+        out["sick"] = edge_sick_checks(part, sampler, t_storm, t_rec, adm,
+                                       windows["recovery"]["ended"])
+        want = [1] * EDGE_WORKERS if part == "B" else [EDGE_SUBLIMIT]
+        out["stormer_quota_at_storm_end"] = quotas
+        if quotas != want:
+            raise AssertionError(f"edge {part}: {EDGE_STORMER}'s quota in "
+                                 f"the engine at the end of the storm "
+                                 f"{quotas}, want {want}")
+        left = stormer_quotas(stats)
+        if any(q != -1 for q in left):
+            raise AssertionError(f"edge {part}: {EDGE_STORMER}'s quota "
+                                 f"after the recovery {left}")
+        out["quota_pushes"] = [(names.get(f"#{h:08x}", h), lim)
+                               for h, lim in pushes]
+        # the tenant column of every request row against what was sent
+        by_name = Counter()
+        for w in windows.values():
+            done = ~w["shed"] & (w["status"] != -1)
+            by_name.update(EDGE_TENANTS[i] for i in w["tenant"][done])
+        raw = np.concatenate(tap.raw)
+        req_rows = raw[raw[:, 9] < 0.5]
+        got = Counter(req_rows[:, 8].tolist())
+        want_rows = Counter({tenant_feature(tenant_hash(t)): n
+                             for t, n in by_name.items()})
+        if got != want_rows:
+            raise AssertionError(f"edge {part}: engine rows by tenant "
+                                 f"column {dict(got)} differ from the "
+                                 f"requests answered by tenant")
+        # the per-tenant counters against the engine's own snapshot
+        flat = linker.metrics.flatten()
+        by = stats["tenants"]["by_tenant"]
+        off = {f"{h}/{k}": (flat.get(f"rt/{EDGE_LABEL}/fastpath/tenant/"
+                                     f"{h}/{k}", 0), t[k])
+               for h, t in by.items()
+               for k in ("requests", "shed", "errors", "scored")
+               if flat.get(f"rt/{EDGE_LABEL}/fastpath/tenant/{h}/{k}", 0)
+               != t[k]}
+        if off:
+            raise AssertionError(f"edge {part}: rt/{EDGE_LABEL}/fastpath/"
+                                 f"tenant counters differ from the engine: "
+                                 f"{off}")
+        shed = stats["guard"]["tenant_shed"] - shed0
+        sent_shed = sum(int(w["shed"].sum()) for w in windows.values())
+        calm_shed = {names[f"#{int(h):08x}"]: t["shed"]
+                     for h, t in by.items() if int(h) != th and t["shed"]}
+        if shed != sent_shed or by[str(th)]["shed"] != sent_shed \
+                or calm_shed:
+            raise AssertionError(
+                f"edge {part}: the engine shed {shed} ({EDGE_STORMER}: "
+                f"{by[str(th)]['shed']}; others {calm_shed}), the load saw "
+                f"{sent_shed} sheds")
+        snap_board = board.snapshot()
+        missing = [t for h, t in names.items() if h not in snap_board]
+        if missing:
+            raise AssertionError(f"edge {part}: no board key for {missing}")
+        if part == "C":
+            ewma = {}
+            for h, t in by.items():
+                if t["scored"]:
+                    v = snap_board[f"#{int(h):08x}"]["score_ewma"]
+                    if v is None or not 0.0 <= v <= 1.0:
+                        raise AssertionError(f"edge C: board score EWMA "
+                                             f"{v} for a scored tenant")
+                    ewma[names[f"#{int(h):08x}"]] = v
+            if set(ewma) != set(EDGE_TENANTS):
+                raise AssertionError(f"edge C: score EWMAs for "
+                                     f"{sorted(ewma)}")
+            out["score_ewma"] = ewma
+            out["engine_scored"] = stats["native_scorer"]["scored"]
+        out.update(engine_shed=shed, flat_transitions=flat.get(
+            f"rt/{EDGE_LABEL}/server/tenants/tenant_transitions"))
+        print(f"edge {part}: {EDGE_STORMER} SICK at "
+              f"+{out['sick']['stormer_sick_after_s']:.2f} s into the "
+              f"storm, cleared +{out['sick']['stormer_cleared_after_s']:.2f}"
+              f" s into the recovery; quota at the storm's end {quotas}; "
+              f"{shed} sheds in the engine; "
+              f"rt/{EDGE_LABEL}/server/tenants/tenant_transitions "
+              f"{out['flat_transitions']}")
+        return out, launches
+    finally:
+        await sampler.stop()
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+        await linker.close()
+
+
+async def edge_phase(seed: int = 12, dev: str = "cuda",
+                     parts=("A", "B", "C")):
+    """Parts A and B on the linker phases' HTTP topology, with a dead
+    entry beside each replica in the disco files, then part C on the h2
+    topology. Returns the results and the kernel's launches."""
+    res, launches = {"tenant_hash_native": edge_hash_check()}, 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        if {"A", "B"} & set(parts):
+            async with linker_topology(seed, sizes=(0,), load=edge_load) \
+                    as (loads, flag, _, disco):
+                res["dead_host"] = await edge_dead_host(disco)
+                if "A" in parts:
+                    (work / "A").mkdir()
+                    t = time.perf_counter()
+                    res["part_a"], n = await edge_part_a(
+                        loads, flag, disco, work / "A", dev)
+                    res["part_a"]["part_s"] = time.perf_counter() - t
+                    launches += n
+                if "B" in parts:
+                    t = time.perf_counter()
+                    res["part_b"], n = await edge_engine_part(
+                        "B", loads, flag, disco, work, dev)
+                    res["part_b"]["part_s"] = time.perf_counter() - t
+                    launches += n
+        if "C" in parts:
+            async with linker_topology(seed, sizes=(0,),
+                                       backend=h2_backends,
+                                       load=edge_load) \
+                    as (loads, flag, _, disco):
+                t = time.perf_counter()
+                res["part_c"], n = await edge_engine_part(
+                    "C", loads, flag, disco, work, dev)
+                res["part_c"]["part_s"] = time.perf_counter() - t
+                launches += n
+    res["phase_s"] = time.perf_counter() - t0
+    for part in ("a", "b", "c"):
+        r = res.get(f"part_{part}")
+        if r is None:
+            continue
+        print(f"edge {part.upper()} ({r['part_s']:.1f} s): " + "; ".join(
+            f"{name} {w['requests_per_s']:.0f} requests/s over "
+            f"{w['wall_s']:.2f} s, calm p50/p99 {w['calm_p50_ms']:.2f}/"
+            f"{w['calm_p99_ms']:.2f} ms ({w['stormer_shed']} of "
+            f"{w['stormer']} {EDGE_STORMER} shed)"
+            for name, w in r["windows"].items()))
+        if "router_ms" in r:
+            print(f"edge {part.upper()}: the router's own ms (p50/p99): "
+                  + ", ".join(f"{k} {v['p50']:.3f}/{v['p99']:.3f}"
+                              for k, v in r["router_ms"].items()))
+    print(f"edge: {launches} launches, {res['phase_s']:.1f} s")
     return res, launches
 
 
@@ -8709,7 +9639,7 @@ LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker,
 # --check and --mutant take these too (fastpath_d: the fastpath phase's
 # part D alone)
 PHASES = ("telemeter", "linker", "fastpath", "fastpath_d", "control",
-          "cli", "h2", "h2fast", "mux", "k8s")
+          "cli", "h2", "h2fast", "mux", "k8s", "edge")
 # Broken copies of the port that the cli phase's checks must catch, one
 # a family: (file, text found once, its replacement) edits. The tracer
 # not installed; the router's request counter not incremented for a
@@ -8882,8 +9812,35 @@ K8S_MUTANTS = {
         '        self._on_obj(evt.get("object") or {})\n',
         "        return\n")],
 }
+# Broken copies of the port that the edge phase must catch: the tag
+# filter stamping no tenant hash (no sub-limit can apply); the engine
+# binding's quota push doing nothing; the transforming namer handing back
+# its inner tree; the file request logger writing nothing; the linker's
+# close() withdrawing no announcement.
+EDGE_MUTANTS = {
+    "tenant_untagged": [(
+        "linkerd_tpu_torch/router/tenancy.py",
+        '            req.ctx["tenant_hash"] = tenant_hash(tenant)\n', "")],
+    "quota_not_pushed": [(
+        "linkerd_tpu_torch/native/__init__.py",
+        '        fn = getattr(self._lib, self._PREFIX + "_set_tenant_quota")\n',
+        "        return\n")],
+    "transformer_dropped": [(
+        "linkerd_tpu_torch/namer/transformers.py",
+        "        for t in self._transformers:\n"
+        "            act = act.map(t.transform_tree)\n", "")],
+    "file_logger_silent": [(
+        "linkerd_tpu_torch/protocol/http/loggers.py",
+        "            self._emit(json.dumps({\n",
+        "            (lambda line: None)(json.dumps({\n")],
+    "announce_kept": [(
+        "linkerd_tpu_torch/linker.py",
+        "        for c in self._announcements:\n            c.close()\n",
+        "        for c in self._announcements:\n            pass\n")],
+}
 EDIT_MUTANTS = {**CLI_MUTANTS, **FASTPATH_MUTANTS, **H2_MUTANTS,
-                **H2FAST_MUTANTS, **MUX_MUTANTS, **K8S_MUTANTS}
+                **H2FAST_MUTANTS, **MUX_MUTANTS, **K8S_MUTANTS,
+                **EDGE_MUTANTS}
 
 
 def run_check(which: str) -> int:
@@ -8899,20 +9856,21 @@ def run_check(which: str) -> int:
     elif which == "served":
         asyncio.run(drive_service(cfg, rng))
     elif which in ("linker", "fastpath", "fastpath_d", "control", "cli",
-                   "h2", "h2fast", "mux", "k8s"):
+                   "h2", "h2fast", "mux", "k8s", "edge"):
         from linkerd_tpu_torch import native
         from linkerd_tpu_torch.native import _build as native_build
         from linkerd_tpu_torch.ops import _build
 
         _build.build("score_mlp")  # before the event loop serves
-        if which.startswith("fastpath") or which == "h2fast":
+        if which.startswith("fastpath") or which in ("h2fast", "edge"):
             native.ensure_built()
             native_build.build("h2bench")
         phase = {"linker": linker_phase, "fastpath": fastpath_phase,
                  "fastpath_d": lambda: fastpath_phase(parts=("D",)),
                  "control": control_phase, "cli": cli_phase,
                  "h2": h2_phase, "h2fast": h2fast_phase,
-                 "mux": mux_phase, "k8s": k8s_phase}[which]
+                 "mux": mux_phase, "k8s": k8s_phase,
+                 "edge": edge_phase}[which]
         res, _ = asyncio.run(phase())
         name, _, limit = card_line().partition(",")
         print(json.dumps({which: res, "card": name.strip(),
@@ -9077,7 +10035,7 @@ def check_mutants() -> int:
         results += [run_mutant(n, "served", tmp) for n in MUTANTS]
         results += [run_mutant(LINKER_MUTANT, phase, tmp)
                     for phase in ("linker", "fastpath", "control", "cli",
-                                  "h2", "h2fast", "mux", "k8s")]
+                                  "h2", "h2fast", "mux", "k8s", "edge")]
         results += [run_mutant(name, "cli", tmp) for name in CLI_MUTANTS]
         results += [run_mutant(name, "fastpath_d", tmp)
                     for name in FASTPATH_MUTANTS]
@@ -9086,6 +10044,7 @@ def check_mutants() -> int:
                     for name in H2FAST_MUTANTS]
         results += [run_mutant(name, "mux", tmp) for name in MUX_MUTANTS]
         results += [run_mutant(name, "k8s", tmp) for name in K8S_MUTANTS]
+        results += [run_mutant(name, "edge", tmp) for name in EDGE_MUTANTS]
     missed = []
     for name, which, rc, last in results:
         print(f"mutant {name}, {which} check: "
@@ -9260,6 +10219,16 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card)
+    t_smoke, phase_s = time.perf_counter(), {}
+
+    def run_phase(name: str, coro):
+        t = time.perf_counter()
+        try:
+            return asyncio.run(coro)
+        finally:
+            phase_s[name] = time.perf_counter() - t
+            print(f"{name} phase: {phase_s[name]:.1f} s", flush=True)
+
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind}")
 
@@ -9304,19 +10273,22 @@ def main() -> int:
     h2d, d2h = copy_ms(1024, cfg.in_dim)
     print(f"copies of a 1024-row batch, each timed alone: h2d {h2d:.4f} "
           f"ms, d2h {d2h:.4f} ms")
-    service = asyncio.run(time_service(cfg, rng))
-    train, train_launches = asyncio.run(train_phase(cfg, rng))
-    distill, distill_launches = asyncio.run(distill_phase(cfg))
-    telemeter, telemeter_launches = asyncio.run(telemeter_phase(cfg))
-    linker, linker_launches = asyncio.run(linker_phase())
-    fastpath, fastpath_launches = asyncio.run(fastpath_phase())
-    control, control_launches = asyncio.run(control_phase(
+    service = run_phase("service", time_service(cfg, rng))
+    train, train_launches = run_phase("train", train_phase(cfg, rng))
+    distill, distill_launches = run_phase("distill", distill_phase(cfg))
+    telemeter, telemeter_launches = run_phase("telemeter",
+                                              telemeter_phase(cfg))
+    linker, linker_launches = run_phase("linker", linker_phase())
+    fastpath, fastpath_launches = run_phase("fastpath", fastpath_phase())
+    control, control_launches = run_phase("control", control_phase(
         linker_a=linker["part_a"]))
-    cli, cli_launches = asyncio.run(cli_phase(linker_a=linker["part_a"]))
-    h2, h2_launches = asyncio.run(h2_phase())
-    h2fast, h2fast_launches = asyncio.run(h2fast_phase())
-    mux, mux_launches = asyncio.run(mux_phase())
-    k8s, k8s_launches = asyncio.run(k8s_phase())
+    cli, cli_launches = run_phase("cli", cli_phase(
+        linker_a=linker["part_a"]))
+    h2, h2_launches = run_phase("h2", h2_phase())
+    h2fast, h2fast_launches = run_phase("h2fast", h2fast_phase())
+    mux, mux_launches = run_phase("mux", mux_phase())
+    k8s, k8s_launches = run_phase("k8s", k8s_phase())
+    edge, edge_launches = run_phase("edge", edge_phase())
     telemeter["recorder"] = recorder_us()
     print(f"recorder filter: {telemeter['recorder']['recorder_us']:.2f} us "
           f"a request, the downstream alone "
@@ -9349,7 +10321,8 @@ def main() -> int:
                                   control=control_launches,
                                   cli=cli_launches, h2=h2_launches,
                                   h2fast=h2fast_launches,
-                                  mux=mux_launches, k8s=k8s_launches),
+                                  mux=mux_launches, k8s=k8s_launches,
+                                  edge=edge_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -9360,9 +10333,13 @@ def main() -> int:
         "by_rows": by_rows,
     }]
     name, _, limit = card.partition(",")
+    smoke_s = time.perf_counter() - t_smoke
+    print(f"smoke: {smoke_s:.1f} s after the card line; by phase "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels, "card": name.strip(),
                       "power_limit": limit.strip(), "sass": sass,
-                      "service": service}))
+                      "service": service, "smoke_s": smoke_s,
+                      "phase_s": phase_s}))
     print(json.dumps({"train": train, "card": name.strip(),
                       "power_limit": limit.strip()}))
     print(json.dumps({"distill": distill, "card": name.strip(),
@@ -9384,6 +10361,8 @@ def main() -> int:
     print(json.dumps({"mux": mux, "card": name.strip(),
                       "power_limit": limit.strip()}, default=str))
     print(json.dumps({"k8s": k8s, "card": name.strip(),
+                      "power_limit": limit.strip()}, default=str))
+    print(json.dumps({"edge": edge, "card": name.strip(),
                       "power_limit": limit.strip()}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

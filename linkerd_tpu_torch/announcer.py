@@ -1,33 +1,38 @@
-"""The fs announcer: counterpart of ``FsAnnouncer`` in
-``linkerd_tpu/announcer.py``.
+"""Announcers: register server addresses into service discovery; a copy
+of ``linkerd_tpu/announcer.py`` without ``ZkAnnouncer`` and its
+``io.l5d.serversets`` kind, which need a ZooKeeper client (the linker
+refuses that kind by name).
 
-A scorer replica registers its address in a directory that the fs namer
-of a linker reads, as the reference's replicas do: one file per
-announced name, one ``host port`` line per replica.
+Ref: linkerd/core/.../Announcer.scala:41 (SPI; ``servers[].announce``
+paths matched by announcer prefix, driven from Main.announce,
+linkerd/main/.../Main.scala:97-130). The fs announcer is the file-based
+counterpart of the fs namer — a linkerd announcing into a directory that
+other linkerds discover from, and the scorer sidecar registering its
+replicas where linkers resolve them.
 """
 
 from __future__ import annotations
 
-import fcntl
+import abc
 import os
-from typing import Callable, List, Optional
+from dataclasses import dataclass
+from typing import List, Tuple
 
+from linkerd_tpu_torch.config import ConfigError, register
 from linkerd_tpu_torch.core import Path
+from linkerd_tpu_torch.core.var import Closable
 
 
-class Closable:
-    """A handle whose ``close`` undoes what made it, once."""
+class Announcer(abc.ABC):
+    prefix: Path
 
-    def __init__(self, fn: Callable[[], None]):
-        self._fn: Optional[Callable[[], None]] = fn
-
-    def close(self) -> None:
-        fn, self._fn = self._fn, None
-        if fn is not None:
-            fn()
+    @abc.abstractmethod
+    def announce(self, host: str, port: int, name: Path) -> Closable:
+        """Register host:port under ``name`` (the path AFTER the
+        announcer prefix); the Closable withdraws it."""
 
 
-class FsAnnouncer:
+class FsAnnouncer(Announcer):
     """One file per announced name; one ``host port`` line per announcer
     (kind ``io.l5d.fs``)."""
 
@@ -42,9 +47,10 @@ class FsAnnouncer:
         return os.path.join(self.root, "-".join(name))
 
     def _rewrite(self, path: str, drop: str, add: str = "") -> None:
-        # replicas of several processes announce into one directory, so
-        # the read-modify-write is serialized across processes by flock
-        # on a lock file beside the announcement
+        # Multiple linkerds announce into one shared directory, so the
+        # read-modify-write must be serialized across PROCESSES: flock on
+        # a sidecar lock file (the serversets analogue of ZK's atomicity).
+        import fcntl
         with open(path + ".lock", "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             try:
@@ -66,9 +72,33 @@ class FsAnnouncer:
                 fcntl.flock(lock, fcntl.LOCK_UN)
 
     def announce(self, host: str, port: int, name: Path) -> Closable:
-        """Register ``host:port`` under ``name`` (the path after the
-        announcer prefix); closing the handle withdraws it."""
         path = self._file(name)
         entry = f"{host} {port}"
         self._rewrite(path, drop=entry, add=entry)
         return Closable(lambda: self._rewrite(path, drop=entry))
+
+
+@register("announcer", "io.l5d.fs")
+@dataclass
+class FsAnnouncerConfig:
+    rootDir: str = ""
+    prefix: str = "/io.l5d.fs"
+
+    def mk(self) -> Announcer:
+        if not self.rootDir:
+            raise ConfigError("io.l5d.fs announcer needs rootDir")
+        return FsAnnouncer(self.rootDir, Path.read(self.prefix))
+
+
+def match_announcer(announcers: List[Tuple[Path, Announcer]],
+                    announce_path: Path) -> Tuple[Announcer, Path]:
+    """``/#/io.l5d.fs/web`` -> (announcer, /web)
+    (ref: Main.announce prefix matching)."""
+    if len(announce_path) == 0 or announce_path[0] != "#":
+        raise ConfigError(
+            f"announce path must start with /#/, got {announce_path.show}")
+    rest = announce_path.drop(1)
+    for prefix, ann in announcers:
+        if rest.starts_with(prefix):
+            return ann, rest.drop(len(prefix))
+    raise ConfigError(f"no announcer for {announce_path.show}")

@@ -19,23 +19,32 @@ namers, the ``io.l5d.ingress`` identifiers and the
 ``io.l5d.k8s.istio`` namer, interpreter and identifiers, the
 ``io.l5d.k8s.istio-ingress`` identifiers and the ``io.l5d.istio`` mixer
 telemeter) and the ``io.l5d.fs`` interpreter (plus the in-process
-``/$/inet`` and status utility namers), bound in process,
+``/$/inet`` and status utility namers, and the ``io.l5d.rewrite``
+namer); a namer's ``transformers`` rewrite what it binds
+(``namer/transformers.py``), and the ``io.l5d.fs`` announcer registers
+each server's ``announce`` paths while the linker runs. Routers bind in
+process,
 through namerd's HTTP API (``interpreter: {kind: io.l5d.namerd.http}``)
 or its thrift interface (``interpreter: {kind: io.l5d.namerd}``), and
 the ``io.l5d.jaxAnomaly`` telemeter, whose
 scorer runs on ``device``, beside the metric-exporter and tracer
 telemeters (``telemetry/exporters.py``), whose tracers are broadcast to
 every router's trace filters and to the anomaly telemeter's scorer
-spans. Servers and clients of a Python router take ``tls``. The
-telemeter's ``control:`` block closes the
+spans. Servers and clients of a Python router take ``tls``. An http
+or h2 router takes ``tenantIdentifier`` and ``tenants`` (a tag filter
+before admission, each tenant's level on a ``TenantBoard``, quotas by
+``TenantAdmission``) and ``loggers`` in its client stacks; an http
+router takes ``httpAccessLog``. The telemeter's ``control:`` block
+closes the
 loop on routing: the linker wraps each balancer in the control loop's
 score weigher, registers each router's ``admissionControl`` filter for
 adaptive admission, and routes through the reactor's override book. A
 ``fastPath: true`` router is served by a native engine built from the
 repository's ``native/`` sources, the HTTP/1.1 engine or, on ``protocol:
 h2``, the h2/gRPC engine: ``workers`` sharded epoll workers, native TLS
-on its servers and toward its endpoints, ``connectionGuard`` (with the h2
-flood caps) and ``streamScoring``, and on h2 the strictest server
+on its servers and toward its endpoints, tenant extraction with quotas
+pushed into the engine, ``connectionGuard`` (with the h2 flood caps)
+and ``streamScoring``, and on h2 the strictest server
 ``timeoutMs``; its rows feed the telemeter's native ring; a thrift or
 mux router with ``fastPath: true`` is served by Python, as the
 reference's. A router binds in process or through namerd's HTTP API,
@@ -55,7 +64,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from linkerd_tpu_torch import DeviceLike, resolve_device
 from linkerd_tpu_torch.config import (
-    ConfigError, instantiate, parse_config,
+    ConfigError, instantiate, instantiate_list, parse_config,
 )
 from linkerd_tpu_torch.control.balancer import ScoreWeightedBalancer
 from linkerd_tpu_torch.config.parser import (
@@ -65,7 +74,9 @@ from linkerd_tpu_torch.core import Dtab, Path
 from linkerd_tpu_torch.core.addr import Address, BoundName
 from linkerd_tpu_torch.core.pathmatcher import PathMatcher
 from linkerd_tpu_torch.protocol.tls import TlsClientConfig, TlsServerConfig
+from linkerd_tpu_torch.announcer import match_announcer
 from linkerd_tpu_torch.namer import ConfiguredDtabNamer, Namer
+from linkerd_tpu_torch.namer.transformers import TransformingNamer
 from linkerd_tpu_torch.protocol.http.client import HttpClient
 from linkerd_tpu_torch.protocol.http.filters import (
     ClearContextFilter, DstHeadersFilter, FramingFilter, ProxyRewriteFilter,
@@ -98,8 +109,8 @@ from linkerd_tpu_torch.router.service import (
 )
 from linkerd_tpu_torch.router.stages import StageTimerFilter
 from linkerd_tpu_torch.router.tracing import (
-    ClientTraceFilter, MuxClientTraceFilter, MuxServerTraceFilter,
-    ServerTraceFilter,
+    AccessLogger, ClientTraceFilter, MuxClientTraceFilter,
+    MuxServerTraceFilter, ServerTraceFilter,
 )
 from linkerd_tpu_torch.telemetry.anomaly import (
     JaxAnomalyTelemeter, ScoreBoard,
@@ -109,9 +120,11 @@ from linkerd_tpu_torch.telemetry.telemeter import BroadcastTracer, NullTracer
 
 # The port's plugins register into its own registry when imported: the
 # identifiers, classifiers, failure accrual kinds and the telemeter by
-# the imports above, the interpreter kinds, the istio and k8s families,
-# the fs namer, the h2 identifiers and classifiers and the exporter
-# telemeters here.
+# the imports above, the fs announcer, the interpreter kinds, the istio
+# and k8s families, the fs and rewrite namers, the transformers, the
+# h2 identifiers and classifiers, the http request loggers and the
+# exporter telemeters here.
+import linkerd_tpu_torch.announcer  # noqa: F401
 import linkerd_tpu_torch.interpreter.configs  # noqa: F401
 import linkerd_tpu_torch.istio.identifier  # noqa: F401
 import linkerd_tpu_torch.istio.interpreter  # noqa: F401
@@ -120,8 +133,10 @@ import linkerd_tpu_torch.istio.telemeter  # noqa: F401
 import linkerd_tpu_torch.k8s.ingress  # noqa: F401
 import linkerd_tpu_torch.k8s.namer  # noqa: F401
 import linkerd_tpu_torch.namer.fs  # noqa: F401
+import linkerd_tpu_torch.namer.transformers  # noqa: F401
 import linkerd_tpu_torch.protocol.h2.classifiers  # noqa: F401
 import linkerd_tpu_torch.protocol.h2.identifiers  # noqa: F401
+import linkerd_tpu_torch.protocol.http.loggers  # noqa: F401
 import linkerd_tpu_torch.telemetry.exporters  # noqa: F401
 
 log = logging.getLogger(__name__)
@@ -129,19 +144,14 @@ log = logging.getLogger(__name__)
 DEFAULT_ADMIN_PORT = 9990  # ref: Linker.scala:37
 
 # The ROADMAP items (Queue 1) that bring what this linker refuses.
-_EDGE = "ROADMAP Queue 1 item 10 (tenants and loggers)"
 _ANNOUNCERS = "ROADMAP Queue 1 item 11 (the announcers)"
-_NAMING = "ROADMAP Queue 1 item 13 (the other namers and transformers)"
+_NAMING = "ROADMAP Queue 1 item 13 (the zk, consul and marathon namers)"
 
 # Router keys the reference takes and the port does not yet, each with
-# the item that brings it. A key counts as given when it is not None and
-# not False.
-REFUSED_ROUTER_KEYS: Dict[str, str] = {
-    "tenants": _EDGE,
-    "tenantIdentifier": _EDGE,
-    "loggers": _EDGE,
-    "httpAccessLog": _EDGE,
-}
+# the item that brings it: none since tenants, the request loggers and
+# the access log (ROADMAP Queue 1 item 10). A key counts as given when
+# it is not None and not False.
+REFUSED_ROUTER_KEYS: Dict[str, str] = {}
 
 # Protocols the reference's linker builds and the port does not yet:
 # none since the thrift, mux and thriftmux routers (ROADMAP Queue 1
@@ -154,9 +164,10 @@ REFUSED_PROTOCOLS: Dict[str, str] = {}
 UNPORTED_KINDS: Dict[str, Dict[str, str]] = {
     "namer": {
         "io.l5d.consul": _NAMING, "io.l5d.curator": _NAMING,
-        "io.l5d.marathon": _NAMING, "io.l5d.rewrite": _NAMING,
-        "io.l5d.serversets": _NAMING, "io.l5d.zkLeader": _NAMING,
+        "io.l5d.marathon": _NAMING, "io.l5d.serversets": _NAMING,
+        "io.l5d.zkLeader": _NAMING,
     },
+    "announcer": {"io.l5d.serversets": _ANNOUNCERS},
 }
 
 
@@ -651,14 +662,17 @@ class Linker:
         self.config_text = config_text
         self.metrics = MetricsTree()
         self.namers: List[Tuple[Path, Namer]] = []
+        self.announcers: List[Tuple[Path, Any]] = []
+        self._announcements: List[Any] = []
         self.routers: List[Router] = []
         self.telemeters: List[Any] = []
         self.tracer: Any = NullTracer()
+        self._file_sinks: List[Any] = []  # close() fns for file emitters
+        self._logger_filters: List[Any] = []
         # concatenated trustCerts bundles for native client TLS contexts
         self._trust_bundles: List[str] = []
-        # what /tenants.json reads: empty while ``tenants`` is refused
-        # (ROADMAP Queue 1 item 10), so it answers {} as the reference
-        # does on such a config
+        # per-router tenant state for /tenants.json:
+        # [(label, TenantBoard, Optional[TenantAdmission])]
         self.tenant_views: List[Tuple[str, Any, Any]] = []
         # per-router Python-plane stream sentinels for /streams.json:
         # [(label, StreamSentinel)] — fastPath routers surface theirs
@@ -667,13 +681,14 @@ class Linker:
         try:
             self._build()
         except BaseException:
-            # a config error mid-build must not leak the telemeters or
-            # namers materialized before the failure
+            # a config error mid-build must not leak the telemeters,
+            # namers, or the listener threads and files of the sinks and
+            # loggers materialized before the failure
             for t in self.telemeters:
                 t.close()
             for _, namer in self.namers:
                 namer.close()
-            self._close_trust_bundles()
+            self._close_sinks()
             raise
 
     # -- assembly ---------------------------------------------------------
@@ -681,21 +696,34 @@ class Linker:
         for i, raw in enumerate(self.spec.namers or []):
             if not isinstance(raw, dict):
                 raise ConfigError(f"namers[{i}]: expected a mapping")
-            if raw.get("transformers"):
-                raise _refusal(f"namers[{i}].transformers", _NAMING)
-            raw = {k: v for k, v in raw.items() if k != "transformers"}
+            raw = dict(raw)
+            t_cfgs = raw.pop("transformers", None) or []
             ncfg = _instantiate("namer", raw, f"namers[{i}]")
             prefix = Path.read(getattr(ncfg, "prefix", f"/{ncfg.kind}"))
-            self.namers.append((prefix, ncfg.mk()))
+            namer = ncfg.mk()
+            if t_cfgs:
+                transformers = [
+                    instantiate("transformer", t,
+                                f"namers[{i}].transformers[{j}]").mk()
+                    for j, t in enumerate(t_cfgs)
+                ]
+                namer = TransformingNamer(namer, transformers)
+            self.namers.append((prefix, namer))
 
-        if self.spec.announcers:
-            raise _refusal("announcers", _ANNOUNCERS)
+        announcers = self.spec.announcers
+        if announcers is not None and not isinstance(announcers, list):
+            raise ConfigError(
+                "announcers: expected a list of announcer configs")
+        for i, raw in enumerate(announcers or []):
+            acfg = _instantiate("announcer", raw, f"announcers[{i}]")
+            self.announcers.append(
+                (Path.read(getattr(acfg, "prefix", f"/{acfg.kind}")),
+                 acfg.mk()))
+        # validate announce paths now, before any socket is bound
         for rspec in self.spec.routers:
-            for i, s in enumerate(rspec.servers or []):
-                if s.announce:
-                    raise _refusal(
-                        f"{rspec.label or rspec.protocol}.servers[{i}]."
-                        f"announce", _ANNOUNCERS)
+            for s in rspec.servers or []:
+                for raw in s.announce or []:
+                    match_announcer(self.announcers, Path.read(raw))
 
         telemetry = self.spec.telemetry
         if telemetry is not None and not isinstance(telemetry, list):
@@ -1039,26 +1067,41 @@ class Linker:
         interpreter = self._mk_interpreter(rspec, label)
         engine = engine_cls(workers=workers)
         try:
+            tid_spec = self._mk_tenant_identifier(rspec, label)
             sentinel = self._configure_engine(
-                engine, rspec, label, tls_servers, client_tls)
+                engine, rspec, label, tls_servers, client_tls, tid_spec)
             ports = [engine.listen_tls(s.ip, s.port) if s.tls is not None
                      else engine.listen(s.ip, s.port) for s in specs]
         except BaseException:
             engine.close()
             raise
+        tenant_board = tenant_admission = None
+        if tid_spec is None and rspec.tenants is not None:
+            log.warning(
+                "%s: tenants: quotas configured without a "
+                "tenantIdentifier — per-tenant isolation is DISABLED "
+                "until one is added", label)
+        if tid_spec is not None:
+            tenant_board, tenant_admission = self._mk_tenant_isolation(
+                rspec, label, tid_spec)
+            if tenant_admission is not None:
+                tenant_admission.register_engine(engine)
         ctl = FastPathController(
             engine, interpreter, base_dtab, prefix, label, self.metrics,
-            telemeters=self.telemeters, stream_sentinel=sentinel)
+            telemeters=self.telemeters, tenant_board=tenant_board,
+            tenant_admission=tenant_admission, stream_sentinel=sentinel)
         return _FastPathRouter(rspec, label, ctl, ports,
                                interpreter=interpreter)
 
     def _configure_engine(self, engine, rspec: RouterSpec, label: str,
-                          tls_servers, client_tls):
-        """The engine's TLS identity and client TLS, its connection
-        guard (with the h2 engine's flood caps), its stream sentinel and
-        the h2 engine's response timeout, before it starts; returns the
-        Python sentinel that mirrors the engine's sample rows (None
-        without ``streamScoring``)."""
+                          tls_servers, client_tls, tid_spec):
+        """The engine's TLS identity and client TLS, its tenant
+        extraction (``tid_spec``, the parsed ``tenantIdentifier``), its
+        connection guard (with the h2 engine's flood caps and the tenant
+        table's bound), its stream sentinel and the h2 engine's response
+        timeout, before it starts; returns the Python sentinel that
+        mirrors the engine's sample rows (None without
+        ``streamScoring``)."""
         if tls_servers:
             tls = tls_servers[0].tls
             if not tls.certPath or not tls.keyPath:
@@ -1075,7 +1118,19 @@ class Linker:
                     verify=not client_tls.disableValidation, ca_path=ca)
             except OSError as e:
                 raise ConfigError(f"{label}.client.tls: {e}") from None
+        # tenant identity: extraction mirrored in C (the engine stamps
+        # tenant hashes into stats and feature rows and enforces pushed
+        # quotas in the data plane)
+        if tid_spec is not None:
+            if tid_spec.kind == "sni" and not tls_servers:
+                raise ConfigError(
+                    f"{label}.tenantIdentifier: sni extraction needs a "
+                    f"TLS server")
+            engine.set_tenant(tid_spec.kind, tid_spec.header,
+                              tid_spec.segment)
         guard = rspec.connectionGuard
+        tenant_cap = (rspec.tenants.maxTenants
+                      if rspec.tenants is not None else 1024)
         if guard is not None:
             guard.validate(f"{label}.connectionGuard")
             engine.set_guard(
@@ -1083,7 +1138,8 @@ class Linker:
                 body_stall_ms=guard.bodyStallMs,
                 accept_burst=guard.acceptBurst,
                 accept_window_ms=guard.acceptWindowMs,
-                max_hs_inflight=guard.maxHandshakesInflight)
+                max_hs_inflight=guard.maxHandshakesInflight,
+                tenant_cap=tenant_cap)
             if rspec.protocol == "h2":
                 engine.set_flood_guard(
                     max_streams=guard.maxStreamsPerConnection,
@@ -1101,6 +1157,11 @@ class Linker:
             elif guard.tunnelIdleMs or guard.tunnelMaxBytes:
                 engine.set_tunnel_guard(idle_ms=guard.tunnelIdleMs,
                                         max_bytes=guard.tunnelMaxBytes)
+        elif rspec.tenants is not None:
+            # no guard block, but the operator DID bound tenant
+            # cardinality: the engine table must honor it (defaults
+            # for everything else)
+            engine.set_guard(tenant_cap=tenant_cap)
         if rspec.protocol == "h2":
             timeouts = [s.timeoutMs for s in (rspec.servers or [])
                         if s.timeoutMs is not None]
@@ -1156,7 +1217,9 @@ class Linker:
         self._trust_bundles.append(bundle.name)
         return bundle.name
 
-    def _close_trust_bundles(self) -> None:
+    def _close_sinks(self) -> None:
+        """Remove the trust bundles, and stop and close the file sinks
+        and request loggers."""
         import os
         for path in self._trust_bundles:
             try:
@@ -1164,6 +1227,20 @@ class Linker:
             except OSError:
                 pass
         self._trust_bundles.clear()
+        for close in self._file_sinks:
+            try:
+                close()
+            except Exception:  # noqa: BLE001
+                pass
+        self._file_sinks.clear()
+        for lf in self._logger_filters:
+            closer = getattr(lf, "close", None)
+            if closer is not None:
+                try:
+                    closer()
+                except Exception:  # noqa: BLE001
+                    pass
+        self._logger_filters.clear()
 
     def _mk_http_router(self, rspec: RouterSpec, label: str) -> Router:
         if rspec.fastPath:
@@ -1185,6 +1262,7 @@ class Linker:
             self._mk_client_validator(label))
         metrics = self.metrics
         mk_policy_factory = self._mk_policy_factory_fn(label)
+        logger_filters = self._mk_logger_filters(rspec, label)
 
         def client_factory(bound: BoundName) -> Service:
             code = _status_code_of(bound)
@@ -1231,7 +1309,10 @@ class Linker:
                 ClientDeadlineFilter(),
             ]
             filters.extend(extra_filters)
-            # (ref: linkerd_tpu/linker.py:1877-1879)
+            # per-router logger plugin chain, client-stack position
+            # (ref: HttpConfig.scala insertAfter DtabStatsFilter);
+            # materialized ONCE per router — see logger_filters above
+            filters.extend(logger_filters)
             if not isinstance(self.tracer, NullTracer):
                 filters.append(ClientTraceFilter(self.tracer, cid))
             metrics.scope("rt", label, "client", cid).gauge(
@@ -1302,6 +1383,9 @@ class Linker:
             # only pay per-request span construction when a sink exists
             server_filters.insert(
                 0, ServerTraceFilter(self.tracer, label, rspec.sampleRate))
+        if rspec.httpAccessLog:
+            server_filters.append(AccessLogger(
+                self._mk_access_emit(label, rspec.httpAccessLog)))
         for t in self.telemeters:
             if hasattr(t, "recorder"):
                 server_filters.append(t.recorder())
@@ -1440,6 +1524,9 @@ class Linker:
             self._mk_client_validator(label))
         metrics = self.metrics
         mk_policy_factory = self._mk_policy_factory_fn(label)
+        # request-logger plugin chain, same client-stack position as the
+        # http router (ref: the h2 H2LoggerConfig plugin point)
+        logger_filters = self._mk_logger_filters(rspec, label)
 
         def client_factory(bound: BoundName) -> Service:
             code = _status_code_of(bound)
@@ -1477,6 +1564,7 @@ class Linker:
                 H2StreamStatsFilter(metrics, "rt", label, "client", cid),
                 ClientDeadlineFilter()]
             filters.extend(extra_filters)
+            filters.extend(logger_filters)
             if not isinstance(self.tracer, NullTracer):
                 # h2 carries l5d-ctx-trace as a plain header like http
                 filters.append(ClientTraceFilter(self.tracer, cid))
@@ -1912,16 +2000,16 @@ class Linker:
     def _edge_resilience_filters(self, rspec: RouterSpec,
                                  label: str) -> List[Any]:
         """Server-edge resilience (http + h2): the deadline decode and
-        expired shed, then admission control. The raisers sit INSIDE the
-        protocol's error responder (appended AFTER it in the server
-        filters), where DeadlineExceeded maps to 504/DEADLINE_EXCEEDED
-        and OverloadShed to 503-retryable/REFUSED_STREAM. Single
-        instances, shared across the router's servers: the concurrency
-        bound is a router property. The reference's checks of a router
-        on the Python data plane come first: the connection guard and
-        the sharded workers live in the native engine. (The reference's
-        tenant tagging waits on ``tenantIdentifier``, refused by
-        name.)"""
+        expired shed, tenant tagging, then admission control. The
+        raisers sit INSIDE the protocol's error responder (appended
+        AFTER it in the server filters), where DeadlineExceeded maps to
+        504/DEADLINE_EXCEEDED and OverloadShed to
+        503-retryable/REFUSED_STREAM. Single instances, shared across
+        the router's servers: the concurrency bound is a router
+        property. TenantTagFilter runs BEFORE admission so per-tenant
+        sub-limits see ``ctx["tenant_hash"]``. The reference's checks of
+        a router on the Python data plane come first: the connection
+        guard and the sharded workers live in the native engine."""
         if rspec.connectionGuard is not None:
             raise ConfigError(
                 f"{label}: connectionGuard requires fastPath: true "
@@ -1940,6 +2028,33 @@ class Linker:
                 "fallback (no native TLS runtime)", label)
         filters: List[Any] = [ServerDeadlineFilter(
             self.metrics.scope("rt", label, "server", "deadline"))]
+        tid_spec = self._mk_tenant_identifier(rspec, label)
+        tenant_admission = None
+        if tid_spec is None and rspec.tenants is not None:
+            # quotas without an identity axis are inert, which an
+            # operator should notice — but a mis-keyed block must not
+            # take the whole linker down
+            log.warning(
+                "%s: tenants: quotas configured without a "
+                "tenantIdentifier — per-tenant isolation is DISABLED "
+                "until one is added", label)
+        if tid_spec is not None:
+            from linkerd_tpu_torch.router.tenancy import TenantTagFilter
+            board, tenant_admission = self._mk_tenant_isolation(
+                rspec, label, tid_spec)
+            if rspec.tenants is not None \
+                    and rspec.admissionControl is None:
+                log.warning(
+                    "%s: tenants: quotas on the Python data plane "
+                    "enforce through admissionControl — without one, "
+                    "tenant levels are tracked but nothing sheds",
+                    label)
+            # the tag filter drives the quota governor opportunistically
+            # (interval-gated) so isolation works without a control loop
+            filters.append(TenantTagFilter(
+                tid_spec, board,
+                stepper=(tenant_admission.maybe_step
+                         if tenant_admission is not None else None)))
         ac = rspec.admissionControl
         if ac is not None:
             try:
@@ -1955,8 +2070,91 @@ class Linker:
             ctl = self._anomaly_control()
             if ctl is not None:
                 ctl.register_admission(admission)
+            if tenant_admission is not None:
+                tenant_admission.register(admission)
             filters.append(admission)
         return filters
+
+    def _mk_tenant_identifier(self, rspec: RouterSpec, label: str):
+        """Parse + validate the ``tenantIdentifier`` block into a
+        TenantIdentifierSpec (None when absent)."""
+        raw = rspec.tenantIdentifier
+        if raw is None:
+            return None
+        from linkerd_tpu_torch.router.tenancy import TenantIdentifierSpec
+        spec = instantiate_as(TenantIdentifierSpec, raw,
+                              f"{label}.tenantIdentifier")
+        try:
+            spec.validate(f"{label}.tenantIdentifier")
+        except ValueError as e:
+            raise ConfigError(str(e)) from None
+        return spec
+
+    def _mk_tenant_isolation(self, rspec: RouterSpec, label: str,
+                             tid_spec) -> Tuple[Any, Any]:
+        """Build the router's TenantBoard (+ TenantAdmission when a
+        ``tenants:`` quota block is configured) and register both for
+        /tenants.json. Returns (board, admission_or_None)."""
+        from linkerd_tpu_torch.router.tenancy import TenantBoard
+        ts = rspec.tenants
+        board = TenantBoard(
+            max_tenants=ts.maxTenants if ts is not None else 1024)
+        admission = None
+        if ts is not None and tid_spec is not None:
+            ts.validate(f"{label}.tenants")
+            from linkerd_tpu_torch.control.admission import TenantAdmission
+            from linkerd_tpu_torch.control.state import HysteresisGovernor
+            admission = TenantAdmission(
+                board,
+                governor=HysteresisGovernor(
+                    enter=ts.enterThreshold, exit=ts.exitThreshold,
+                    quorum=ts.quorum, dwell_s=ts.cooldownS),
+                floor=ts.floor, engine_base=ts.engineBase,
+                metrics_node=self.metrics.scope(
+                    "rt", label, "server", "tenants"))
+            ctl = self._anomaly_control()
+            if ctl is not None:
+                ctl.register_tenant_admission(admission)
+        if tid_spec is not None:
+            self.tenant_views.append((label, board, admission))
+        return board, admission
+
+    def _mk_logger_filters(self, rspec: RouterSpec,
+                           label: str) -> List[Any]:
+        """Per-router request-logger plugin chain (ref: HttpLoggerConfig /
+        H2LoggerConfig `loggers`): validated + materialized ONCE at
+        router build (bad configs fail load, not the first request),
+        shared by every client, closed with the linker. Kinds whose
+        ``mk`` accepts a ``metrics`` argument get the linker tree so
+        their counters surface in /admin/metrics.json."""
+        # http-only kinds touch Request-shaped fields (req.uri) and
+        # would crash an h2 router's first request, not its load
+        if rspec.protocol != "http":
+            for raw in rspec.loggers or []:
+                kind = (raw or {}).get("kind", "")
+                if str(kind).startswith("io.l5d.http."):
+                    raise ConfigError(
+                        f"{label}.loggers: {kind} only supports http "
+                        f"routers")
+        filters: List[Any] = []
+        for cfg in instantiate_list("logger", rspec.loggers,
+                                    f"{label}.loggers"):
+            params = inspect.signature(cfg.mk).parameters
+            filters.append(cfg.mk(metrics=self.metrics)
+                           if "metrics" in params else cfg.mk())
+        self._logger_filters.extend(filters)
+        return filters
+
+    def _mk_access_emit(self, label: str, target: str):
+        """Access-log sink: off-event-loop disk writes via QueueListener;
+        handlers are per-Linker (no global logger registry) and closed by
+        Linker.close()."""
+        if target == "stdout":
+            return print
+        from linkerd_tpu_torch.protocol.http.loggers import mk_file_emit
+        emit, close = mk_file_emit(target)
+        self._file_sinks.append(close)
+        return emit
 
     def _anomaly_telemeter(self) -> Optional[JaxAnomalyTelemeter]:
         """The configured jaxAnomaly telemeter, or None."""
@@ -2023,9 +2221,21 @@ class Linker:
         ctl = self._anomaly_control()
         if ctl is not None:
             ctl.prewarm_failover_binds()
+        # announce bound servers (ref: Main.announce, Main.scala:97-130)
+        for r in self.routers:
+            for spec, server in zip(
+                    r.spec.servers or [ServerSpec()], r.servers):
+                for raw in spec.announce or []:
+                    ann, rest = match_announcer(
+                        self.announcers, Path.read(raw))
+                    self._announcements.append(
+                        ann.announce(spec.ip, server.bound_port, rest))
         return self
 
     async def close(self) -> None:
+        for c in self._announcements:
+            c.close()
+        self._announcements.clear()
         for r in self.routers:
             await r.close()
             # a remote interpreter's watch streams end with its router
@@ -2037,7 +2247,7 @@ class Linker:
         ctl = self._anomaly_control()
         for t in self.telemeters:
             t.close()
-        self._close_trust_bundles()
+        self._close_sinks()
         if ctl is not None:
             # the reactor's store client (its namerd connection)
             await ctl.aclose()

@@ -1,8 +1,8 @@
 """ctypes binding of the native engines: counterpart of
 ``linkerd_tpu/native/__init__.py`` for the HTTP/1.1 engine and the
-h2/gRPC engine (sharded workers, native TLS, the connection guard, the
-h2 flood caps and response timeout, and the stream sentinel) and the
-in-data-plane scorer.
+h2/gRPC engine (sharded workers, native TLS, tenant extraction and
+quotas, the connection guard, the h2 flood caps and response timeout,
+and the stream sentinel) and the in-data-plane scorer.
 
 The library is built from the repository's ``native/`` sources by
 ``_build`` at first use. There is no pure-Python fallback: a build or
@@ -121,8 +121,8 @@ def _declare_tls(cdll: ctypes.CDLL, prefix: str) -> None:
 def _declare_engine(cdll: ctypes.CDLL, prefix: str) -> None:
     """The control surface both engines export under their prefix: the
     loop, listeners, routes, drains and stats, the in-plane scorer's
-    weight publish and route features, the connection guard and the
-    stream sentinel (per-stream scoring cadence and hysteresis, the
+    weight publish and route features, tenant extraction and quotas, the
+    connection guard and the stream sentinel (per-stream scoring cadence and hysteresis, the
     /streams.json snapshot, the mid-stream RST queue)."""
     _declare_tls(cdll, prefix)
     blob = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
@@ -150,6 +150,10 @@ def _declare_engine(cdll: ctypes.CDLL, prefix: str) -> None:
                                             ctypes.c_long]),
         "_shutdown": (None, [ctypes.c_void_p]),
         "_set_guard": (ctypes.c_int, [ctypes.c_void_p] + [ctypes.c_long] * 6),
+        "_set_tenant": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_char_p, ctypes.c_int]),
+        "_set_tenant_quota": (ctypes.c_int, [ctypes.c_void_p,
+                                             ctypes.c_uint32, ctypes.c_int]),
         "_set_stream_cfg": (ctypes.c_int, [
             ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
             ctypes.c_long, ctypes.c_double, ctypes.c_double, ctypes.c_long,
@@ -183,11 +187,14 @@ def _declare_h2_fastpath(cdll: ctypes.CDLL) -> None:
 
 def _declare_fastpath(cdll: ctypes.CDLL) -> None:
     """The HTTP/1.1 engine: the shared surface under ``fp`` plus its
-    byte-tunnel budgets, and the stream accumulator."""
+    byte-tunnel budgets, and the engines' tenant hash and stream
+    accumulator."""
     _declare_engine(cdll, "fp")
     cdll.fp_set_tunnel_guard.restype = ctypes.c_int
     cdll.fp_set_tunnel_guard.argtypes = \
         [ctypes.c_void_p, ctypes.c_long, ctypes.c_long]
+    cdll.l5d_tenant_hash.restype = ctypes.c_uint32
+    cdll.l5d_tenant_hash.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
     cdll.l5d_stream_accum.restype = ctypes.c_long
     cdll.l5d_stream_accum.argtypes = [
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float),
@@ -486,6 +493,50 @@ class FastPathEngine:
         eps = " ".join(f"{ip}:{port}" for ip, port in endpoints) + " "
         for h in self._es:
             self._fn_set_route(h, self._key(host), eps.encode())
+
+    TENANT_KINDS = {"off": 0, "header": 1, "pathSegment": 2, "sni": 3}
+
+    def set_tenant(self, kind: str, header: str = "l5d-tenant",
+                   segment: int = 0) -> None:
+        """Install the tenant-extraction mode (call before start()):
+        ``header`` hashes the named request header's value,
+        ``pathSegment`` the ``segment``th path element, ``sni`` the TLS
+        server name. The engine stamps the FNV-1a hash into per-request
+        feature rows and the per-tenant stats table."""
+        assert not self._started
+        k = self.TENANT_KINDS.get(kind)
+        if k is None:
+            raise ValueError(f"unknown tenant extraction kind {kind!r}")
+        fn = getattr(self._lib, self._PREFIX + "_set_tenant")
+        for h in self._es:
+            if fn(h, k, header.encode("latin-1", "replace"),
+                  int(segment)) != 0:
+                raise ValueError("tenant extraction config rejected")
+
+    def set_tenant_quota(self, tenant_hash: int,
+                         limit: Optional[int]) -> None:
+        """Push (or clear, with ``limit=None``) a per-tenant
+        concurrency quota, keyed by the tenant's 32-bit hash. The
+        engine sheds over-quota requests retryably in the data plane
+        (h1: 503 + l5d-retryable, h2: RST REFUSED_STREAM). Safe at any
+        time; raises when the native quota map is full.
+
+        Multi-worker engines split the limit N ways (floor division:
+        per-worker tables are independent, so the global cap is never
+        exceeded). A limit below ``workers`` rounds to a per-worker
+        quota of ZERO — every worker sheds that tenant entirely."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        if limit is None:
+            per_worker = -1
+        else:
+            per_worker = max(0, int(limit))
+            if self.workers > 1:
+                per_worker //= self.workers
+        fn = getattr(self._lib, self._PREFIX + "_set_tenant_quota")
+        for h in self._es:
+            if fn(h, int(tenant_hash) & 0xFFFFFFFF, per_worker) != 0:
+                raise ValueError("native tenant quota map is full")
 
     def set_guard(self, header_budget_ms: int = 10_000,
                   body_stall_ms: int = 30_000, accept_burst: int = 0,
@@ -814,6 +865,13 @@ class H2FastPathEngine(FastPathEngine):
             raise ValueError("response timeout must be >= 1 ms")
         for h in self._es:
             self._lib.fph2_set_response_timeout_ms(h, ms)
+
+
+def tenant_hash_native(tenant_id: bytes) -> int:
+    """The C engines' FNV-1a tenant hash (parity surface for
+    router.tenancy.tenant_hash); raises when the library cannot be built
+    or loaded, as every call into it does."""
+    return int(lib().l5d_tenant_hash(tenant_id, len(tenant_id)))
 
 
 def stream_accum(kinds, gaps_ms, sizes) -> np.ndarray:

@@ -1,7 +1,7 @@
 """FastPath controller: Python control plane for the native data plane,
 counterpart of ``linkerd_tpu/router/fastpath.py`` for both engines
-(sharded workers, native TLS, the connection guard and the stream
-sentinel; no tenants).
+(sharded workers, native TLS, tenant isolation, the connection guard
+and the stream sentinel).
 
 A native engine serves the hot loop: native/fastpath.cpp for HTTP/1.1,
 routing by Host, or native/h2_fastpath.cpp for h2/gRPC, routing by
@@ -21,7 +21,10 @@ and keeps it honest with the naming system:
   scored on the card like Python-path traffic;
 - the engine's h2 stream and tunnel sample rows (row kind 1 and 2)
   also feed the Python stream sentinel, which mirrors the engine's
-  in-plane stream governor for ``/streams.json``.
+  in-plane stream governor for ``/streams.json``;
+- the engine's per-tenant aggregates fold into the router's
+  ``TenantBoard`` on the same stats tick, and the tenant quota governor
+  steps there, pushing quotas back into the engine.
 """
 
 from __future__ import annotations
@@ -127,7 +130,8 @@ class FastPathController:
     def __init__(self, engine, interpreter, base_dtab: Dtab, prefix: Path,
                  label: str, metrics, telemeters=(),
                  miss_poll_s: float = 0.01, stats_poll_s: float = 1.0,
-                 max_hosts: int = 10_000, stream_sentinel=None):
+                 max_hosts: int = 10_000, tenant_board=None,
+                 tenant_admission=None, stream_sentinel=None):
         self.engine = engine
         self.interpreter = interpreter
         self.dtab = base_dtab
@@ -151,6 +155,20 @@ class FastPathController:
         self._id_to_host: Dict[int, str] = {}
         self._scope = metrics.scope("rt", label, "fastpath")
         self._last_guard: Dict[str, int] = {}
+        # tenant isolation: engine per-tenant aggregates feed the board
+        # (level inputs for the quota governor) each stats tick, and
+        # the governor steps on the same cadence — the engines are the
+        # data plane, this loop is their control plane
+        self.tenant_board = tenant_board
+        self.tenant_admission = tenant_admission
+        self._last_tenants: Dict[str, Dict[str, float]] = {}
+        # metrics-tree cardinality bound: the engine's tenant table is
+        # LRU-bounded, but the metrics tree never forgets a scope —
+        # under tenant-id churn each stats tick would otherwise mint
+        # fresh rt/*/fastpath/tenant/<hash>/* counters forever. Past
+        # this many distinct hashes, deltas roll up under .../other/*.
+        self._tenant_metric_keys: set = set()
+        self._tenant_metric_cap = 256
         # stream sentinel: the Python-side mirror of the engines'
         # in-plane stream governor. Stream/tunnel sample rows (row kind
         # > 0) drained off the feature ring feed it, keeping the
@@ -256,11 +274,15 @@ class FastPathController:
     _GUARD_KEYS = ("slowloris_closed", "body_stall_closed",
                    "accept_throttled", "hs_churn_shed",
                    "rapid_reset_closed", "flood_closed", "tenant_shed")
+    _TENANT_KEYS = ("requests", "shed", "errors", "scored")
 
-    def _export_guard(self, snap: dict) -> None:
-        """Guard counters → rt/*/fastpath/guard/* (the guard half of
-        the reference's ``_export_tenants``; the engine's per-tenant
-        aggregates come with tenants)."""
+    def _export_tenants(self, snap: dict) -> None:
+        """Engine per-tenant aggregates → rt/*/fastpath/tenant/* and
+        (as deltas) into the TenantBoard; guard counters →
+        rt/*/fastpath/guard/*. The quota governor steps on this same
+        1 s cadence — sick tenants get their in-engine quota within
+        one stats tick of their level crossing the governor's
+        threshold."""
         guard = snap.get("guard")
         if guard:
             scope = self._scope.scope("guard")
@@ -271,6 +293,40 @@ class FastPathController:
                     scope.counter(key).incr(delta)
             self._last_guard = {k: int(guard.get(k, 0))
                                 for k in self._GUARD_KEYS}
+        tn = snap.get("tenants")
+        if not tn:
+            return
+        scope = self._scope.scope("tenant")
+        scope.gauge("count").set(float(tn.get("count", 0)))
+        scope.gauge("evicted").set(float(tn.get("evicted", 0)))
+        by = tn.get("by_tenant") or {}
+        cur: Dict[str, Dict[str, float]] = {}
+        for thash, t in by.items():
+            prev = self._last_tenants.get(thash, {})
+            if (thash in self._tenant_metric_keys
+                    or len(self._tenant_metric_keys)
+                    < self._tenant_metric_cap):
+                self._tenant_metric_keys.add(thash)
+                tscope = scope.scope(thash)
+            else:
+                tscope = scope.scope("other")
+            deltas = {}
+            for key in self._TENANT_KEYS:
+                d = int(t.get(key, 0)) - int(prev.get(key, 0))
+                deltas[key] = max(0, d)
+                if d > 0:
+                    tscope.counter(key).incr(d)
+            cur[thash] = {k: int(t.get(k, 0))
+                          for k in self._TENANT_KEYS}
+            if self.tenant_board is not None and (
+                    deltas["requests"] or deltas["shed"]):
+                self.tenant_board.ingest_native(
+                    int(thash), deltas["requests"], deltas["errors"],
+                    deltas["shed"], t.get("score_ewma"),
+                    deltas["scored"])
+        self._last_tenants = cur
+        if self.tenant_admission is not None:
+            self.tenant_admission.step()
 
     _STREAM_KEYS = ("evicted", "sick_transitions", "rst_sent",
                     "tunnels_opened", "tunnel_idle_closed",
@@ -357,7 +413,7 @@ class FastPathController:
 
     def _export_stats(self) -> None:
         snap = self.engine.stats()
-        self._export_guard(snap)
+        self._export_tenants(snap)
         self._export_workers(snap)
         self._export_streams()
         tls = snap.get("tls")

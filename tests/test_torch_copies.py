@@ -81,6 +81,10 @@ COPIES = (
     "istio/mixer_pb.py", "istio/mixer.py", "istio/telemeter.py",
     "istio/pilot.py", "istio/namer.py", "istio/interpreter.py",
     "istio/identifier.py",
+    # tenant isolation, the request loggers and the transformers with
+    # the io.l5d.rewrite namer
+    "router/tenancy.py", "protocol/http/loggers.py",
+    "namer/transformers.py",
 )
 
 # Modules that differ on purpose: reason, and the top-level names that
@@ -129,8 +133,8 @@ DIFFERENT = {
         {"log", "main"}),
     "linker.py": (
         "the five router protocols, with a device for the telemeters and "
-        "by-name refusals of what is not ported (tenants, loggers, "
-        "announcers, the other namers and transformers); "
+        "by-name refusals of what is not ported (the zk, consul and "
+        "marathon namers, the serversets announcer); "
         "_mk_thrift_router and _mk_mux_router are the reference's",
         None),
     "testing/faults.py": (
@@ -141,14 +145,15 @@ DIFFERENT = {
         "the telemeter ported to PyTorch: the scorer, training "
         "and kernel are the port's own", None),
     "announcer.py": (
-        "a counterpart of FsAnnouncer alone, not a copy of the module",
-        None),
+        "ZkAnnouncer and its io.l5d.serversets kind are left out: they "
+        "need the ZooKeeper client (zk/, ROADMAP Queue 1 item 11)",
+        {"ZkAnnouncer", "ZkAnnouncerConfig"}),
     "native/__init__.py": (
         "the loader builds the port's own library from native/ and has no "
         "pure-Python fallback (a failed build raises); FastPathEngine and "
         "H2FastPathEngine drive the two engines with sharded workers, "
-        "native TLS, the connection guard and the stream sentinel, "
-        "without tenants (ROADMAP Queue 1 item 10); no head parser, "
+        "native TLS, tenants, the connection guard and the stream "
+        "sentinel; no head parser, "
         "Huffman or test-blob bindings; the scorer calls and stream_accum "
         "raise instead of returning None",
         {"FastPathEngine", "MAX_HEADERS", "ScoreSlab",
@@ -173,11 +178,8 @@ DIFFERENT = {
         {"ControlConfig", "FleetConfig", "ConfigRefused",
          "REFUSED_KEYS"}),
     "router/fastpath.py": (
-        "the controller of both engines: no tenant board and "
-        "admission (ROADMAP Queue 1 item 10; the guard counters are "
-        "exported by _export_guard, the guard half of _export_tenants), "
-        "and no per-row FeatureVector feed (every port telemeter has a "
-        "native ring)",
+        "the controller of both engines, with no per-row FeatureVector "
+        "feed (every port telemeter has a native ring)",
         {"FastPathController"}),
 }
 

@@ -677,16 +677,28 @@ def test_fixed_settings_refusals_word_for_word(knob, tmp_path):
 def test_server_timeout_loads_and_tenants_stay_refused(engines, tmp_path):
     """A server ``timeoutMs`` (the engine's response timeout, the
     strictest server's) loads in both packages; ``tenants`` and
-    ``tenantIdentifier`` on an h2 fastPath router name item 10."""
+    ``tenantIdentifier`` on an h2 fastPath router, refused by name until
+    the port took them, load in both to the same tenant views, and
+    ``sni`` extraction without a TLS server fails with the reference's
+    words."""
     text = linker_text(tmp_path, servers=[
         {"port": 0, "timeoutMs": 500}, {"port": 0, "timeoutMs": 250}])
     for pkg in ("ref", "port"):
         linker = load(pkg, text)
         assert type(linker.routers[0]).__name__ == "_FastPathRouter"
         run(linker.close())
-    for key, value in (("tenants", {}),
-                       ("tenantIdentifier", {"kind": "header"})):
-        with pytest.raises(ConfigError) as e:
-            load_linker(linker_text(tmp_path, **{key: value}), device="cpu")
-        msg = str(e.value)
-        assert key in msg and "ROADMAP Queue 1 item 10" in msg, msg
+    for keys in ({"tenants": {}}, {"tenantIdentifier": {"kind": "header"}},
+                 {"tenantIdentifier": {"kind": "header"}, "tenants": {}}):
+        out = []
+        for pkg in ("ref", "port"):
+            linker = load(pkg, linker_text(tmp_path, **keys))
+            out.append([(label, type(a).__name__ if a else None)
+                        for label, _b, a in linker.tenant_views])
+            run(linker.close())
+        assert out[1] == out[0], keys
+    sni = linker_text(tmp_path, tenantIdentifier={"kind": "sni"})
+    with pytest.raises(RefConfigError) as want:
+        ref_load_linker(sni)
+    with pytest.raises(ConfigError) as got:
+        load_linker(sni, device="cpu")
+    assert str(got.value) == str(want.value)

@@ -369,16 +369,21 @@ def test_h2_configs_load_alike(extra):
 
 
 def test_fastpath_and_other_protocols_still_refused():
-    """What an h2 ``fastPath: true`` router still lacks, tenants, stays
-    refused by name. The thrift, mux and thriftmux routers, refused by
-    name until the port took them, load or fail as the reference's do,
-    with or without ``fastPath`` (which those routers do not read)."""
-    with pytest.raises(ConfigError) as e:
-        port_load_linker("routers:\n- protocol: h2\n  fastPath: true\n"
-                         "  servers: [{port: 0}]\n  tenants: {}\n",
-                         device="cpu")
-    msg = str(e.value)
-    assert "tenants" in msg and "not supported by the port yet" in msg
+    """Tenants on an h2 ``fastPath: true`` router, refused by name until
+    the port took them, load in both packages. The thrift, mux and
+    thriftmux routers, refused by name until the port took them, load or
+    fail as the reference's do, with or without ``fastPath`` (which
+    those routers do not read)."""
+    text = ("routers:\n- protocol: h2\n  fastPath: true\n"
+            "  servers: [{port: 0}]\n  tenants: {}\n"
+            "  tenantIdentifier: {kind: header}\n")
+    views = []
+    for pkg in ("ref", "port"):
+        linker = load(pkg, text)
+        views.append([(label, type(a).__name__)
+                      for label, _b, a in linker.tenant_views])
+        run(linker.close())
+    assert views[1] == views[0] == [("h2", "TenantAdmission")]
     for p in ("thrift", "mux", "thriftmux"):
         for fp in ("", "  fastPath: true\n",
                    "  fastPath: true\n  tenants: {}\n"):

@@ -336,12 +336,16 @@ BASE = ("routers:\n- protocol: http\n  servers: [{port: 0}]\n")
 EXTRA = {"io.l5d.k8s.istio": "host: 127.0.0.1",
          "io.l5d.k8s.istio-ingress": "apiserverHost: 127.0.0.1",
          "io.l5d.istio": "mixerHost: 127.0.0.1",
-         "io.l5d.fs": "dtabFile: dtab", "io.l5d.k8s.configMap": "name: d"}
+         "io.l5d.fs": "dtabFile: dtab", "io.l5d.k8s.configMap": "name: d",
+         "io.l5d.rewrite": "prefix: /rw, pattern: '/{svc}', "
+                           "name: '/#/io.l5d.fs/{svc}'"}
 
 
 def kind_text(cat: str, k: str) -> str:
     """A config naming kind ``k`` of category ``cat``."""
     extra = f", {EXTRA[k]}" if k in EXTRA else ""
+    if cat == "announcer":
+        return BASE + f"announcers:\n- {{kind: {k}{extra}}}\n"
     if cat in ("namer", "telemeter"):
         return BASE + {"namer": "namers:\n", "telemeter": "telemetry:\n"}[
             cat] + f"- {{kind: {k}{extra}}}\n"
@@ -365,28 +369,10 @@ K8S_ISTIO_KINDS = (
 )
 REFUSALS = {
     **{f"router key {k}": (
-        "routers:\n- protocol: http\n  " + {
-            "connectionGuard": "connectionGuard: {}",
-            "streamScoring": "streamScoring: {}",
-            "tenants": "tenants: {}",
-            "tenantIdentifier": "tenantIdentifier: {kind: header}",
-            "loggers": "loggers: [{kind: io.l5d.http.file, path: x}]",
-            "httpAccessLog": "httpAccessLog: stdout",
-        }[k] + "\n", k) for k in REFUSED_ROUTER_KEYS},
+        f"routers:\n- protocol: http\n  {k}: {{}}\n", k)
+       for k in REFUSED_ROUTER_KEYS},
     **{f"protocol {p}": (f"routers:\n- protocol: {p}\n", f"protocol '{p}'")
        for p in REFUSED_PROTOCOLS},
-    **{f"fastPath {k}": (
-        "routers:\n- protocol: http\n  fastPath: true\n" + text, k)
-       for k, text in (("tenants", "  tenants: {}\n"),)},
-    "namer transformers": (
-        BASE + "namers:\n- kind: io.l5d.fs\n  rootDir: .\n  transformers:"
-        "\n  - kind: io.l5d.localhost\n", "transformers"),
-    "announcers": (
-        BASE + "announcers:\n- kind: io.l5d.fs\n  rootDir: .\n",
-        "announcers"),
-    "server announce": (
-        "routers:\n- protocol: http\n  servers:\n  - port: 0\n    announce:"
-        " [/#/io.l5d.fs/x]\n", "announce"),
     **{f"{cat} kind {k}": (kind_text(cat, k), repr(k))
        for cat, kinds in UNPORTED_KINDS.items() for k in kinds},
     **{f"control {k}": (
@@ -405,7 +391,36 @@ REFUSALS = {
 # the same message.
 FP = "routers:\n- protocol: http\n  fastPath: true\n"
 FP0 = FP + "  servers: [{port: 0}]\n"
+FS_ANNOUNCER = "announcers:\n- kind: io.l5d.fs\n  rootDir: .\n"
+
+# Cases refused by name until tenants, the request loggers, the access
+# log, the transformers with the io.l5d.rewrite namer and the fs
+# announcer were ported (ROADMAP Queue 1 items 10, 11 and 13).
+EDGE = {
+    "router key tenants": "routers:\n- protocol: http\n  tenants: {}\n",
+    "router key tenantIdentifier": (
+        "routers:\n- protocol: http\n  tenantIdentifier: {kind: header}\n"
+        "  tenants: {floor: 0.2, quorum: 2}\n"),
+    "router key loggers": (
+        "routers:\n- protocol: http\n  loggers:\n"
+        "  - {kind: io.l5d.http.file, path: /dev/null}\n"
+        "  - {kind: io.l5d.http.debug, level: INFO}\n"),
+    "router key httpAccessLog":
+        "routers:\n- protocol: http\n  httpAccessLog: stdout\n",
+    "fastPath tenants": (FP0 + "  tenantIdentifier: {kind: header}\n"
+                         "  tenants: {maxTenants: 64}\n"),
+    "namer transformers": (
+        BASE + "namers:\n- kind: io.l5d.fs\n  rootDir: .\n  transformers:"
+        "\n  - kind: io.l5d.localhost\n  - {kind: io.l5d.port, port: 80}\n"),
+    "announcers": BASE + FS_ANNOUNCER,
+    "server announce": (
+        "routers:\n- protocol: http\n  servers:\n  - port: 0\n    announce:"
+        " [/#/io.l5d.fs/x]\n" + FS_ANNOUNCER),
+    "namer kind io.l5d.rewrite": kind_text("namer", "io.l5d.rewrite"),
+}
+
 PORTED = {
+    **EDGE,
     "protocol h2": "routers:\n- protocol: h2\n",
     **{f"protocol {p}": f"routers:\n- protocol: {p}\n"
        for p in ("thrift", "mux", "thriftmux")},
@@ -465,6 +480,24 @@ def test_refused_by_name(case):
         "ROADMAP Queue 1 item" in msg, msg
 
 
+@pytest.mark.parametrize("case", sorted(EDGE))
+def test_edge_keys_load_to_equal_specs(case):
+    """Each key this slice ported loads from the same text in both
+    packages to equal specs, namers and announcers."""
+    async def go(pkg):
+        linker = load(pkg, EDGE[case])
+        try:
+            return (dataclasses.asdict(linker.spec),
+                    [(p.show, type(n).__name__) for p, n in linker.namers],
+                    [(p.show, type(a).__name__)
+                     for p, a in linker.announcers],
+                    [(label, type(b).__name__, type(a).__name__)
+                     for label, b, a in linker.tenant_views])
+        finally:
+            await linker.close()
+    assert run(go("port")) == run(go("ref"))
+
+
 def test_admission_control_and_interpreter_load():
     """``admissionControl`` and the two ported interpreter kinds load on
     an http router; ``admissionControl`` on a fastPath router keeps the
@@ -496,17 +529,31 @@ def test_admission_control_and_interpreter_load():
                       "  admissionControl: {maxConcurrency: 4}\n")
 
 
+# Kinds this slice ported: the transformers, the io.l5d.rewrite namer,
+# the http request loggers and the fs announcer.
+EDGE_KINDS = (
+    *(("transformer", k) for k in (
+        "io.l5d.port", "io.l5d.localhost", "io.l5d.specificHost",
+        "io.l5d.replace", "io.l5d.k8s.daemonset", "io.l5d.k8s.localnode",
+        "io.l5d.const")),
+    ("namer", "io.l5d.rewrite"),
+    ("logger", "io.l5d.http.debug"), ("logger", "io.l5d.http.file"),
+    ("announcer", "io.l5d.fs"),
+)
+
+
 def test_unported_kinds_are_the_reference_kinds():
     from linkerd_tpu.config import kinds as ref_kinds
     from linkerd_tpu_torch.config import kinds as port_kinds
-    for cat in {*UNPORTED_KINDS, *(c for c, _ in K8S_ISTIO_KINDS)}:
+    for cat in {*UNPORTED_KINDS,
+                *(c for c, _ in K8S_ISTIO_KINDS + EDGE_KINDS)}:
         unported = UNPORTED_KINDS.get(cat, {})
         assert sorted(set(port_kinds(cat)) | set(unported)) == sorted(
             ref_kinds(cat)), cat
         assert not set(port_kinds(cat)) & set(unported)
 
 
-@pytest.mark.parametrize("cat,kind", K8S_ISTIO_KINDS)
+@pytest.mark.parametrize("cat,kind", K8S_ISTIO_KINDS + EDGE_KINDS)
 def test_ported_kind_config_is_the_references(cat, kind):
     """Each kind that left the refusals builds, from the same mapping,
     the reference's config class with the same fields and values."""

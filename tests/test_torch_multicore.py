@@ -477,14 +477,30 @@ def test_config_errors_word_for_word(case, engine_lib, tmp_path):
 @pytest.mark.parametrize("case", ["tenants", "tenantIdentifier",
                                   "fastPath on h2"])
 def test_still_refused_by_name(case, engine_lib, tmp_path):
+    """The tenant keys on a sharded engine, refused by name until the
+    port took them, load in both packages to the same router, tenant
+    views and quota wiring."""
     router = {"tenants": {"tenants": {}},
-              "tenantIdentifier": {"tenantIdentifier": {"kind": "header"}},
-              # the h2 engine is served; its tenants stay refused
-              "fastPath on h2": {"protocol": "h2", "tenants": {}}}[case]
-    with pytest.raises(ConfigError) as e:
-        load_linker(fp_text(tmp_path, workers=4, **router), device="cpu")
-    assert "not supported by the port yet" in str(e.value) and \
-        "ROADMAP Queue 1 item" in str(e.value)
+              "tenantIdentifier": {"tenantIdentifier": {"kind": "header"},
+                                   "tenants": {"engineBase": 8}},
+              "fastPath on h2": {"protocol": "h2",
+                                 "tenantIdentifier": {"kind": "header"},
+                                 "tenants": {}}}[case]
+    text = fp_text(tmp_path, workers=4, **router)
+    out = {}
+    for pkg in ("ref", "port"):
+        linker = (load_linker(text, device="cpu") if pkg == "port"
+                  else ref_load_linker(text))
+        try:
+            r = linker.routers[0]
+            out[pkg] = (type(r).__name__, r.controller.engine.workers,
+                        [(label, type(a).__name__ if a else None)
+                         for label, _b, a in linker.tenant_views],
+                        r.controller.tenant_admission is not None)
+        finally:
+            run(linker.close())
+    assert out["port"] == out["ref"]
+    assert out["port"][0] == "_FastPathRouter"
 
 
 # -- a distilled bank and a per-route delta in the engine -------------------

@@ -431,8 +431,22 @@ SCENARIOS = ("static", "method_in_dst", "retries", "exceptions", "compact",
              "buffered", "no_ttwitter")
 
 
+class SeededRandom:
+    """A balancer module's ``random``: every balancer draws from the same
+    seeded sequence, so the two packages' balancers pick alike (the
+    retries scenario's dead replica is picked as often in both)."""
+
+    @staticmethod
+    def Random():
+        import random
+        return random.Random(16)
+
+
 @pytest.mark.parametrize("scenario", SCENARIOS)
-def test_thrift_router_alike(scenario, tmp_path):
+def test_thrift_router_alike(scenario, tmp_path, monkeypatch):
+    for pkg in PKGS:
+        monkeypatch.setattr(mod(pkg, "router.balancer"), "random",
+                            SeededRandom)
     ref = run(router_scenario("ref", tmp_path, scenario))
     port = run(router_scenario("port", tmp_path, scenario))
     assert port == ref
