@@ -189,13 +189,33 @@ engine row's tenant column its request's, the
 on every batch); part C, the h2 engine with gRPC calls at ``nativeTier:
 primary`` (the excess reset REFUSED_STREAM as often as the engine's
 ``tenant_shed`` says, each tenant's in-plane score EWMA on the board).
-Prints the card, a JSON line of kernel and
+Then the sidecar phase, on the linker phases' topology, with scorer
+replicas in processes of their own started through ``python -m
+linkerd_tpu_torch.telemetry.sidecar`` and announced into its fs
+directory, the hop on the port's own gRPC runtime: part A, a seeded
+snapshot restored into two replicas and batches of 1, 37, 1024 and 4096
+rows through the port's client, each reply held against the plain
+version here, with the hop's Score p50/p99 and rows/s at 1024 rows x4
+in flight beside the service phase's handlers alone; part B, the HTTP
+router with ``sidecarTier: primary`` on ``/#/io.l5d.fs/l5d-scorer``
+(every row scored, both replicas called, Fit across the hop with finite
+losses, fault_auc of the faulted destinations at least 0.9); part C,
+the reference's chaos drill under calm traffic (one replica SIGKILLed:
+no degraded sample; the second: degraded and the breaker open within
+scoreTimeoutMs and a probe, the board neutral; one started again on its
+port: degraded 0 within a probe interval; every request 200 within its
+budget); part D, ``sidecarTier: fallback`` (the in-process primary on
+the card serves every batch and fit, then made to raise for a window:
+its breaker opens, the sidecar tier scores every batch and no fit
+reaches a replica, then a probe closes the breaker); part E, a
+promotion restoring the checkpoint on both replicas, their scores held
+against the router's. Prints the card, a JSON line of kernel and
 service numbers, one of the train phase's, one of the distill
 phase's, one of the telemeter phase's, one of the linker phase's, one
 of the fastpath phase's, one of the control phase's, one of the cli
 phase's, one of the h2 phase's, one of the h2fast phase's, one of the
-mux phase's, one of the k8s phase's, one of the edge phase's, and as
-its last line
+mux phase's, one of the k8s phase's, one of the edge phase's, one of
+the sidecar phase's, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; with no CUDA device, or
 outside the repository, it exits non-zero before printing any result.
 Imports nothing of JAX.
@@ -203,12 +223,13 @@ Imports nothing of JAX.
 ``--mutants`` builds deliberately broken copies of the kernel in a
 temporary copy of the port and runs the kernel and served checks
 against each, and the linker, fastpath, control, cli, h2, h2fast, mux,
-k8s and edge phases against ``LINKER_MUTANT``, the cli phase against ``CLI_MUTANTS``, part D
+k8s, edge and sidecar phases against ``LINKER_MUTANT``, the cli phase against ``CLI_MUTANTS``, part D
 against ``FASTPATH_MUTANTS`` (the sharded engine's stats merge and
 feature drain reading worker 0 alone), the h2 phase against
 ``H2_MUTANTS``, the h2fast phase against ``H2FAST_MUTANTS``, the
 mux phase against ``MUX_MUTANTS``, the k8s phase against
-``K8S_MUTANTS`` and the edge phase against ``EDGE_MUTANTS``, in a fresh
+``K8S_MUTANTS``, the edge phase against ``EDGE_MUTANTS`` and the
+sidecar phase against ``SIDECAR_MUTANTS``, in a fresh
 interpreter; it fails
 unless every check fails on its mutant.
 
@@ -5290,6 +5311,9 @@ H2_CONNS = 8               # connections, over the router's three servers
 H2_STREAMS = 16            # concurrent streams a connection
 H2_CALM = 4096             # calm calls, then
 H2_FAULTED = 8192          # calls with the faults on, in each part
+# the h2 phase's own parts A-C run half as many (2,048 and 4,096), to
+# keep a whole run inside its limit; the h2fast phase keeps the above
+H2_PHASE_SIZES = (H2_CALM // 2, H2_FAULTED // 2)
 H2_STREAM_CALLS = 8        # part D: server-streaming calls at once
 H2_STREAM_MSGS = 256       # messages a streaming call
 H2_STREAM_BYTES = 8192     # padding a streamed message (2 MiB a call)
@@ -5670,8 +5694,8 @@ def h2_row_checks(what: str, tap, expect: dict) -> None:
 
 async def h2_part(part: str, text: str, loads, flag, plans, cafile: str,
                   dev: str):
-    """One h2 router from ``text``: H2_CALM calm calls, then H2_FAULTED
-    with the faults on. Part A sends the h2c probe, then freezes a model
+    """One h2 router from ``text``: the plans' calm calls, then the
+    faulted ones with the faults on. Part A sends the h2c probe, then freezes a model
     fitted to the calm rows' stats (``traffic_model``) and holds the
     faulted calls' kernel scores and the board against the plain
     version; part B reads failure accrual; part C has no telemeter."""
@@ -5938,12 +5962,12 @@ async def h2_part_e(loads, plans, disco: Path, dev: str):
 
 
 @contextlib.asynccontextmanager
-async def h2_topology(seed: int):
+async def h2_topology(seed: int, sizes=(H2_CALM, H2_FAULTED)):
     """``linker_topology`` with the gRPC backends and the h2 load
-    clients, H2_CALM and H2_FAULTED calls over H2_CONNS connections, and
-    a self-signed pair for the TLS server; yields ``(loads, flag, plans,
-    disco, cert, key)``."""
-    async with linker_topology(seed, (H2_CALM, H2_FAULTED),
+    clients, ``sizes`` calm and faulted calls over H2_CONNS connections,
+    and a self-signed pair for the TLS server; yields ``(loads, flag,
+    plans, disco, cert, key)``."""
+    async with linker_topology(seed, sizes,
                                backend=h2_backends, load=h2_load,
                                conns=H2_CONNS) as (loads, flag, plans,
                                                    disco):
@@ -5960,7 +5984,8 @@ async def h2_phase(seed: int = 12, dev: str = "cuda",
     router through the linkerd CLI) over ``h2_topology``. Returns the
     results and the kernel's launches in this process."""
     res, launches = {}, 0
-    async with h2_topology(seed) as (loads, flag, plans, disco, cert, key):
+    async with h2_topology(seed, H2_PHASE_SIZES) as (
+            loads, flag, plans, disco, cert, key):
         runs = {"A": ("part_a", (True, "none", 0)),
                 "B": ("part_b", (True, "io.l5d.jaxAnomaly", 8)),
                 "C": ("no_telemetry", (False, "none", 0))}
@@ -8225,6 +8250,30 @@ namers:
 """
 
 
+async def bounded_teardown(closers) -> list:
+    """Runs ``closers`` last first, each bounded by K8S_TEARDOWN_S; after
+    the linker's, cancels the watch loops and pilot polls that outlive
+    it (ROADMAP Queue 3: an identifier's watchers outlive its linker).
+    Returns the closers that did not end in time (reported, not
+    failed: a server's ``wait_closed`` held by a reconnecting watch once
+    held a whole run past its limit)."""
+    stuck = []
+    for close in reversed(closers):
+        try:
+            await asyncio.wait_for(close(), K8S_TEARDOWN_S)
+        except asyncio.TimeoutError:
+            stuck.append(getattr(close, "__qualname__", repr(close)))
+        if getattr(close, "__qualname__", "") == "Linker.close":
+            for t in asyncio.all_tasks():
+                if not t.done() and t.get_coro().__qualname__ in (
+                        "Watcher._run", "_PollingClient._poll"):
+                    t.cancel()
+    if stuck:
+        print(f"k8s C: teardown: {stuck} did not end within "
+              f"{K8S_TEARDOWN_S} s and were left")
+    return stuck
+
+
 async def k8s_part_c(dev: str):
     """The naming pieces at traffic, one router each in one linker: the
     io.l5d.ingress identifier (an Ingress update moving a path, timed to
@@ -8344,8 +8393,7 @@ async def k8s_part_c(dev: str):
         res.update(snap_checks("C", tele, tap, len(tap.scored),
                                launches_all, dev, phase="k8s"))
     finally:
-        for close in reversed(closers):
-            await close()
+        res["teardown_stuck"] = await bounded_teardown(closers)
     print("k8s C: " + "; ".join(
         f"{k} {res[k]['requests']} requests {res[k]['req_per_s']:.0f}/s, "
         f"{res[k]['launches']} launches for {res[k]['batches']} batches"
@@ -9328,6 +9376,637 @@ async def edge_phase(seed: int = 12, dev: str = "cuda",
     return res, launches
 
 
+# The sidecar phase: the scorer sidecar on the port's own gRPC runtime
+# (grpc/dispatch.py over protocol/h2), its replicas in processes of their
+# own started as users start one (``python -m
+# linkerd_tpu_torch.telemetry.sidecar``), announced into the linker
+# topology's fs directory: one pair for A, B, D and E, one for C. A: the
+# hop alone, held
+# against the plain version and timed. B: the HTTP router with
+# ``sidecarTier: primary`` on the announced pair, training over Fit. C:
+# the reference's chaos drill (tools/validator.py) with real replicas:
+# one killed, then the other, then one started again. D: the tiered
+# scorer, its in-process primary made to fail for a window. E: a
+# promotion pushed to every replica.
+SIDECAR_ROWS = (1, 37, 1024, 4096)
+SIDECAR_TIMED = (1, 37, 1024)
+SIDECAR_CALLS = 200          # timed Score calls at each of SIDECAR_TIMED
+SIDECAR_ROUNDS = 50          # rounds of IN_FLIGHT 1024-row calls
+SIDECAR_SEED = 17            # part A's snapshot and rows
+SIDECAR_SIZES = (4096, 8192)  # part B's warm-up and faulted window
+SIDECAR_SEGMENT = 1024       # requests a traffic segment in C and D
+SIDECAR_BOOT_S = 120.0       # a replica's start, to its SCORER_SIDECAR line
+SIDECAR_TIMEOUT_MS = 500     # C's scoreTimeoutMs
+SIDECAR_BACKOFF_MS = (200, 400)  # C's breaker probe backoffs
+SIDECAR_SLACK_MS = 250       # a batch's linger and one call, past a probe
+SIDECAR_BUDGET_MS = 1000     # C's totalTimeoutMs: every answer within it
+SIDECAR_OBSERVE_S = 1.0      # C: traffic after each step
+SIDECAR_WAIT_S = 20.0        # longest wait for a state to come
+SIDECAR_SAMPLE_S = 0.01      # C and D sample the breakers this often
+SIDECAR_NAMES = {"ABDE": "l5d-scorer", "C": "l5d-scorer-c"}
+
+
+class Replica:
+    """A scorer replica in a process of its own, started through the
+    entry point and announced into ``announce_dir`` under ``name``; its
+    errors go to a file under ``logs``."""
+
+    def __init__(self, announce_dir: Path, name: str, logs: Path,
+                 dev: str, port: int = 0):
+        logs.mkdir(exist_ok=True)
+        self.log_path = logs / f"{name}-{port}-{time.monotonic_ns()}.log"
+        self.log = open(self.log_path, "w")
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        args = [sys.executable, "-m", "linkerd_tpu_torch.telemetry.sidecar",
+                "--announce-dir", str(announce_dir), "--announce-name", name,
+                "--warmup-rows", "1024", "--port", str(port)]
+        if dev == "cpu":
+            args += ["--device", "cpu"]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(args, cwd=ROOT, env=env,
+                                     stdout=subprocess.PIPE, stderr=self.log,
+                                     text=True)
+        self.addr = self.port = self.boot_ms = None
+        self.done: dict = {}
+
+    def tail(self) -> str:
+        self.log.flush()
+        return self.log_path.read_text()[-1500:]
+
+    async def ready(self) -> "Replica":
+        try:
+            line = await asyncio.wait_for(
+                asyncio.to_thread(self.proc.stdout.readline), SIDECAR_BOOT_S)
+        except asyncio.TimeoutError:
+            line = ""
+        if not line.startswith("SCORER_SIDECAR "):
+            raise AssertionError(f"sidecar: a replica did not start "
+                                 f"({line!r}): {self.tail()}")
+        self.addr = line.split()[1]
+        self.port = int(self.addr.rsplit(":", 1)[1])
+        self.boot_ms = (time.perf_counter() - self.t0) * 1e3
+        return self
+
+    async def kill(self) -> None:
+        """SIGKILL; reaped off the loop (a CUDA process's end takes a
+        while, and the router shares this loop)."""
+        self.proc.kill()
+        await asyncio.to_thread(self.proc.wait)
+        self.log.close()
+
+    def stop(self) -> dict:
+        """SIGTERM; its rows and kernel launches, from its last line."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                out, _ = self.proc.communicate(timeout=CLI_STOP_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                out, _ = self.proc.communicate()
+            for line in out.splitlines():
+                if line.startswith("SCORER_SIDECAR_DONE "):
+                    self.done = json.loads(line.split(" ", 1)[1])
+        self.log.close()
+        return self.done
+
+
+async def start_replicas(disco: Path, logs: Path, dev: str, counts: dict):
+    """``counts[part]`` replicas a part, all started at once; part ->
+    its replicas, once each serves."""
+    reps = {part: [Replica(disco, SIDECAR_NAMES[part], logs, dev)
+                   for _ in range(n)] for part, n in counts.items()}
+    await asyncio.gather(*(r.ready() for rs in reps.values() for r in rs))
+    return reps
+
+
+def sidecar_config(disco: Path, part: str, tier: str, **tele) -> str:
+    """The linker phase's router and namer, its telemeter on the pool of
+    ``part``'s announced replicas."""
+    cfg = json.loads(linker_config(disco, True, "none", 8))
+    cfg["telemetry"][0].update(
+        sidecarAddress=f"/#/io.l5d.fs/{SIDECAR_NAMES[part]}",
+        sidecarTier=tier, **tele)
+    cfg["routers"][0]["service"] = {"totalTimeoutMs": SIDECAR_BUDGET_MS}
+    return json.dumps(cfg)
+
+
+async def sidecar_hop(reps, dev: str, service_rows_per_s):
+    """A: a seeded snapshot restored into each replica; batches of
+    SIDECAR_ROWS rows through the port's client, each reply against the
+    plain version of the snapshot here; then the hop's Score times and
+    rows/s at 1024 rows x IN_FLIGHT on the first replica."""
+    from linkerd_tpu_torch.models.anomaly import AnomalyModelConfig
+    from linkerd_tpu_torch.telemetry.sidecar import GrpcScorerClient
+
+    rng = np.random.default_rng(SIDECAR_SEED)
+    snap = make_snapshot(AnomalyModelConfig(recon_weight=0.7), SIDECAR_SEED)
+    agree = Agreement("sidecar A: replies through the hop vs plain")
+    clients = [GrpcScorerClient(r.addr) for r in reps]
+    lat, out = {}, {}
+    try:
+        for c in clients:
+            step = await c.restore(snap)
+            if step != snap.step:
+                raise AssertionError(f"sidecar A: {c.address} restored "
+                                     f"step {step}, not {snap.step}")
+            for n in SIDECAR_ROWS:
+                x = make_inputs(rng, n, snap.mu, snap.var)
+                agree.add(await c.score(x), plain_scores(snap, x, dev),
+                          f"{n} rows from {c.address}")
+        agree.close()
+        c = clients[0]
+        for n in SIDECAR_TIMED:
+            x = make_inputs(rng, n, snap.mu, snap.var)
+            await c.score(x)
+            ms = []
+            for _ in range(SIDECAR_CALLS):
+                t0 = time.perf_counter()
+                await c.score(x)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            lat[n] = {"p50_ms": float(np.percentile(ms, 50)),
+                      "p99_ms": float(np.percentile(ms, 99)),
+                      "bytes": c.last_timing["bytes"]}
+        xs = [make_inputs(rng, 1024, snap.mu, snap.var)
+              for _ in range(IN_FLIGHT)]
+        await asyncio.gather(*(c.score(x) for x in xs))
+        t0 = time.perf_counter()
+        for _ in range(SIDECAR_ROUNDS):
+            await asyncio.gather(*(c.score(x) for x in xs))
+        wall = time.perf_counter() - t0
+    finally:
+        for c in clients:
+            await c.aclose()
+    out = {"replies_vs_plain_max": agree.worst,
+           "rows_past_row_tol": agree.off, "rows": agree.rows,
+           "score_ms": lat,
+           "rows_per_s": SIDECAR_ROUNDS * IN_FLIGHT * 1024 / wall,
+           "service_rows_per_s": service_rows_per_s}
+    print("sidecar A: Score through the hop, p50/p99 " + ", ".join(
+        f"{n} rows {v['p50_ms']:.3f}/{v['p99_ms']:.3f} ms"
+        for n, v in lat.items()) + f"; {out['rows_per_s']:.0f} rows/s at "
+        f"1024 rows x{IN_FLIGHT} in flight (the service phase's handlers "
+        f"alone: " + ("not measured in this run" if service_rows_per_s
+                      is None else f"{service_rows_per_s:.0f} rows/s") + ")")
+    return out
+
+
+class FitTap:
+    """Records the losses of the fits a scorer answers."""
+
+    def __init__(self, scorer):
+        self.losses, fit = [], scorer.fit
+
+        async def fitting(x, labels, mask):
+            loss = await fit(x, labels, mask)
+            self.losses.append(float(loss))
+            return loss
+
+        scorer.fit = fitting
+
+
+async def sidecar_router(part: str, text: str, dev: str):
+    """A linker from ``text`` with its telemeter running, the tap and
+    the fit tap on it, once its pool has found its two replicas."""
+    from linkerd_tpu_torch.core.tasks import monitor
+    from linkerd_tpu_torch.linker import load_linker
+
+    linker = load_linker(text, device=dev)
+    await linker.start()
+    tele = linker.telemeters[0]
+    task = monitor(asyncio.create_task(tele.run()), what="sidecar-telemeter")
+    try:
+        t0 = time.monotonic()
+        while (tele._scorer_pool is None
+               or len(tele._scorer_pool.addresses()) < 2):
+            if task.done():
+                task.result()
+            if time.monotonic() - t0 > SIDECAR_WAIT_S:
+                raise AssertionError(f"sidecar {part}: the pool found no "
+                                     f"two replicas")
+            await asyncio.sleep(0.02)
+        tap = LinkerTap(tele)
+        fits = FitTap(tele._scorer)
+    except BaseException:
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+        await linker.close()
+        raise
+    return linker, tele, task, tap, fits
+
+
+async def sidecar_close(linker, task) -> None:
+    task.cancel()
+    await asyncio.gather(task, return_exceptions=True)
+    await linker.close()
+
+
+def tele_flat(tele) -> dict:
+    """The telemeter's counters and gauges that the checks read."""
+    flat = tele.metrics.flatten()
+    return {k: flat[f"anomaly/{k}"] for k in (
+        "requests_total", "scored_total", "batches", "score_failures",
+        "dropped_batches", "degraded", "fleet_model_pushes")}
+
+
+async def sidecar_part_b(loads, flag, plans, disco, dev: str):
+    """B: the HTTP router with ``sidecarTier: primary`` on the announced
+    pair: every request scored, both replicas called, finite fit losses,
+    and the faulted destinations' rows scored above the calm ones
+    (``fault_auc``) in the window."""
+    from linkerd_tpu_torch.lifecycle.promote import auc
+
+    linker, tele, task, tap, fits = await sidecar_router(
+        "B", sidecar_config(disco, "ABDE", "primary"), dev)
+    port = linker.routers[0].server_ports[0]
+    try:
+        flag.value = 0
+        warm = await linker_traffic(loads, port, plans[0])
+        await tap.settle(tele, task, "sidecar B warm-up")
+        first = len(tap.batches)
+        flag.value = 1
+        window = await linker_traffic(loads, port, plans[1])
+        await tap.settle(tele, task, "sidecar B window")
+        flag.value = 0
+        st = tele.model_state()
+    finally:
+        await sidecar_close(linker, task)
+    out = {"warmup": linker_traffic_checks(warm, "sidecar B warm-up", False),
+           "window": linker_traffic_checks(window, "sidecar B window", True)}
+    got, sent = tele_flat(tele), len(warm["ms"]) + len(window["ms"])
+    if not (got["scored_total"] == got["requests_total"] == sent) or \
+            got["score_failures"] or got["dropped_batches"]:
+        raise AssertionError(f"sidecar B: {sent} sent, {got}")
+    calls = {a: r["calls"] for a, r in st["scorer_pool"]["replicas"].items()}
+    if len(calls) != 2 or not all(calls.values()):
+        raise AssertionError(f"sidecar B: replica calls {calls}")
+    if not fits.losses or not np.isfinite(fits.losses).all():
+        raise AssertionError(f"sidecar B: fit losses {fits.losses}")
+    by_x = {id(x): s for x, s in tap.scored}
+    faulted = set(tele_routes()[:TELE_FAULTED])
+    labels, scores = [], []
+    for b in tap.batches[first:]:
+        labels += [float(fv.dst_path in faulted) for fv in b["fvs"]]
+        scores.append(by_x[id(b["x"])])
+    fault_auc = auc(labels, np.concatenate(scores).tolist())
+    out.update(requests=sent, batches=got["batches"], replica_calls=calls,
+               fits=len(fits.losses), fit_loss_last=fits.losses[-1],
+               fault_auc=fault_auc, window_rows=len(labels),
+               batch_sizes=batch_sizes(tap))
+    print(f"sidecar B: {sent} requests, {got['batches']} batches, every row "
+          f"scored through the hop; replica calls {calls}; "
+          f"{len(fits.losses)} fits, last loss {fits.losses[-1]:.4f}; "
+          f"fault_auc {fault_auc:.4f} over {len(labels)} window rows")
+    if not fault_auc >= LINKER_AUC_MIN:
+        raise AssertionError(f"sidecar B: fault_auc {fault_auc} < "
+                             f"{LINKER_AUC_MIN}")
+    return out
+
+
+class Traffic:
+    """Segments of SIDECAR_SEGMENT calm requests, one after another,
+    until ``stop``; keeps every answer."""
+
+    def __init__(self, loads, port: int, rng):
+        self.loads, self.port, self.rng = loads, port, rng
+        self.results, self._stop = [], asyncio.Event()
+        self.task = asyncio.ensure_future(self._run())
+
+    async def _run(self) -> None:
+        while not self._stop.is_set():
+            self.results.append(await linker_traffic(
+                self.loads, self.port, linker_plans(self.rng,
+                                                    SIDECAR_SEGMENT)))
+
+    async def stop(self) -> dict:
+        self._stop.set()
+        await self.task
+        return merge_segments(self.results)
+
+
+class BreakerSampler:
+    """Samples, every SIDECAR_SAMPLE_S, the monotonic instant, the
+    board's degraded flag, the sidecar breaker's state and, when tiered,
+    the primary's breaker state."""
+
+    def __init__(self, tele):
+        self.tele, self.rows = tele, []
+        self.task = asyncio.ensure_future(self._run())
+
+    async def _run(self) -> None:
+        s = self.tele._scorer
+        while True:
+            tiers = getattr(s, "tier_state", None)
+            self.rows.append((time.monotonic(), self.tele.board.degraded,
+                              s.breaker.state,
+                              tiers()["primary_breaker"] if tiers else None))
+            await asyncio.sleep(SIDECAR_SAMPLE_S)
+
+    async def until(self, pred, what: str, since: float) -> float:
+        """ms from ``since`` to the first sample from then on that
+        ``pred`` holds."""
+        n = 0
+        while time.monotonic() - since < SIDECAR_WAIT_S:
+            for row in self.rows[n:]:
+                if row[0] >= since and pred(row):
+                    return (row[0] - since) * 1e3
+            n = len(self.rows)
+            await asyncio.sleep(SIDECAR_SAMPLE_S)
+        raise AssertionError(f"sidecar: no {what} in {SIDECAR_WAIT_S} s")
+
+    def between(self, t0: float, t1: float) -> list:
+        return [r for r in self.rows if t0 <= r[0] <= t1]
+
+    async def close(self) -> None:
+        self.task.cancel()
+        await asyncio.gather(self.task, return_exceptions=True)
+
+
+async def sidecar_part_c(loads, disco, logs, reps, dev: str):
+    """C: calm traffic through a ``sidecarTier: primary`` router on two
+    replicas; one SIGKILLed (once it is reaped and a call's deadline and
+    a probe have passed, the pool has moved to the survivor: no degraded
+    sample), then the other (degraded and the breaker open within
+    scoreTimeoutMs and a probe; the board neutral), then one started
+    again on its port (degraded back to 0 within a probe interval of it
+    serving). Every request answered 200 within the budget. Returns the
+    results and the replica started again."""
+    rng = np.random.default_rng(SIDECAR_SEED + 2)
+    linker, tele, task, tap, fits = await sidecar_router("C", sidecar_config(
+        disco, "C", "primary", trainEveryBatches=0,
+        scoreTimeoutMs=SIDECAR_TIMEOUT_MS, breakerFailures=1,
+        breakerMinBackoffMs=SIDECAR_BACKOFF_MS[0],
+        breakerMaxBackoffMs=SIDECAR_BACKOFF_MS[1], scoreTtlSecs=2), dev)
+    port = linker.routers[0].server_ports[0]
+    sampler = BreakerSampler(tele)
+    traffic = Traffic(loads, port, rng)
+    again, out = None, {}
+    try:
+        await asyncio.sleep(SIDECAR_OBSERVE_S)
+        pool = tele._scorer_pool
+        before = {a: r["calls"] for a, r in pool.status()["replicas"].items()}
+        t_kill1 = time.monotonic()
+        await reps[0].kill()
+        t_gone = time.monotonic()
+        # until a call's deadline and a probe have passed after the
+        # killed process is reaped, a call may still hang on its dying
+        # sockets (the pool fails over on an error, not on a hang)
+        settle = (SIDECAR_TIMEOUT_MS + SIDECAR_BACKOFF_MS[1]
+                  + SIDECAR_SLACK_MS) / 1e3
+        await asyncio.sleep(settle + SIDECAR_OBSERVE_S)
+        dying = sampler.between(t_kill1, t_gone + settle)
+        gone = sampler.between(t_gone + settle, time.monotonic())
+        after = {a: r["calls"] for a, r in pool.status()["replicas"].items()}
+        out.update(killed_reaped_ms=(t_gone - t_kill1) * 1e3,
+                   dying_degraded_share=sum(r[1] for r in dying)
+                   / max(len(dying), 1))
+        if any(r[1] for r in gone):
+            raise AssertionError(
+                "sidecar C: degraded with one of two replicas gone: the "
+                "pool did not move to the survivor")
+        if not after[reps[1].addr] > before[reps[1].addr]:
+            raise AssertionError(f"sidecar C: the survivor took no call "
+                                 f"({before} -> {after})")
+        t_kill2 = time.monotonic()
+        await reps[1].kill()
+        out["degraded_ms"] = await sampler.until(
+            lambda r: r[1], "degraded flag", t_kill2)
+        out["breaker_open_ms"] = await sampler.until(
+            lambda r: r[2] == "open", "open breaker", t_kill2)
+        bound = SIDECAR_TIMEOUT_MS + SIDECAR_BACKOFF_MS[1]
+        for what in ("degraded_ms", "breaker_open_ms"):
+            if out[what] > bound:
+                raise AssertionError(f"sidecar C: {what} {out[what]:.0f} > "
+                                     f"{bound} ms")
+        await asyncio.sleep(SIDECAR_OBSERVE_S)
+        board = tele.board
+        neutral = (board.degraded and board.anomaly_level() == 0.0
+                   and not any(board.effective_endpoint_scores().values()))
+        if not neutral:
+            raise AssertionError("sidecar C: the board does not read "
+                                 "neutral with both replicas dead")
+        again = Replica(disco, SIDECAR_NAMES["C"], logs, dev,
+                        port=reps[1].port)
+        await again.ready()
+        t_ready = time.monotonic()
+        out["recovered_ms"] = await sampler.until(
+            lambda r: not r[1], "recovery", t_ready)
+        out["restart_boot_ms"] = again.boot_ms
+        bound = SIDECAR_BACKOFF_MS[1] + SIDECAR_SLACK_MS
+        if out["recovered_ms"] > bound:
+            raise AssertionError(f"sidecar C: degraded {out['recovered_ms']:.0f}"
+                                 f" ms after a replica served again > "
+                                 f"{bound} ms")
+        await asyncio.sleep(SIDECAR_OBSERVE_S)
+        res = await traffic.stop()
+    except BaseException:
+        traffic.task.cancel()
+        raise
+    finally:
+        await sampler.close()
+        st = tele.model_state()
+        await sidecar_close(linker, task)
+    out["traffic"] = linker_traffic_checks(res, "sidecar C", False)
+    slow = int((res["ms"] > SIDECAR_BUDGET_MS).sum())
+    if slow:
+        raise AssertionError(f"sidecar C: {slow} requests over the "
+                             f"{SIDECAR_BUDGET_MS} ms budget")
+    out.update(max_ms=float(res["ms"].max()),
+               replicas=st["scorer_pool"]["replicas"],
+               score_failures=tele_flat(tele)["score_failures"])
+    print(f"sidecar C: {out['traffic']['requests']} requests, all 200 within "
+          f"{SIDECAR_BUDGET_MS} ms (max {out['max_ms']:.1f}); one replica "
+          f"killed: reaped after {out['killed_reaped_ms']:.0f} ms, degraded "
+          f"in {out['dying_degraded_share']:.2f} of the samples until a "
+          f"deadline and a probe after that, none since; both: degraded "
+          f"after "
+          f"{out['degraded_ms']:.1f} ms, breaker open after "
+          f"{out['breaker_open_ms']:.1f} ms, board neutral; one started "
+          f"again ({out['restart_boot_ms']:.0f} ms to serve): degraded 0 "
+          f"{out['recovered_ms']:.1f} ms after it served")
+    return out, again
+
+
+async def sidecar_part_de(loads, disco, work, reps, dev: str):
+    """D: a tiered router (``sidecarTier: fallback``) on two replicas,
+    with a lifecycle: calm, the in-process primary serves every batch and
+    fit; then, its score and fit made to raise, the primary's breaker
+    opens, the sidecar tier scores every row, and no fit reaches a
+    replica; then a probe closes the breaker. E: a promotion restores
+    the checkpoint on both replicas, which then score a probe batch as
+    the in-process scorer does. Returns the results and the in-process
+    kernel launches."""
+    from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+    from linkerd_tpu_torch.telemetry.sidecar import GrpcScorerClient
+
+    rng = np.random.default_rng(SIDECAR_SEED + 3)
+    # the replicas' model config (the entry point's scorer) is the
+    # reference's default, reconWeight 0.7: a checkpoint of another
+    # config is refused by their Restore
+    linker, tele, task, tap, fits = await sidecar_router("D", sidecar_config(
+        disco, "ABDE", "fallback", reconWeight=0.7, lifecycle={
+            "directory": str(work / "ckpt"), "checkpointEveryS": 0}), dev)
+    port = linker.routers[0].server_ports[0]
+    tiered = tele._scorer
+    clients = [GrpcScorerClient(r.addr) for r in reps]
+    sampler = BreakerSampler(tele)
+    out = {}
+
+    async def segment(what: str) -> dict:
+        res = await linker_traffic(loads, port, linker_plans(
+            rng, 2 * SIDECAR_SEGMENT))
+        await tap.settle(tele, task, f"sidecar D {what}")
+        return linker_traffic_checks(res, f"sidecar D {what}", False)
+
+    async def steps() -> list:
+        return [(await c.snapshot()).step for c in clients]
+
+    try:
+        fused_anomaly_scores.launches = 0
+        out["calm"] = await segment("calm")
+        ts, got = tiered.tier_state(), tele_flat(tele)
+        launches = fused_anomaly_scores.launches
+        if ts["fallback_calls"] or ts["primary_calls"] != \
+                got["batches"] + len(fits.losses):
+            raise AssertionError(f"sidecar D calm: {ts}, {got['batches']} "
+                                 f"batches and {len(fits.losses)} fits")
+        if launches != (0 if dev == "cpu" else got["batches"]):
+            raise AssertionError(f"sidecar D calm: {launches} launches for "
+                                 f"{got['batches']} batches")
+        replica_steps = await steps()
+
+        async def sick(*_):
+            raise RuntimeError("the primary made to fail for a window")
+
+        t_sick = time.monotonic()
+        tiered.primary.score, tiered.primary.fit = sick, sick
+        out["window"] = await segment("window")
+        t_heal = time.monotonic()
+        del tiered.primary.score, tiered.primary.fit
+        ts2, got2 = tiered.tier_state(), tele_flat(tele)
+        sick_rows = sampler.between(t_sick, t_heal)
+        fallback_batches = ts2["fallback_calls"] - ts["fallback_calls"]
+        if not any(r[3] == "open" for r in sick_rows):
+            raise AssertionError("sidecar D: the primary's breaker never "
+                                 "opened in the window")
+        if not (got2["scored_total"] == got2["requests_total"]) or \
+                got2["dropped_batches"] or got2["degraded"]:
+            raise AssertionError(f"sidecar D window: {got2}")
+        if fallback_batches != got2["batches"] - got["batches"]:
+            raise AssertionError(
+                f"sidecar D window: {fallback_batches} batches on the "
+                f"sidecar tier of {got2['batches'] - got['batches']}")
+        if await steps() != replica_steps:
+            raise AssertionError("sidecar D: a fit reached a replica while "
+                                 "the primary was down")
+        traffic = Traffic(loads, port, rng)  # the probes ride on it
+        try:
+            out["closed_ms"] = await sampler.until(
+                lambda r: r[3] == "closed", "closed primary breaker", t_heal)
+            await asyncio.sleep(SIDECAR_OBSERVE_S)
+        finally:
+            res = await traffic.stop()
+        await tap.settle(tele, task, "sidecar D after")
+        out["after"] = linker_traffic_checks(res, "sidecar D after", False)
+        ts3 = tiered.tier_state()
+        if not ts3["primary_calls"] > ts2["primary_calls"]:
+            raise AssertionError(f"sidecar D: the primary serves no more "
+                                 f"after the probe: {ts3}")
+        out.update(tiers_calm=ts, tiers_window=ts2, tiers_after=ts3,
+                   fallback_batches=fallback_batches,
+                   skipped_fits=got2["score_failures"]
+                   - got["score_failures"], calm_launches=launches)
+        # E: the fleet model push
+        outcome = await tele.lifecycle_cycle()
+        if outcome is None or outcome["action"] != "promoted":
+            raise AssertionError(f"sidecar E: no promotion: {outcome}")
+        t0 = time.monotonic()
+        while tele._fleet_model_pushes.value < len(reps):
+            if time.monotonic() - t0 > SIDECAR_WAIT_S:
+                raise AssertionError(
+                    f"sidecar E: {tele._fleet_model_pushes.value} of "
+                    f"{len(reps)} replicas restored the promotion")
+            await asyncio.sleep(0.01)
+        out["push_ms"] = (time.monotonic() - t0) * 1e3
+        _, promoted = tele.lifecycle.store.load(tele.lifecycle.serving_version)
+        if await steps() != [promoted.step] * len(reps):
+            raise AssertionError(f"sidecar E: replica steps "
+                                 f"{await steps()}, promoted {promoted.step}")
+        # the comparison's launch below is not the path's
+        launches = fused_anomaly_scores.launches
+        x = make_inputs(rng, 1024, promoted.mu, promoted.var)
+        here = await tiered.primary.score(x)
+        agree = Agreement("sidecar E: replicas vs the router's scorer")
+        for c in clients:
+            agree.add(await c.score(x), here, f"1024 rows from {c.address}")
+        agree.close()
+        out.update(fleet_model_pushes=tele._fleet_model_pushes.value,
+                   promoted_step=promoted.step,
+                   replicas_vs_router_max=agree.worst)
+    finally:
+        await sampler.close()
+        for c in clients:
+            await c.aclose()
+        await sidecar_close(linker, task)
+    print(f"sidecar D: calm {out['tiers_calm']}, {out['calm_launches']} "
+          f"launches; primary down: {out['fallback_batches']} batches on the "
+          f"sidecar tier, {out['skipped_fits']} fits skipped, replica steps "
+          f"unchanged; breaker closed {out['closed_ms']:.0f} ms after it "
+          f"healed. E: {out['fleet_model_pushes']} replicas restored step "
+          f"{out['promoted_step']} in {out['push_ms']:.0f} ms, their scores "
+          f"vs the router's max|diff| {out['replicas_vs_router_max']:.3e}")
+    return out, launches
+
+
+async def sidecar_phase(seed: int = 12, dev: str = "cuda",
+                        service_rows_per_s=None):
+    """Parts A-E on the linker topology (seed 12, SIDECAR_SIZES), four
+    replicas started at once (a pair for A, B, D and E, a pair for C)
+    and a fifth in C. Returns the results and the kernel's launches: the
+    replicas' own (from their last line, where they were stopped, not
+    killed) and this process's in D and E."""
+    res, t0 = {}, time.perf_counter()
+    reps = {}
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        logs = work / "logs"
+        async with linker_topology(seed, sizes=SIDECAR_SIZES) as (
+                loads, flag, plans, disco):
+            try:
+                reps = await start_replicas(disco, logs, dev,
+                                            {"ABDE": 2, "C": 2})
+                res["boot_ms"] = [r.boot_ms for rs in reps.values()
+                                  for r in rs]
+                res["part_a"] = await sidecar_hop(reps["ABDE"], dev,
+                                                  service_rows_per_s)
+                res["part_b"] = await sidecar_part_b(loads, flag, plans,
+                                                     disco, dev)
+                res["part_c"], again = await sidecar_part_c(
+                    loads, disco, logs, reps["C"], dev)
+                reps["C"].append(again)
+                res["part_de"], here = await sidecar_part_de(
+                    loads, disco, work, reps["ABDE"], dev)
+                res["replicas_abde"] = [r.stop() for r in reps["ABDE"]]
+                res["replica_c"] = again.stop()
+            finally:
+                for rs in reps.values():
+                    for r in rs:
+                        r.stop()
+    replica = sum(d.get("kernel_launches", 0) for d in
+                  res["replicas_abde"] + [res["replica_c"]])
+    if dev != "cpu" and not (here and all(
+            d.get("kernel_launches") for d in res["replicas_abde"])):
+        raise AssertionError(f"sidecar: kernel launches here {here}, in the "
+                             f"replicas {res['replicas_abde']}")
+    res.update(launches_here=here, launches_replicas=replica,
+               phase_s=time.perf_counter() - t0)
+    print(f"sidecar: replicas served in {min(res['boot_ms']):.0f}-"
+          f"{max(res['boot_ms']):.0f} ms; kernel launches here {here}, in the "
+          f"stopped replicas {replica} ({res['replicas_abde']} A, B, D and "
+          f"E, {res['replica_c']} C's restarted one; the two killed in C "
+          f"report none); {res['phase_s']:.1f} s")
+    return res, here + replica
+
+
 # The witness of the kernel's sums (``--witness``): on a phase's window
 # rows, an "exact" forward in float64 with the kernel's rounding points
 # (the float64 sum of bf16 products rounded to float32 and then to bf16,
@@ -9639,7 +10318,7 @@ LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker,
 # --check and --mutant take these too (fastpath_d: the fastpath phase's
 # part D alone)
 PHASES = ("telemeter", "linker", "fastpath", "fastpath_d", "control",
-          "cli", "h2", "h2fast", "mux", "k8s", "edge")
+          "cli", "h2", "h2fast", "mux", "k8s", "edge", "sidecar")
 # Broken copies of the port that the cli phase's checks must catch, one
 # a family: (file, text found once, its replacement) edits. The tracer
 # not installed; the router's request counter not incremented for a
@@ -9838,9 +10517,41 @@ EDGE_MUTANTS = {
         "        for c in self._announcements:\n            c.close()\n",
         "        for c in self._announcements:\n            pass\n")],
 }
+# Broken copies of the port that the sidecar phase must catch: the
+# client's Score reply losing its last row (A); the pool trying one
+# replica a call, with no failover (C, one replica killed); the breaker
+# never opening (C, both killed); the tiered scorer sending fits to the
+# sidecar tier while its primary is down (D); a promotion pushed to no
+# replica (E).
+SIDECAR_MUTANTS = {
+    "reply_row_dropped": [(
+        "linkerd_tpu_torch/telemetry/sidecar.py",
+        '        rsp = await self._bucketed("Score", len(x), payload)\n',
+        '        rsp = (await self._bucketed("Score", len(x), payload))'
+        '[:-4]\n')],
+    "pool_no_failover": [(
+        "linkerd_tpu_torch/fleet/scorer_pool.py",
+        "        for _ in range(2):\n            addr = self._pick(",
+        "        for _ in range(1):\n            addr = self._pick(")],
+    "breaker_never_opens": [(
+        "linkerd_tpu_torch/telemetry/resilience.py",
+        "                and self._consecutive >= self.failures:\n",
+        "                and self._consecutive >= self.failures + 10 ** 9:\n")],
+    "fit_to_fallback": [(
+        "linkerd_tpu_torch/telemetry/linerate.py",
+        "        if not admitted:\n            raise ScorerUnavailable(\n"
+        "                \"fit skipped: in-process primary breaker open \"\n",
+        "        if not admitted:\n"
+        "            return await self.fallback.fit(x, labels, mask)\n"
+        "            raise ScorerUnavailable(\n"
+        "                \"fit skipped: in-process primary breaker open \"\n")],
+    "no_fleet_push": [(
+        "linkerd_tpu_torch/telemetry/anomaly.py",
+        "                self._maybe_push_fleet_model()\n", "")],
+}
 EDIT_MUTANTS = {**CLI_MUTANTS, **FASTPATH_MUTANTS, **H2_MUTANTS,
                 **H2FAST_MUTANTS, **MUX_MUTANTS, **K8S_MUTANTS,
-                **EDGE_MUTANTS}
+                **EDGE_MUTANTS, **SIDECAR_MUTANTS}
 
 
 def run_check(which: str) -> int:
@@ -9856,7 +10567,7 @@ def run_check(which: str) -> int:
     elif which == "served":
         asyncio.run(drive_service(cfg, rng))
     elif which in ("linker", "fastpath", "fastpath_d", "control", "cli",
-                   "h2", "h2fast", "mux", "k8s", "edge"):
+                   "h2", "h2fast", "mux", "k8s", "edge", "sidecar"):
         from linkerd_tpu_torch import native
         from linkerd_tpu_torch.native import _build as native_build
         from linkerd_tpu_torch.ops import _build
@@ -9870,7 +10581,7 @@ def run_check(which: str) -> int:
                  "control": control_phase, "cli": cli_phase,
                  "h2": h2_phase, "h2fast": h2fast_phase,
                  "mux": mux_phase, "k8s": k8s_phase,
-                 "edge": edge_phase}[which]
+                 "edge": edge_phase, "sidecar": sidecar_phase}[which]
         res, _ = asyncio.run(phase())
         name, _, limit = card_line().partition(",")
         print(json.dumps({which: res, "card": name.strip(),
@@ -10035,7 +10746,8 @@ def check_mutants() -> int:
         results += [run_mutant(n, "served", tmp) for n in MUTANTS]
         results += [run_mutant(LINKER_MUTANT, phase, tmp)
                     for phase in ("linker", "fastpath", "control", "cli",
-                                  "h2", "h2fast", "mux", "k8s", "edge")]
+                                  "h2", "h2fast", "mux", "k8s", "edge",
+                                  "sidecar")]
         results += [run_mutant(name, "cli", tmp) for name in CLI_MUTANTS]
         results += [run_mutant(name, "fastpath_d", tmp)
                     for name in FASTPATH_MUTANTS]
@@ -10045,6 +10757,8 @@ def check_mutants() -> int:
         results += [run_mutant(name, "mux", tmp) for name in MUX_MUTANTS]
         results += [run_mutant(name, "k8s", tmp) for name in K8S_MUTANTS]
         results += [run_mutant(name, "edge", tmp) for name in EDGE_MUTANTS]
+        results += [run_mutant(name, "sidecar", tmp)
+                    for name in SIDECAR_MUTANTS]
     missed = []
     for name, which, rc, last in results:
         print(f"mutant {name}, {which} check: "
@@ -10289,6 +11003,8 @@ def main() -> int:
     mux, mux_launches = run_phase("mux", mux_phase())
     k8s, k8s_launches = run_phase("k8s", k8s_phase())
     edge, edge_launches = run_phase("edge", edge_phase())
+    sidecar, sidecar_launches = run_phase("sidecar", sidecar_phase(
+        service_rows_per_s=service["rows_per_s"]))
     telemeter["recorder"] = recorder_us()
     print(f"recorder filter: {telemeter['recorder']['recorder_us']:.2f} us "
           f"a request, the downstream alone "
@@ -10322,7 +11038,8 @@ def main() -> int:
                                   cli=cli_launches, h2=h2_launches,
                                   h2fast=h2fast_launches,
                                   mux=mux_launches, k8s=k8s_launches,
-                                  edge=edge_launches),
+                                  edge=edge_launches,
+                                  sidecar=sidecar_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -10363,6 +11080,8 @@ def main() -> int:
     print(json.dumps({"k8s": k8s, "card": name.strip(),
                       "power_limit": limit.strip()}, default=str))
     print(json.dumps({"edge": edge, "card": name.strip(),
+                      "power_limit": limit.strip()}, default=str))
+    print(json.dumps({"sidecar": sidecar, "card": name.strip(),
                       "power_limit": limit.strip()}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

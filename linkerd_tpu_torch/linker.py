@@ -73,6 +73,7 @@ from linkerd_tpu_torch.config.parser import (
 from linkerd_tpu_torch.core import Dtab, Path
 from linkerd_tpu_torch.core.addr import Address, BoundName
 from linkerd_tpu_torch.core.pathmatcher import PathMatcher
+from linkerd_tpu_torch.fleet.scorer_pool import namer_scorer_activity
 from linkerd_tpu_torch.protocol.tls import TlsClientConfig, TlsServerConfig
 from linkerd_tpu_torch.announcer import match_announcer
 from linkerd_tpu_torch.namer import ConfiguredDtabNamer, Namer
@@ -678,12 +679,16 @@ class Linker:
         # [(label, StreamSentinel)] — fastPath routers surface theirs
         # through FastPathController.streams_snapshot instead
         self.stream_sentinels: List[Tuple[str, Any]] = []
+        # namer lookup behind a path-form sidecarAddress (closed with
+        # the linker so its watch does not outlive the namers)
+        self._scorer_activity: Any = None
         try:
             self._build()
         except BaseException:
             # a config error mid-build must not leak the telemeters,
             # namers, or the listener threads and files of the sinks and
             # loggers materialized before the failure
+            self._close_scorer_activity()
             for t in self.telemeters:
                 t.close()
             for _, namer in self.namers:
@@ -738,6 +743,18 @@ class Linker:
                     tcfg.mk(self.metrics, device=self.device))
             else:
                 self.telemeters.append(tcfg.mk(self.metrics))
+        # a namer-path sidecarAddress (announced scorer replicas)
+        # resolves against the namers built above; assembly fails when
+        # no namer covers it, as a silent empty pool would score nothing
+        tele = self._anomaly_telemeter()
+        if (tele is not None and tele.cfg.sidecarAddress
+                and tele.cfg.sidecarAddress.startswith("/")):
+            try:
+                self._scorer_activity = namer_scorer_activity(
+                    self.namers, tele.cfg.sidecarAddress)
+            except ValueError as e:
+                raise ConfigError(str(e))
+            tele.set_sidecar_activity(self._scorer_activity)
         # the control loop's reactor verifies generated overrides by
         # symbolic delegation over THESE namers' prefixes; a linker with
         # no local namers (remote namerd interpreter) passes None =
@@ -2232,10 +2249,18 @@ class Linker:
                         ann.announce(spec.ip, server.bound_port, rest))
         return self
 
+    def _close_scorer_activity(self) -> None:
+        if self._scorer_activity is not None:
+            closer = getattr(self._scorer_activity, "close", None)
+            if closer is not None:
+                closer()
+            self._scorer_activity = None
+
     async def close(self) -> None:
         for c in self._announcements:
             c.close()
         self._announcements.clear()
+        self._close_scorer_activity()
         for r in self.routers:
             await r.close()
             # a remote interpreter's watch streams end with its router

@@ -23,8 +23,12 @@ featurized a block at a time by ``linerate.NativeFeaturizer``; rows the
 engine already scored in its data plane (``nativeTier: primary``) skip
 the device and fold straight into the board. A ``control:`` block builds
 the reactive control loop (``control/``) over the board; its ``run()``
-task rides beside the drain loop. The telemeter has no sidecar tier yet
-(ROADMAP Queue 1 item 4): its config refuses those keys by name.
+task rides beside the drain loop. A ``sidecarAddress`` adds the scorer
+sidecar (``telemetry/sidecar.py``) behind a deadline and a breaker
+(``telemetry/resilience.py``), one replica or a ``ScorerReplicaPool``
+(``fleet/scorer_pool.py``): as the fallback tier of the in-process
+scorer (``linerate.TieredScorer``), or with ``sidecarTier: primary`` as
+the one scorer, when this process builds nothing on a device.
 """
 
 from __future__ import annotations
@@ -676,11 +680,8 @@ class InProcessScorer(Scorer):
 
 # Keys of the reference's ``io.l5d.jaxAnomaly`` block that the port does
 # not take yet, with the ROADMAP item that brings each. A config naming
-# one is refused, not quietly served without it.
-REFUSED_KEYS = {
-    "sidecarAddress": "ROADMAP Queue 1 item 4 (sidecar tiering)",
-    "sidecarTier": "ROADMAP Queue 1 item 4 (sidecar tiering)",
-}
+# one is refused, not quietly served without it. (None left.)
+REFUSED_KEYS: Dict[str, str] = {}
 
 
 @register("telemeter", "io.l5d.jaxAnomaly")
@@ -705,6 +706,15 @@ class JaxAnomalyConfig:
     lineRate: bool = True
     maxLingerMs: float = 2.0
     scoreConcurrency: int = 2  # batches in flight (double-buffer depth)
+    # the scorer sidecar: "host:port" (one replica), "host:p1,host:p2"
+    # (a fixed replica pool), or a namer path such as
+    # "/#/io.l5d.fs/l5d-scorer" (announced replicas, resolved through
+    # the linker's namers and followed as they come and go)
+    sidecarAddress: Optional[str] = None
+    # "fallback" (the default): the in-process scorer serves every batch
+    # and the sidecar is its fallback tier behind a breaker; "primary":
+    # the sidecar is the one scorer
+    sidecarTier: str = "fallback"
     # the native tier's weight export: "primary" exports the serving
     # model as a versioned, CRC'd blob to every registered weight sink
     # at startup and on every lifecycle promote/rollback; "off" exports
@@ -714,10 +724,8 @@ class JaxAnomalyConfig:
     # without a lifecycle: block, the online-trained model is
     # re-exported on this cadence (seconds; 0 disables)
     nativeRefreshS: float = 30.0
-    # the sidecar's per-call deadline and breaker: the reference reads
-    # them only with a sidecarAddress (linkerd_tpu/telemetry/anomaly.py:
-    # 1222-1250), which the port refuses, so here they are taken and
-    # inert, as the reference leaves them without one
+    # the sidecar's per-call deadline and breaker (read only with a
+    # sidecarAddress)
     scoreTimeoutMs: int = 2000
     breakerFailures: int = 3
     breakerMinBackoffMs: int = 500
@@ -751,10 +759,11 @@ class JaxAnomalyConfig:
 
 
 class JaxAnomalyTelemeter(Telemeter):
-    """The in-process anomaly telemeter on one device: the reference's
-    counterpart less the sidecar tiers. The scorer, lifecycle manager
-    and distillation pipeline it builds run on ``device`` (CUDA unless
-    ``"cpu"`` is named); the control loop is device-free."""
+    """The anomaly telemeter: the reference's counterpart. The scorer,
+    lifecycle manager and distillation pipeline it builds run on
+    ``device`` (CUDA unless ``"cpu"`` is named; none with a
+    ``sidecarTier: primary`` sidecar and neither of the other two); the
+    control loop is device-free."""
 
     def __init__(self, cfg: JaxAnomalyConfig, metrics: MetricsTree,
                  scorer: Optional[Scorer] = None,
@@ -763,6 +772,8 @@ class JaxAnomalyTelemeter(Telemeter):
             # 0 would silently disable draining (NOT a sentinel like
             # trainEveryBatches' 0 = never)
             raise ValueError("maxBatchesPerWake must be >= 1")
+        if cfg.sidecarTier not in ("primary", "fallback"):
+            raise ValueError("sidecarTier must be 'primary' or 'fallback'")
         if cfg.nativeTier not in ("primary", "off"):
             raise ValueError("nativeTier must be 'primary' or 'off'")
         if cfg.nativeQuant not in ("f32", "int8", "int4"):
@@ -779,8 +790,8 @@ class JaxAnomalyTelemeter(Telemeter):
             raise ValueError("maxLingerMs must be >= 0")
         if cfg.scoreConcurrency < 1:
             raise ValueError("scoreConcurrency must be >= 1")
-        self.device = resolve_device(device)
         self.cfg = cfg
+        self.device = self._resolve_device(device)
         self.metrics = metrics
         self.ring: Deque = collections.deque(maxlen=cfg.ringCapacity)
         # raw native-engine rows, drained C -> ring memory by the
@@ -818,8 +829,9 @@ class JaxAnomalyTelemeter(Telemeter):
         self._degraded.set(0.0)
         self._score_failures = self._node.counter("score_failures")
         self._dropped_batches = self._node.counter("dropped_batches")
-        # replicas restored per promote; no scorer pool in the port yet
-        self._node.counter("fleet_model_pushes")
+        # fleet model coordination: replicas restored per promote
+        self._fleet_model_pushes = self._node.counter(
+            "fleet_model_pushes")
         self._gauges: Dict[str, object] = {}
         self._batch_i = 0
         # weight publication: native engines register publish callbacks
@@ -835,6 +847,11 @@ class JaxAnomalyTelemeter(Telemeter):
         self._native_publishes = 0
         self._last_native_pub = 0.0   # monotonic; periodic re-export
         self._native_refreshing = False
+        # scorer replica pool (sidecarAddress as a list or namer path):
+        # held apart from the wrapped self._scorer so run() can start its
+        # membership watch and /model.json can report it
+        self._scorer_pool = None
+        self._sidecar_activity = None
         # span sink: per-request children of the originating trace plus
         # one batch span linking its constituents
         self._span_sink = None
@@ -881,6 +898,32 @@ class JaxAnomalyTelemeter(Telemeter):
                 # seen (and trained on) warmupBatches batches
                 ready_fn=lambda: (self._batches.value
                                   >= self.cfg.control.warmupBatches))
+
+    def _resolve_device(self, device: DeviceLike) -> Optional[torch.device]:
+        """The device this telemeter's scorer, lifecycle and distillation
+        run on. With ``sidecarTier: primary`` and neither of the other
+        two there is none: the sidecar scores, and no device is asked
+        for unless one is named. A tiered config that finds no CUDA
+        device says how to run without one: it never quietly makes the
+        sidecar its only tier."""
+        cfg = self.cfg
+        if (self._sidecar_only and cfg.lifecycle is None
+                and cfg.distill is None):
+            return None if device is None else torch.device(device)
+        try:
+            return resolve_device(device)
+        except RuntimeError as e:
+            if not cfg.sidecarAddress:
+                raise
+            raise RuntimeError(
+                f"{e}; or set sidecarTier: primary to score on the "
+                "sidecar alone, with no device in this process") from e
+
+    @property
+    def _sidecar_only(self) -> bool:
+        """``sidecarTier: primary`` with a sidecar: no in-process scorer."""
+        return bool(self.cfg.sidecarAddress) \
+            and self.cfg.sidecarTier == "primary"
 
     @property
     def lifecycle(self):
@@ -1141,9 +1184,63 @@ class JaxAnomalyTelemeter(Telemeter):
             learning_rate=self.cfg.learningRate,
             recon_weight=self.cfg.reconWeight, device=self.device)
 
+    def set_sidecar_activity(self, activity) -> None:
+        """Install the namer lookup Activity behind a path-form
+        ``sidecarAddress`` (the Linker resolves the path against its
+        namers at assembly); the replica pool follows it."""
+        self._sidecar_activity = activity
+        if self._scorer_pool is not None:
+            self._scorer_pool.attach_activity(activity)
+
+    def _mk_sidecar_client(self):
+        """One GrpcScorerClient, or a ScorerReplicaPool for a list or a
+        namer path (fleet/scorer_pool.py)."""
+        addr = self.cfg.sidecarAddress
+        from linkerd_tpu_torch.telemetry.sidecar import GrpcScorerClient
+        if addr.startswith("/"):
+            from linkerd_tpu_torch.fleet.scorer_pool import (
+                ScorerReplicaPool,
+            )
+            self._scorer_pool = ScorerReplicaPool()
+            if self._sidecar_activity is not None:
+                self._scorer_pool.attach_activity(self._sidecar_activity)
+            return self._scorer_pool
+        if "," in addr:
+            from linkerd_tpu_torch.fleet.scorer_pool import (
+                ScorerReplicaPool,
+            )
+            self._scorer_pool = ScorerReplicaPool(addr.split(","))
+            return self._scorer_pool
+        return GrpcScorerClient(addr)
+
+    def _mk_resilient(self):
+        """The sidecar behind the per-call deadline and the breaker,
+        which wrap outside the client's own first-call deadlines: a hung
+        sidecar costs one bounded call, then fails fast."""
+        from linkerd_tpu_torch.telemetry.resilience import (
+            CircuitBreaker, ResilientScorer,
+        )
+        return ResilientScorer(
+            self._mk_sidecar_client(),
+            call_timeout_s=self.cfg.scoreTimeoutMs / 1e3,
+            breaker=CircuitBreaker(
+                failures=self.cfg.breakerFailures,
+                min_backoff_s=self.cfg.breakerMinBackoffMs / 1e3,
+                max_backoff_s=self.cfg.breakerMaxBackoffMs / 1e3))
+
+    def _tiered(self, primary: Scorer) -> Scorer:
+        """``primary`` alone, or with the sidecar as its fallback tier."""
+        if not self.cfg.sidecarAddress:
+            return primary
+        from linkerd_tpu_torch.telemetry.linerate import TieredScorer
+        return TieredScorer(primary, self._mk_resilient())
+
     def _ensure_scorer(self) -> Scorer:
         if self._scorer is None:
-            self._scorer = self._mk_inprocess()
+            if self._sidecar_only:
+                self._scorer = self._mk_resilient()
+            else:
+                self._scorer = self._tiered(self._mk_inprocess())
             if self._span_sink is not None:
                 self._enable_sampled_timing(self._scorer)
         return self._scorer
@@ -1157,7 +1254,11 @@ class JaxAnomalyTelemeter(Telemeter):
         on a worker thread (a CUDA context and the model's tensors:
         seconds on a card) and warmed up before the first batch, so the
         router's loop serves meanwhile and rows wait in the rings. (The
-        reference builds it on the loop.)"""
+        reference builds it on the loop.) With ``sidecarTier: primary``
+        the sidecar is the scorer and nothing is built here; a tiered
+        scorer wraps the in-process one once it is warm."""
+        if self._scorer is None and self._sidecar_only:
+            return self._ensure_scorer()
         if self._scorer is None:
             built = asyncio.ensure_future(
                 asyncio.to_thread(self._mk_inprocess))
@@ -1175,12 +1276,17 @@ class JaxAnomalyTelemeter(Telemeter):
             # installed before the warm-up, so close() reaches it
             self._scorer = scorer
             await scorer.warmup()
+            self._scorer = self._tiered(scorer)
             if self._span_sink is not None:
-                self._enable_sampled_timing(scorer)
+                self._enable_sampled_timing(self._scorer)
         return self._scorer
 
     async def run(self) -> None:
         scorer = await self._start_scorer()
+        if self._scorer_pool is not None:
+            # begin following announced scorer replicas (namer path
+            # mode; a no-op for a fixed list)
+            self._scorer_pool.start_watch()
         lc_cfg = self.cfg.lifecycle
         if self._lifecycle is not None and lc_cfg.restoreOnStart:
             # survive restarts: pull the last-good model before scoring
@@ -1306,10 +1412,44 @@ class JaxAnomalyTelemeter(Telemeter):
                 # follow, or the engines keep scoring the old one
                 await self.refresh_native_weights(
                     version=self._lifecycle.serving_version)
+                # and so must every scorer replica of the pool
+                # (Snapshot/Restore), so that the fallback tier serves
+                # the generation the in-process scorer serves
+                self._maybe_push_fleet_model()
             return outcome
         except Exception:  # noqa: BLE001 — lifecycle failures must never
             log.exception("model lifecycle cycle failed")  # stop scoring
             return None
+
+    def _maybe_push_fleet_model(self) -> None:
+        """Fire-and-forget fleet model push: the serving checkpoint to
+        every scorer replica of the pool through the Restore RPC.
+        Skipped with no pool or no promoted checkpoint. A slow replica
+        costs one bounded background task, never the lifecycle cycle."""
+        if self._scorer_pool is None or self._lifecycle is None:
+            return
+        version = self._lifecycle.serving_version
+        if version is None:
+            return
+
+        async def go() -> None:
+            try:
+                _, snap = await asyncio.to_thread(
+                    self._lifecycle.store.load, version)
+                n = await asyncio.wait_for(
+                    self._scorer_pool.broadcast_restore(snap), 30.0)
+                if n:
+                    self._fleet_model_pushes.incr(n)
+                    log.info("fleet model push: v%s restored on %d "
+                             "scorer replica(s)", version, n)
+            except asyncio.CancelledError:
+                raise
+            except Exception:  # noqa: BLE001 — the fleet push is
+                # best-effort; replicas converge on a later promote
+                log.exception("fleet model push failed")
+
+        monitor(asyncio.create_task(go(), name="fleet-model-push"),
+                what="fleet-model-push")
 
     async def _drain_burst(self, scorer: Scorer,
                            max_batches: Optional[int] = None) -> int:
@@ -1533,7 +1673,8 @@ class JaxAnomalyTelemeter(Telemeter):
             except asyncio.CancelledError:
                 raise
             except Exception as e:  # noqa: BLE001 — training is optional;
-                # a fit failure must not take down scoring
+                # a fit failure (it still feeds the shared breaker) must
+                # not take down scoring
                 self._score_failures.incr()
                 log.debug("online fit skipped (scorer failure): %r", e)
             else:
@@ -1681,6 +1822,17 @@ class JaxAnomalyTelemeter(Telemeter):
             "line_rate": bool(self.cfg.lineRate),
             "native_tier": self.native_tier_state(),
         }
+        breaker = getattr(self._scorer, "breaker", None)
+        if breaker is not None:
+            out["breaker"] = {
+                "state": breaker.state,
+                "next_probe_in_s": round(breaker.next_probe_in_s(), 3),
+            }
+        tier_fn = getattr(self._scorer, "tier_state", None)
+        if tier_fn is not None:
+            out["tiers"] = tier_fn()
+        if self._scorer_pool is not None:
+            out["scorer_pool"] = self._scorer_pool.status()
         if self.distill is not None:
             # the per-route bank view: generation, every specialist
             # head's lineage, live drift shifts, pending retrains

@@ -1,7 +1,9 @@
 """Line-rate score dispatch: counterpart of ``RingDispatcher`` in
 ``linkerd_tpu/telemetry/linerate.py``, and of its native engine feed
 (``NativeFeatureRing``, ``RouteTemporal``, ``NativeFeaturizer``), which
-carries the engines' per-request rows into the micro-batcher.
+carries the engines' per-request rows into the micro-batcher; and
+``TieredScorer``, the in-process scorer with the scorer sidecar as its
+fallback tier (a copy of the reference's class).
 
 ``RingDispatcher`` keeps, per batch bucket, two persistent staging
 slots in pinned host memory. A dispatch copies the batch into a free
@@ -25,6 +27,7 @@ from __future__ import annotations
 import asyncio
 import atexit
 import contextlib
+import logging
 import queue
 import threading
 import weakref
@@ -32,6 +35,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+log = logging.getLogger(__name__)
 
 # Every live dispatcher's drainer is woken and joined before the
 # interpreter finalizes: a daemon thread woken during finalization dies
@@ -464,3 +469,140 @@ class NativeFeaturizer:
         drift = self.temporal.drift_block(rid, lat.astype(np.float32))
         x[:, 32] = np.sign(drift) * np.log1p(np.abs(drift))
         return x, inv, dsts
+
+
+# -- tiered scorer ------------------------------------------------------------
+
+
+class TieredScorer:
+    """In-process primary with the gRPC sidecar as the fallback tier.
+
+    The primary (InProcessScorer) serves every batch at line rate; its
+    own breaker opens after consecutive failures so a sick local device
+    doesn't add a failed attempt to every batch. While the primary is
+    open, batches route to the fallback (a ResilientScorer-wrapped
+    sidecar, with its own breaker + per-call deadline). Both tiers
+    failing surfaces the fallback's error, which the telemeter maps to
+    degraded mode as before.
+
+    Lifecycle hooks (snapshot/restore/swap/warmup) bind to the primary:
+    the in-process model is the one the lifecycle manager owns.
+    """
+
+    def __init__(self, primary, fallback, breaker=None):
+        from linkerd_tpu_torch.telemetry.resilience import CircuitBreaker
+        self.primary = primary
+        self.fallback = fallback
+        self.primary_breaker = breaker or CircuitBreaker(
+            failures=3, min_backoff_s=1.0, max_backoff_s=30.0)
+        self.primary_calls = 0
+        self.fallback_calls = 0
+
+    # the telemeter reads/steers these on whatever scorer it holds
+    @property
+    def breaker(self):
+        return getattr(self.fallback, "breaker", None)
+
+    @property
+    def last_timing(self):
+        return getattr(self.primary, "last_timing", None)
+
+    @property
+    def timing_enabled(self) -> bool:
+        return bool(getattr(self.primary, "timing_enabled", False))
+
+    @timing_enabled.setter
+    def timing_enabled(self, v: bool) -> None:
+        if hasattr(self.primary, "timing_enabled"):
+            self.primary.timing_enabled = v
+
+    @property
+    def timing_sample_every(self) -> int:
+        return int(getattr(self.primary, "timing_sample_every", 1))
+
+    @timing_sample_every.setter
+    def timing_sample_every(self, v: int) -> None:
+        if hasattr(self.primary, "timing_sample_every"):
+            self.primary.timing_sample_every = v
+
+    @property
+    def _step(self):
+        return getattr(self.primary, "_step", None)
+
+    async def _tiered(self, what: str, primary_call, fallback_call):
+        admitted, probe = self.primary_breaker.acquire()
+        if admitted:
+            try:
+                out = await primary_call()
+            except asyncio.CancelledError:
+                self.primary_breaker.on_cancel(probe)
+                raise
+            except Exception as e:  # noqa: BLE001 — tier boundary: any
+                # primary failure demotes this call to the fallback tier
+                self.primary_breaker.on_failure(probe)
+                log.warning("in-process scorer %s failed; using fallback "
+                            "tier: %r", what, e)
+            else:
+                self.primary_breaker.on_success(probe)
+                self.primary_calls += 1
+                return out
+        self.fallback_calls += 1
+        return await fallback_call()
+
+    async def score(self, x: np.ndarray) -> np.ndarray:
+        return await self._tiered(
+            "score", lambda: self.primary.score(x),
+            lambda: self.fallback.score(x))
+
+    async def fit(self, x: np.ndarray, labels: np.ndarray,
+                  mask: np.ndarray) -> float:
+        """Training binds to the PRIMARY only — it is the model the
+        lifecycle manager snapshots/promotes. Routing fit() to the
+        fallback would silently train the sidecar's remote model,
+        which no checkpoint ever sees and which would diverge from the
+        primary for the rest of the outage. While the primary breaker
+        is open, training is skipped (the telemeter logs and counts a
+        skipped fit; scoring continues on the fallback)."""
+        from linkerd_tpu_torch.telemetry.resilience import ScorerUnavailable
+        admitted, probe = self.primary_breaker.acquire()
+        if not admitted:
+            raise ScorerUnavailable(
+                "fit skipped: in-process primary breaker open "
+                "(training never routes to the fallback tier)")
+        try:
+            out = await self.primary.fit(x, labels, mask)
+        except asyncio.CancelledError:
+            self.primary_breaker.on_cancel(probe)
+            raise
+        except Exception:
+            self.primary_breaker.on_failure(probe)
+            raise
+        self.primary_breaker.on_success(probe)
+        self.primary_calls += 1
+        return out
+
+    def snapshot(self):
+        return self.primary.snapshot()
+
+    def restore(self, snap) -> None:
+        self.primary.restore(snap)
+
+    def swap(self, snap):
+        return self.primary.swap(snap)
+
+    async def warmup(self, rows: int = 4) -> None:
+        warm = getattr(self.primary, "warmup", None)
+        if warm is not None:
+            await warm(rows)
+
+    def tier_state(self) -> dict:
+        return {
+            "primary": type(self.primary).__name__,
+            "primary_breaker": self.primary_breaker.state,
+            "primary_calls": self.primary_calls,
+            "fallback_calls": self.fallback_calls,
+        }
+
+    def close(self) -> None:
+        self.primary.close()
+        self.fallback.close()

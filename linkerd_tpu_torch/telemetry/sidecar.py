@@ -14,22 +14,38 @@ process. Service ``io.l5d.anomaly.Scorer``, raw-bytes methods:
 - ``Restore``:  request  = serialized ModelSnapshot
                 response = u64 restored step counter
 
-``ScorerService`` holds the request handlers without any transport;
-``ScorerSidecar`` binds them to a ``grpc.aio`` server. ``grpc`` is
-imported only where a server or channel is made, so the package imports
-where it is not installed.
+``ScorerService`` holds the request handlers without any transport.
+``ScorerSidecar`` serves them, and ``GrpcScorerClient`` calls them, over
+the port's own gRPC runtime (``grpc/dispatch.py`` on ``protocol/h2``)
+where the reference uses grpcio: the wire is the reference's, byte for
+byte, and the port needs no ``grpc`` package.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
+import json
 import logging
 import struct
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 
+from linkerd_tpu_torch.grpc.dispatch import (
+    ClientDispatcher, Rpc, ServerDispatcher, ServiceDef,
+)
+from linkerd_tpu_torch.grpc.status import (
+    CANCELED, DEADLINE_EXCEEDED, UNKNOWN, GrpcError,
+)
 from linkerd_tpu_torch.lifecycle.store import decode_snapshot, encode_snapshot
+from linkerd_tpu_torch.protocol.h2.client import H2Client
+from linkerd_tpu_torch.protocol.h2.frames import CANCEL
+from linkerd_tpu_torch.protocol.h2.messages import H2Request, H2Response
+from linkerd_tpu_torch.protocol.h2.server import H2Server
+from linkerd_tpu_torch.protocol.h2.stream import StreamReset
+from linkerd_tpu_torch.router.service import Service
 
 log = logging.getLogger(__name__)
 
@@ -128,9 +144,95 @@ class ScorerService:
         return struct.pack("<Q", int(snap.step))
 
 
+class RawBytes:
+    """A gRPC message that is its payload's bytes as they are: the
+    scorer's methods carry their own codec (above), not protobuf, so
+    this stands where ``grpc.codec.Codec`` expects a message class."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data: bytes = b""):
+        self.data = data
+
+    def encode(self) -> bytes:
+        return self.data
+
+    @classmethod
+    def decode(cls, data: bytes) -> "RawBytes":
+        return cls(bytes(data))
+
+
+SCORER = ServiceDef(SERVICE, [Rpc(m, RawBytes, RawBytes) for m in METHODS])
+
+# the h2 request a server-side call serves, and the response streams of
+# a client-side call: set per call, read where the dispatchers hand over
+# only messages
+_REQUEST: contextvars.ContextVar = contextvars.ContextVar("scorer_request")
+_RESPONSES: contextvars.ContextVar = contextvars.ContextVar(
+    "scorer_responses")
+RESET_POLL_S = 0.005  # how often a served call looks for its peer's reset
+
+
+async def _until_reset(stream) -> None:
+    """Returns once the request ``stream`` is reset: the caller sent
+    RST_STREAM (its deadline passed) or its connection went."""
+    while not stream.is_reset:
+        if stream.at_end:
+            await asyncio.sleep(RESET_POLL_S)
+            continue
+        try:
+            (await stream.read()).release()
+        except StreamReset:
+            return
+
+
+class _Requests(Service):
+    """The dispatcher behind the h2 server, with each call's request
+    in reach of its handler."""
+
+    def __init__(self, dispatcher: ServerDispatcher):
+        self.dispatcher = dispatcher
+
+    async def __call__(self, req: H2Request) -> H2Response:
+        _REQUEST.set(req)  # the dispatcher's handler task copies it
+        return await self.dispatcher(req)
+
+
+class _Responses(Service):
+    """The h2 client under the dispatcher, noting each call's response
+    stream, so that a call past its deadline can be reset."""
+
+    def __init__(self, client: H2Client):
+        self.client = client
+
+    async def __call__(self, req: H2Request) -> H2Response:
+        rsp = await self.client(req)
+        _RESPONSES.get([]).append(rsp.stream)
+        return rsp
+
+
+def _reset(client: H2Client, stream) -> None:
+    """RST_STREAM CANCEL the call whose response is ``stream``, as
+    grpcio does when a deadline passes, so that the server stops its
+    handler. The h2 client has no reset for a stream whose response
+    headers came; the connection's ``shed_stream`` is that reset."""
+    for conn in (client._conn, *client._draining):  # noqa: SLF001
+        if conn is None:
+            continue
+        for sid, st in list(conn._streams.items()):  # noqa: SLF001
+            if st.recv_stream is stream:
+                conn.shed_stream(sid, CANCEL)
+                return
+
+
 class ScorerSidecar:
-    """grpc.aio server over a ``ScorerService``. With no ``scorer`` it
-    builds an ``InProcessScorer`` on the CUDA device."""
+    """The four unary RPCs of ``io.l5d.anomaly.Scorer`` over a
+    ``ScorerService``, served by the port's gRPC runtime
+    (``grpc.dispatch.ServerDispatcher`` on ``protocol.h2``'s
+    ``H2Server``). With no ``scorer`` it builds an ``InProcessScorer``
+    on the CUDA device. A handler whose caller resets the call is
+    cancelled, as grpcio's server cancels it; a handler's exception
+    answers UNKNOWN, in grpcio's words."""
 
     def __init__(self, scorer=None, host: str = "127.0.0.1", port: int = 0,
                  warmup_rows: int = 0):
@@ -142,39 +244,57 @@ class ScorerSidecar:
         self.host = host
         self.port = port
         self.warmup_rows = warmup_rows
-        self._server = None
+        self._dispatcher: Optional[ServerDispatcher] = None
+        self._server: Optional[H2Server] = None
+
+    @staticmethod
+    def _rpc(handle):
+        async def call(msg: RawBytes) -> RawBytes:
+            work = asyncio.ensure_future(handle(msg.data))
+            reset = asyncio.ensure_future(_until_reset(_REQUEST.get().stream))
+            try:
+                await asyncio.wait((work, reset),
+                                   return_when=asyncio.FIRST_COMPLETED)
+            finally:
+                reset.cancel()
+                if not work.done():
+                    work.cancel()
+            if work.cancelled():
+                raise GrpcError.of(CANCELED, "call reset by the client")
+            exc = work.exception()
+            if exc is not None:
+                raise GrpcError.of(UNKNOWN, f"Unexpected {type(exc)}: {exc}")
+            return RawBytes(work.result())
+        return call
 
     async def start(self) -> "ScorerSidecar":
-        import grpc
-
         svc = self.service
-
-        def rpc(handle):
-            async def call(request: bytes, context) -> bytes:
-                return await handle(request)
-            return grpc.unary_unary_rpc_method_handler(
-                call, request_deserializer=None, response_serializer=None)
-
-        handler = grpc.method_handlers_generic_handler(SERVICE, {
-            name: rpc(getattr(svc, f"handle_{name.lower()}"))
-            for name in METHODS})
-        self._server = grpc.aio.server()
-        self._server.add_generic_rpc_handlers((handler,))
-        self.port = self._server.add_insecure_port(f"{self.host}:{self.port}")
+        self._dispatcher = ServerDispatcher()
+        self._dispatcher.register_all(SCORER, {
+            m: self._rpc(getattr(svc, f"handle_{m.lower()}"))
+            for m in METHODS})
         # warm up before serving, so no real request races the warmup
         if self.warmup_rows:
             await self.scorer.warmup(self.warmup_rows)
-        await self._server.start()
+        self._server = await H2Server(
+            _Requests(self._dispatcher), self.host, self.port).start()
+        self.port = self._server.bound_port
         return self
 
     async def close(self) -> None:
         if self._server is not None:
-            await self._server.stop(grace=0.5)
+            await self._server.close()
+            await self._dispatcher.close()
         self.scorer.close()  # release the dispatch ring and its drainer
 
 
 class GrpcScorerClient:
-    """Client for a scorer sidecar: score, fit, snapshot, restore."""
+    """Client for a scorer sidecar: score, fit, snapshot, restore, over
+    the port's gRPC runtime (``grpc.dispatch.ClientDispatcher`` on
+    ``protocol.h2``'s ``H2Client``, one connection, re-made after a
+    failure). A call past its deadline is reset and raises
+    DEADLINE_EXCEEDED; a non-OK status, a reset stream or a refused
+    connection raises too."""
 
     def __init__(self, address: str, timeout_s: float = 5.0,
                  first_timeout_s: float = 60.0):
@@ -185,32 +305,48 @@ class GrpcScorerClient:
         self.timeout_s = timeout_s
         self.first_timeout_s = first_timeout_s
         self._warm: set = set()
-        self._channel = None
-        self._calls: dict = {}
+        # the last Score call's {rpc_ms, bytes}, which scorer spans read
+        self.last_timing: Optional[dict] = None
+        self._channel: Optional[H2Client] = None
+        self._dispatch: Optional[ClientDispatcher] = None
         self._closing: Optional[asyncio.Task] = None
 
-    def _ensure(self) -> None:
+    def _ensure(self) -> ClientDispatcher:
         if self._channel is None:
-            import grpc
+            host, _, port = self.address.rpartition(":")
+            self._channel = H2Client(host, int(port))
+            self._dispatch = ClientDispatcher(_Responses(self._channel))
+        return self._dispatch
 
-            self._channel = grpc.aio.insecure_channel(self.address)
-            self._calls = {
-                m: self._channel.unary_unary(
-                    f"/{SERVICE}/{m}",
-                    request_serializer=None, response_deserializer=None)
-                for m in METHODS}
+    async def _call(self, method: str, payload: bytes,
+                    timeout: float) -> bytes:
+        dispatch, channel = self._ensure(), self._channel
+        streams: list = []
+        _RESPONSES.set(streams)
+        try:
+            rep = await asyncio.wait_for(
+                dispatch.unary(SCORER, method, RawBytes(payload)), timeout)
+        except asyncio.TimeoutError:
+            for stream in streams:
+                _reset(channel, stream)
+            raise GrpcError.of(
+                DEADLINE_EXCEEDED, f"{method}: no answer in {timeout} s")
+        return rep.data
 
     async def _bucketed(self, method: str, rows: int,
                         payload: bytes) -> bytes:
-        self._ensure()
         key = (method, bucket_rows(rows))
         timeout = self.timeout_s if key in self._warm else self.first_timeout_s
-        rsp = await self._calls[method](payload, timeout=timeout)
+        rsp = await self._call(method, payload, timeout)
         self._warm.add(key)
         return rsp
 
     async def score(self, x: np.ndarray) -> np.ndarray:
-        rsp = await self._bucketed("Score", len(x), encode_matrix(x))
+        payload = encode_matrix(x)
+        t0 = time.monotonic()
+        rsp = await self._bucketed("Score", len(x), payload)
+        self.last_timing = {"rpc_ms": (time.monotonic() - t0) * 1e3,
+                            "bytes": len(payload) + len(rsp)}
         return np.frombuffer(rsp, np.float32)
 
     async def fit(self, x: np.ndarray, labels: np.ndarray,
@@ -220,27 +356,24 @@ class GrpcScorerClient:
         return float(np.frombuffer(rsp, np.float32)[0])
 
     async def snapshot(self):
-        self._ensure()
-        rsp = await self._calls["Snapshot"](b"",
-                                            timeout=self.first_timeout_s)
+        rsp = await self._call("Snapshot", b"", self.first_timeout_s)
         return decode_snapshot(rsp)
 
     async def restore(self, snap) -> int:
         """Hot-swap ``snap`` into the sidecar; returns the restored step."""
-        self._ensure()
-        rsp = await self._calls["Restore"](encode_snapshot(snap),
-                                           timeout=self.first_timeout_s)
+        rsp = await self._call("Restore", encode_snapshot(snap),
+                               self.first_timeout_s)
         return struct.unpack("<Q", rsp)[0]
 
     async def aclose(self) -> None:
-        """Close the channel and wait for it (before the loop ends)."""
+        """Close the connection and wait for it (before the loop ends)."""
         if self._channel is not None:
             ch, self._channel = self._channel, None
             await ch.close()
 
     def close(self) -> None:
-        """Close the channel without waiting: on the running loop as a
-        task this client keeps; with no loop running (interpreter
+        """Close the connection without waiting: on the running loop as
+        a task this client keeps; with no loop running (interpreter
         teardown) the socket goes with the process."""
         if self._channel is None:
             return
@@ -272,9 +405,13 @@ def announce_replica(announce_dir: str, name: str, host: str, port: int):
 
 def main() -> None:
     """``python -m linkerd_tpu_torch.telemetry.sidecar``: serve a scorer
-    replica on the CUDA device until SIGINT/SIGTERM, optionally
-    announced through the fs announcer, so that linkers resolve it as
-    any other service (``sidecarAddress: /#/io.l5d.fs/<name>``)."""
+    replica on the CUDA device (``--device cpu``: the plain path on the
+    CPU) until SIGINT/SIGTERM, optionally announced through the fs
+    announcer, so that linkers resolve it as any other service
+    (``sidecarAddress: /#/io.l5d.fs/<name>``). It prints
+    ``SCORER_SIDECAR host:port`` once it serves, and on its way out
+    ``SCORER_SIDECAR_DONE`` with the rows it scored and the kernel's
+    launches in this process."""
     import argparse
     import signal
 
@@ -289,12 +426,20 @@ def main() -> None:
              "the replica registers itself under --announce-name and "
              "withdraws on shutdown")
     parser.add_argument("--announce-name", default="l5d-scorer")
+    parser.add_argument(
+        "--device", default=None,
+        help="the scorer's device: the CUDA device unless 'cpu' is named")
     args = parser.parse_args()
 
     async def amain() -> None:
+        from linkerd_tpu_torch.ops.scoring import fused_anomaly_scores
+        from linkerd_tpu_torch.telemetry.anomaly import InProcessScorer
+
         sidecar = await ScorerSidecar(
+            scorer=InProcessScorer(device=args.device),
             host=args.host, port=args.port,
             warmup_rows=args.warmup_rows).start()
+        launches = fused_anomaly_scores.launches  # the warm-up's
         announcement = None
         if args.announce_dir:
             announcement = announce_replica(
@@ -311,6 +456,10 @@ def main() -> None:
         if announcement is not None:
             announcement.close()
         await sidecar.close()
+        print("SCORER_SIDECAR_DONE " + json.dumps({
+            "rows_scored": sidecar.service.rows_scored,
+            "kernel_launches": fused_anomaly_scores.launches - launches}),
+            flush=True)
 
     logging.basicConfig(level=logging.INFO)
     asyncio.run(amain())

@@ -10,8 +10,8 @@ linkerd_tpu_torch.namerd``, run as users run them, on the CPU.
   does; without ``--device cpu`` on a host with no CUDA device the CLI
   exits non-zero with a message and serves nothing.
 - ``linker-anomaly.yml`` loads to equal telemeter configs in both
-  packages (the port takes the sidecar's breaker keys inertly, as the
-  reference does with no ``sidecarAddress``).
+  packages, the sidecar's keys included (its breaker keys inert with no
+  ``sidecarAddress``, in both).
 - The namerd CLI on ``tests/configs/namerd.yml`` less its mesh and thrift
   interfaces answers the HTTP API and its admin pages as the
   reference's namerd CLI does; on the whole fixture it serves all three
@@ -211,8 +211,8 @@ def test_cli_without_a_card_fails_and_serves_nothing(tmp_path):
 
 def test_anomaly_fixture_loads_to_equal_configs(tmp_path):
     """Both packages load linker-anomaly.yml (ports and directories
-    rewritten) to equal telemeter configs; the breaker keys are taken
-    and inert in both."""
+    rewritten) to equal telemeter configs, the sidecar's keys at their
+    defaults; the breaker keys are taken and inert in both."""
     from linkerd_tpu.linker import load_linker as ref_load_linker
     from linkerd_tpu_torch.linker import load_linker as port_load_linker
     from linkerd_tpu_torch.telemetry.anomaly import REFUSED_KEYS
@@ -223,10 +223,10 @@ def test_anomaly_fixture_loads_to_equal_configs(tmp_path):
     try:
         r = dataclasses.asdict(ref.telemeters[0].cfg)
         p = dataclasses.asdict(port.telemeters[0].cfg)
-        assert p == {k: v for k, v in r.items() if k not in REFUSED_KEYS}
+        assert not REFUSED_KEYS
+        assert p == r
         assert p["breakerFailures"] == 3 and p["scoreTimeoutMs"] == 2000
-        assert {k: r[k] for k in REFUSED_KEYS} == {
-            "sidecarAddress": None, "sidecarTier": "fallback"}
+        assert (p["sidecarAddress"], p["sidecarTier"]) == (None, "fallback")
         assert port.config_dict == ref.config_dict
     finally:
         for lk in (ref, port):

@@ -85,6 +85,8 @@ COPIES = (
     # the io.l5d.rewrite namer
     "router/tenancy.py", "protocol/http/loggers.py",
     "namer/transformers.py",
+    # the sidecar's tiers: the breaker and the scorer replica pool
+    "telemetry/resilience.py", "fleet/scorer_pool.py",
 )
 
 # Modules that differ on purpose: reason, and the top-level names that
@@ -143,7 +145,21 @@ DIFFERENT = {
         {"auc"}),
     "telemetry/anomaly.py": (
         "the telemeter ported to PyTorch: the scorer, training "
-        "and kernel are the port's own", None),
+        "and kernel are the port's own; a tiered config with no CUDA "
+        "device raises, naming sidecarTier: primary, where the "
+        "reference quietly makes the sidecar its only tier", None),
+    "telemetry/sidecar.py": (
+        "the reference's wire on the port's own gRPC runtime "
+        "(grpc/dispatch.py over protocol/h2) in place of grpcio; the "
+        "handlers stand apart as ScorerService", None),
+    "telemetry/linerate.py": (
+        "RingDispatcher and the native feed run on PyTorch and CUDA; "
+        "TieredScorer is a copy (PARTS)", None),
+    "fleet/__init__.py": (
+        "exports the scorer replica pool alone: doc, exchange, gossip "
+        "and regions come with control.fleet (ROADMAP Queue 1 item 14)",
+        {"FleetDoc", "FleetView", "FleetConfig", "FleetExchange",
+         "ScorerReplicaPool"}),
     "announcer.py": (
         "ZkAnnouncer and its io.l5d.serversets kind are left out: they "
         "need the ZooKeeper client (zk/, ROADMAP Queue 1 item 11)",
@@ -273,6 +289,18 @@ def test_difference_is_the_listed_one(rel):
     a, b = top_level(port), top_level(ref)
     differing = {n for n in set(a) | set(b) if a.get(n) != b.get(n)}
     assert differing == names
+
+
+# Definitions copied whole into a module that differs: (module, the
+# top-level names that are AST-equal to the original's).
+PARTS = {"telemetry/linerate.py": ("TieredScorer",)}
+
+
+@pytest.mark.parametrize("rel,name", [(rel, n) for rel, names in
+                                      PARTS.items() for n in names])
+def test_part_is_a_copy(rel, name):
+    a, b = top_level(normalized(PORT / rel)), top_level(normalized(REF / rel))
+    assert a[name] == b[name], f"{rel}: {name} is no longer a copy"
 
 
 # The port's copy of what the reactor's verify_override reaches in

@@ -1,10 +1,14 @@
 """The port stands alone: nothing under ``linkerd_tpu_torch/``, and not
-``chip_smoke.py``, imports JAX, optax, ml_dtypes, the JAX package or the
-repo's ``tools`` (which imports the JAX package).
+``chip_smoke.py``, imports JAX, optax, ml_dtypes, the JAX package, the
+repo's ``tools`` (which imports the JAX package) or grpcio (which the
+card's machine lacks: the scorer sidecar runs on the port's own gRPC
+runtime).
 
 Checked twice: statically, over every import statement in the source;
 and by importing every port module in a fresh interpreter in which
-those names cannot be imported, then scoring a batch on the CPU.
+those names cannot be imported, then scoring a batch on the CPU, and
+serving calls through the sidecar, its client, the replica pool and a
+tiered telemeter.
 """
 
 import ast
@@ -19,7 +23,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "linkerd_tpu_torch"
 # ``tools`` (the repo's analyzers) imports linkerd_tpu, so the port must
 # not reach it either
-BLOCKED = ("jax", "jaxlib", "optax", "ml_dtypes", "linkerd_tpu", "tools")
+BLOCKED = ("jax", "jaxlib", "optax", "ml_dtypes", "linkerd_tpu", "tools",
+           "grpc")
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -52,8 +57,9 @@ def test_no_import_of_jax_or_reference(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def test_imports_and_scores_with_reference_blocked():
-    script = textwrap.dedent(f"""
+def blocked_prelude() -> str:
+    """A script's first lines: the names of BLOCKED cannot be imported."""
+    return textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         BLOCKED = {BLOCKED!r}
 
@@ -68,6 +74,23 @@ def test_imports_and_scores_with_reference_blocked():
                 del sys.modules[name]
         sys.meta_path.insert(0, Block())
         sys.path.insert(0, {str(ROOT)!r})
+    """)
+
+
+def run_blocked(body: str) -> None:
+    script = blocked_prelude() + textwrap.dedent(body) + textwrap.dedent("""
+        leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+        assert not leaked, leaked
+        print("OK")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_imports_and_scores_with_reference_blocked():
+    run_blocked(f"""
         for mod in {port_modules()!r}:
             importlib.import_module(mod)
         import chip_smoke
@@ -86,11 +109,58 @@ def test_imports_and_scores_with_reference_blocked():
             assert out.shape == (8,) and np.isfinite(out).all()
 
         asyncio.run(go())
-        leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
-        assert not leaked, leaked
-        print("OK")
     """)
-    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().endswith("OK")
+
+
+def test_sidecar_hop_serves_with_grpc_blocked():
+    """With grpc (and the JAX package) unimportable: a sidecar on the
+    CPU answers the port's client and a replica pool, and a tiered
+    telemeter whose in-process scorer fails scores its batch on the
+    sidecar tier."""
+    run_blocked("""
+        import asyncio
+        import numpy as np
+        from linkerd_tpu_torch.fleet import ScorerReplicaPool
+        from linkerd_tpu_torch.telemetry.anomaly import (
+            InProcessScorer, JaxAnomalyConfig, JaxAnomalyTelemeter,
+        )
+        from linkerd_tpu_torch.telemetry.metrics import MetricsTree
+        from linkerd_tpu_torch.telemetry.sidecar import (
+            GrpcScorerClient, ScorerSidecar,
+        )
+        from linkerd_tpu_torch.models.features import FeatureVector
+
+        async def go():
+            side = await ScorerSidecar(
+                scorer=InProcessScorer(device="cpu")).start()
+            addr = f"127.0.0.1:{side.port}"
+            x = np.random.default_rng(0).standard_normal(
+                (8, 36)).astype(np.float32)
+            client, pool = GrpcScorerClient(addr), ScorerReplicaPool([addr])
+            tele = JaxAnomalyTelemeter(JaxAnomalyConfig(
+                sidecarAddress=addr, trainEveryBatches=0, nativeTier="off"),
+                MetricsTree(), device="cpu")
+            try:
+                a, b = await client.score(x), await pool.score(x)
+                assert a.shape == (8,) and (a == b).all()
+                tiered = tele._ensure_scorer()
+
+                async def sick(x):
+                    raise RuntimeError("primary down")
+
+                tiered.primary.score = sick
+                for i in range(4):
+                    tele.ring.append((FeatureVector(
+                        dst_path="/svc/a", latency_ms=1.0 + i), None))
+                assert await tele.drain_once() == 4
+                st = tele.model_state()["tiers"]
+                assert st["fallback_calls"] == 1, st
+                assert side.service.rows_scored == 8 + 8 + 4
+            finally:
+                tele.close()
+                pool.close()
+                await client.aclose()
+                await side.close()
+
+        asyncio.run(go())
+    """)

@@ -1,7 +1,7 @@
 """The port's scorer sidecar (linkerd_tpu_torch/telemetry/sidecar.py)
 against the JAX package's, on the CPU: the wire codecs byte for byte,
-the checkpoint codec in both directions, and a JAX gRPC client driving
-the port's sidecar over localhost.
+the checkpoint codec in both directions, and a JAX gRPC client (grpcio)
+driving the port's sidecar (the port's h2 gRPC runtime) over localhost.
 
 Scores are compared in the scorer's bfloat16 compute. Against the JAX
 model's forward on the served checkpoint they agree to 1e-5 on all but
@@ -184,9 +184,8 @@ class TestScorer:
         assert "no CUDA device" in proc.stderr
         assert "SCORER_SIDECAR" not in proc.stdout
 
-    def test_fit_is_not_ported_yet(self):
-        """Named when fit raised; fit is ported now, so this checks that
-        it trains: a finite loss, the step counter advanced by
+    def test_fit_trains_the_served_model(self):
+        """Fit trains: a finite loss, the step counter advanced by
         ``fit_steps`` and the served scores moved."""
         s = InProcessScorer(device="cpu")
         try:

@@ -41,7 +41,7 @@ from linkerd_tpu.router import service as ref_service
 from linkerd_tpu.router import tracing as ref_tracing
 from linkerd_tpu.telemetry import anomaly as ref
 from linkerd_tpu.telemetry import metrics as ref_metrics
-from linkerd_tpu_torch.config import ConfigError, lookup
+from linkerd_tpu_torch.config import lookup
 from linkerd_tpu_torch.distill import DistillConfig
 from linkerd_tpu_torch.lifecycle import LifecycleConfig, export, store
 from linkerd_tpu_torch.models import features
@@ -962,14 +962,10 @@ def test_config_errors_match_reference(case, tmp_path):
         key = case.split(":", 1)[1]
         assert key in {f.name for f in
                        dataclasses.fields(ref.JaxAnomalyConfig)}
-        if key in port.REFUSED_KEYS:
-            with pytest.raises(ConfigError,
-                               match=f"'{key}'.*ROADMAP Queue 1"):
-                port.JaxAnomalyConfig(**{key: REFUSED[key]})
-            return
-        # the sidecar's breaker keys are refused no more: with no
-        # sidecarAddress the reference takes them and leaves them
-        # inert, and so does the port
+        # the port refuses none of them: each key is taken as the
+        # reference takes it, and a telemeter builds with it (a sidecar
+        # address is only dialled when the scorer is first used)
+        assert key not in port.REFUSED_KEYS
         got = port.JaxAnomalyConfig(**{key: REFUSED[key]})
         want = ref.JaxAnomalyConfig(**{key: REFUSED[key]})
         assert getattr(got, key) == getattr(want, key) == REFUSED[key]
