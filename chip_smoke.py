@@ -14,6 +14,8 @@
     python3 chip_smoke.py --check mux        # the mux phase alone
     python3 chip_smoke.py --check k8s        # the k8s phase alone
     python3 chip_smoke.py --check edge       # the edge phase alone
+    python3 chip_smoke.py --check sidecar    # the sidecar phase alone
+    python3 chip_smoke.py --check discovery  # the discovery phase alone
     python3 chip_smoke.py --mutant one_rounding telemeter  # one mutant, one check
     python3 chip_smoke.py --witness  # the kernel's sums against exact ones
     python3 chip_smoke.py --repeat-control-a 16  # control part A, 16 times
@@ -209,13 +211,28 @@ the card serves every batch and fit, then made to raise for a window:
 its breaker opens, the sidecar tier scores every batch and no fit
 reaches a replica, then a probe closes the breaker); part E, a
 promotion restoring the checkpoint on both replicas, their scores held
-against the router's. Prints the card, a JSON line of kernel and
+against the router's. Then the discovery phase: the linkerd CLI on the
+card (``main()`` in a spawned process) routing 22 destinations through
+the io.l5d.consul, io.l5d.marathon, io.l5d.serversets, io.l5d.zkLeader
+and io.l5d.curator namers over a scripted consul agent, a scripted
+Marathon and the port's FakeZkServer, two downstream linkerds
+announcing into the serversets through the io.l5d.serversets
+announcer: part A, every request answered by its destination, a consul
+and a Marathon replica replaced (ms to the first answer from the new
+one), one replica failing until accrual removes it and its
+destination's board margin rising; part B, a downstream linkerd
+SIGKILLed (ms to its members gone, from the kill and from the reap, to
+the router's re-read; no failed request after it), the leader changed
+(ms), the curator instances; part C, ``/config-check.json`` clean on
+the live config and the planted rule ids at their lines on a second
+CLI, and the p99 of traffic while checks run; the kernel once a batch
+against plain on every row. Prints the card, a JSON line of kernel and
 service numbers, one of the train phase's, one of the distill
 phase's, one of the telemeter phase's, one of the linker phase's, one
 of the fastpath phase's, one of the control phase's, one of the cli
 phase's, one of the h2 phase's, one of the h2fast phase's, one of the
 mux phase's, one of the k8s phase's, one of the edge phase's, one of
-the sidecar phase's, and as its last line
+the sidecar phase's, one of the discovery phase's, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; with no CUDA device, or
 outside the repository, it exits non-zero before printing any result.
 Imports nothing of JAX.
@@ -223,13 +240,15 @@ Imports nothing of JAX.
 ``--mutants`` builds deliberately broken copies of the kernel in a
 temporary copy of the port and runs the kernel and served checks
 against each, and the linker, fastpath, control, cli, h2, h2fast, mux,
-k8s, edge and sidecar phases against ``LINKER_MUTANT``, the cli phase against ``CLI_MUTANTS``, part D
+k8s, edge, sidecar and discovery phases against ``LINKER_MUTANT``, the
+cli phase against ``CLI_MUTANTS``, part D
 against ``FASTPATH_MUTANTS`` (the sharded engine's stats merge and
 feature drain reading worker 0 alone), the h2 phase against
 ``H2_MUTANTS``, the h2fast phase against ``H2FAST_MUTANTS``, the
 mux phase against ``MUX_MUTANTS``, the k8s phase against
-``K8S_MUTANTS``, the edge phase against ``EDGE_MUTANTS`` and the
-sidecar phase against ``SIDECAR_MUTANTS``, in a fresh
+``K8S_MUTANTS``, the edge phase against ``EDGE_MUTANTS``, the
+sidecar phase against ``SIDECAR_MUTANTS`` and the discovery phase
+against ``DISCOVERY_MUTANTS``, in a fresh
 interpreter; it fails
 unless every check fails on its mutant.
 
@@ -10007,6 +10026,810 @@ async def sidecar_phase(seed: int = 12, dev: str = "cuda",
     return res, here + replica
 
 
+# The discovery phase: the linkerd CLI (``linkerd_tpu_torch.__main__
+# .main()`` in a spawned process, as ``python -m linkerd_tpu_torch``
+# runs it, with ``CliTap`` installed) on the card, its io.l5d.jaxAnomaly
+# telemeter at the reference's defaults, one http router naming its
+# destinations by path: /c/<svc> through io.l5d.consul, /m/<app> through
+# io.l5d.marathon, /s/<set> through io.l5d.serversets, /l/jobs through
+# io.l5d.zkLeader and /k/api through io.l5d.curator. This process serves a
+# scripted consul agent and a scripted Marathon
+# (``linkerd_tpu_torch/testing/discovery.py``) and the port's
+# FakeZkServer; the backends and the load clients are spawned processes;
+# two downstream linkerds (``python -m linkerd_tpu_torch``) announce their
+# servers into the serversets through the io.l5d.serversets announcer.
+# Part A: consul and Marathon (a replica replaced in each, timed; one
+# replica faulted). Part B: ZooKeeper (a downstream linkerd SIGKILLed, the
+# leader changed, the curator instances). Part C: /config-check.json on
+# the live CLI and on a second CLI started on a config with planted
+# faults, and the traffic's p99 while checks run.
+DISCO_CONSUL = 12          # consul services
+DISCO_APPS = 4             # Marathon apps
+DISCO_SETS = 4             # serversets, each announced by both downstreams
+DISCO_REPLICAS = 3         # replicas a service, tasks an app, leader
+                           # candidates, curator instances
+DISCO_CALM = 2048          # part A's calm requests
+DISCO_FAULTED = 3072       # ... with one consul replica faulted
+DISCO_CHECK = 512          # part C: requests beside checks, and without
+DISCO_CONNS = 16
+DISCO_LOAD_PROCS = 2
+DISCO_TTL_MS = 500         # the Marathon namer's ttlMs
+DISCO_WAIT_S = 20.0        # longest wait for a change to show
+DISCO_PROBE_S = 0.005      # a prober's pace
+DISCO_KILL_WINDOW_S = 7.0  # part B: serverset traffic after the member went
+DISCO_SETTLE_S = 0.5       # ... from the router's re-read to a clean window
+DISCO_FAULTED_NAME = "c01/0"   # the replica faulted in part A
+DISCO_ACCRUAL = 20         # the consecutive failures that remove it (the
+                           # faulted rows that the board reads)
+DISCO_LABEL = "disco"
+DISCO_DTAB = ("/svc/c => /#/io.l5d.consul/dc1 ; "
+              "/svc/m => /#/io.l5d.marathon ; "
+              "/svc/s => /#/io.l5d.serversets/discovery ; "
+              "/svc/l => /#/io.l5d.zkLeader/election ; "
+              "/svc/k => /#/io.l5d.curator ;")
+# a second CLI's config: a dtab-shadowed dentry (line 7), a port conflict
+# that the sharded engine's SO_REUSEPORT listeners bind all the same
+# (line 13) and a timeout-inversion (line 21); the CPU test holds these
+# lines
+DISCO_PLANTED = """\
+routers:
+- protocol: http
+  label: planted
+  fastPath: true
+  workers: 2
+  dtab: |
+    /svc/web => /$/inet/127.0.0.1/9 ;
+    /svc => /$/inet/127.0.0.1/9 ;
+  servers:
+  - ip: 0.0.0.0
+    port: {port}
+  - ip: 127.0.0.1
+    port: {port}
+- protocol: http
+  label: inverted
+  dtab: |
+    /svc => /$/inet/127.0.0.1/9 ;
+  service:
+    totalTimeoutMs: 500
+  client:
+    requestAttemptTimeoutMs: 900
+  servers:
+  - port: {port2}
+admin:
+  port: {admin}
+usage:
+  enabled: false
+"""
+DISCO_PLANTED_FINDINGS = [("dtab-shadowed", 7), ("router-port-conflict", 13),
+                          ("timeout-inversion", 21)]
+
+
+def disco_dsts() -> list:
+    """(request path, the answer's prefix) of each destination."""
+    out = [(f"/c/svc{k:02d}", f"c{k:02d}/") for k in range(DISCO_CONSUL)]
+    out += [(f"/m/app{k}", f"m{k}/") for k in range(DISCO_APPS)]
+    out += [(f"/s/ss{k}", "ds") for k in range(DISCO_SETS)]
+    return out + [("/l/jobs", "leader/"), ("/k/api", "api/")]
+
+
+DISCO_DSTS = disco_dsts()
+
+
+def disco_names() -> list:
+    """Every backend's name, which it answers: the replicas, a spare
+    replica for consul service 00 and one for Marathon app 0 (``/3``),
+    the leader candidates, the curator instances, and each downstream
+    linkerd's backend."""
+    names = [f"c{k:02d}/{r}" for k in range(DISCO_CONSUL)
+             for r in range(DISCO_REPLICAS)] + ["c00/3"]
+    names += [f"m{k}/{r}" for k in range(DISCO_APPS)
+              for r in range(DISCO_REPLICAS)] + ["m0/3"]
+    names += [f"leader/{r}" for r in range(DISCO_REPLICAS)]
+    names += [f"api/{r}" for r in range(DISCO_REPLICAS)]
+    return names + ["ds0/0", "ds1/0"]
+
+
+def disco_who(body: bytes, want: str) -> int:
+    """Which replica of a destination answered ``body``: its replica digit
+    (the downstream's index for a serverset), -1 for another body."""
+    text = body.decode("latin-1")
+    if not text.startswith(want) or len(text) <= len(want):
+        return -1
+    return int(text[len(want)]) if text[len(want)].isdigit() else -1
+
+
+def disco_backends(conn, names, flag) -> None:
+    """Child process: an HTTP server answering each of ``names`` with its
+    name; the one at index ``flag.value`` fails every request after
+    LINKER_FAULT_MS with a 503, so that DISCO_ACCRUAL consecutive
+    failures remove it. Each message on ``conn`` is answered with every
+    server's hits so far; ``None`` stops them."""
+    from linkerd_tpu_torch.protocol.http.message import Response
+    from linkerd_tpu_torch.protocol.http.server import serve
+    from linkerd_tpu_torch.router.service import FnService
+
+    hits = [0] * len(names)
+
+    def backend(i: int, name: str):
+        body = name.encode()
+
+        async def handle(req):
+            hits[i] += 1
+            if flag.value == i:
+                await asyncio.sleep(LINKER_FAULT_MS / 1e3)
+                return Response(503, body=b"injected fault")
+            return Response(200, body=body)
+
+        return FnService(handle)
+
+    async def main():
+        servers = [await serve(backend(i, n)) for i, n in enumerate(names)]
+        conn.send([s.bound_port for s in servers])
+        loop = asyncio.get_running_loop()
+        while await loop.run_in_executor(None, conn.recv) is not None:
+            conn.send(list(hits))
+        for s in servers:
+            await s.close()
+
+    asyncio.run(main())
+
+
+def disco_load(conn) -> None:
+    """Child process: on each ``(port, plans)`` from ``conn``, one
+    keep-alive connection a plan, all at once, each GETting its
+    destinations' paths in turn; sends back every request's destination,
+    status, who answered (``disco_who``), ms, and completion instant,
+    and the wall seconds. ``None`` ends it."""
+    from linkerd_tpu_torch.protocol.http.client import HttpClient
+    from linkerd_tpu_torch.protocol.http.message import Request
+
+    async def connection(port, plan, out, off):
+        client = HttpClient("127.0.0.1", port, max_connections=1)
+        try:
+            for i, d in enumerate(plan):
+                path, want = DISCO_DSTS[d]
+                t0 = time.perf_counter()
+                try:
+                    rsp = await client(Request(uri=path))
+                except Exception:  # noqa: BLE001 — counted as status -1
+                    status, body = -1, b""
+                else:
+                    status, body = rsp.status, rsp.body
+                out["ms"][off + i] = (time.perf_counter() - t0) * 1e3
+                out["t"][off + i] = time.monotonic()
+                out["status"][off + i] = status
+                out["who"][off + i] = disco_who(body, want)
+        finally:
+            await client.close()
+
+    while True:
+        msg = conn.recv()
+        if msg is None:
+            return
+        port, plans = msg
+        n = sum(len(p) for p in plans)
+        out = {"dst": np.concatenate(plans).astype(np.int16),
+               "status": np.zeros(n, np.int16), "who": np.zeros(n, np.int8),
+               "ms": np.zeros(n), "t": np.zeros(n)}
+        offs = np.cumsum([0] + [len(p) for p in plans])
+
+        async def run():
+            t0 = time.perf_counter()
+            await asyncio.gather(*(connection(port, p, out, int(o))
+                                   for p, o in zip(plans, offs)))
+            return time.perf_counter() - t0
+
+        out["wall"] = asyncio.run(run())
+        conn.send(out)
+
+
+async def disco_traffic(loads, port: int, plans) -> dict:
+    """The load processes' share of ``plans`` at once; waits for every
+    answer off the event loop (which serves the fakes)."""
+    loop = asyncio.get_running_loop()
+    for (conn, _), idx in zip(loads, np.array_split(
+            np.arange(len(plans)), len(loads))):
+        conn.send((port, [plans[i] for i in idx]))
+    outs = await asyncio.gather(*(loop.run_in_executor(None, conn.recv)
+                                  for conn, _ in loads))
+    res = {k: np.concatenate([o[k] for o in outs])
+           for k in ("dst", "status", "who", "ms", "t")}
+    res["wall"] = max(o["wall"] for o in outs)
+    return res
+
+
+def disco_plans(rng, n: int) -> list:
+    return np.array_split(rng.integers(len(DISCO_DSTS), size=n),
+                          DISCO_CONNS)
+
+
+def disco_traffic_checks(res: dict, what: str, faulted=None) -> dict:
+    """Every request answered 200 by a replica of its destination (but
+    those to destination ``faulted``, which may answer its replica's
+    503s); requests/s and ms percentiles."""
+    ok = (res["status"] == 200) & (res["who"] >= 0)
+    wrong = ~ok & (res["dst"] != faulted)
+    if wrong.any():
+        i = int(np.flatnonzero(wrong)[0])
+        raise AssertionError(
+            f"discovery {what}: {int(wrong.sum())} requests misrouted or "
+            f"failed, e.g. {DISCO_DSTS[res['dst'][i]][0]} -> status "
+            f"{res['status'][i]}")
+    ms = res["ms"]
+    return {"requests": len(ms), "requests_per_s": len(ms) / res["wall"],
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def disco_answered(res: dict) -> dict:
+    """destination path -> the sorted replicas that answered it 200."""
+    out = {}
+    for d, (path, _) in enumerate(DISCO_DSTS):
+        sel = (res["dst"] == d) & (res["status"] == 200)
+        out[path] = sorted({int(w) for w in res["who"][sel] if w >= 0})
+    return out
+
+
+def logged_zk():
+    """The port's FakeZkServer, noting the instants each path's children
+    are read (``reads``) and each node is deleted (``deleted``)."""
+    from linkerd_tpu_torch.testing.zkserver import FakeZkServer
+    from linkerd_tpu_torch.zk import client as zkc
+    from linkerd_tpu_torch.zk import jute
+
+    class LoggedZk(FakeZkServer):
+        def __init__(self):
+            super().__init__()
+            self.reads, self.deleted = {}, {}
+
+        def _notify(self, ev_type, path):
+            if ev_type == zkc.EVENT_NODE_DELETED:
+                self.deleted[path] = time.monotonic()
+            super()._notify(ev_type, path)
+
+        def _apply(self, sess, op, r):
+            if op in (zkc.OP_GETCHILDREN, zkc.OP_GETCHILDREN2):
+                path = jute.Reader(r.data, r.pos).ustring()
+                self.reads.setdefault(path, []).append(time.monotonic())
+            return super()._apply(sess, op, r)
+
+    return LoggedZk()
+
+
+async def disco_first_answer(port: int, path: str, want: bytes, t0: float,
+                             what: str) -> float:
+    """ms from ``t0`` (monotonic) to the first answer ``want`` to GETs of
+    ``path`` sent every DISCO_PROBE_S; fails after DISCO_WAIT_S."""
+    from linkerd_tpu_torch.protocol.http.client import HttpClient
+    from linkerd_tpu_torch.protocol.http.message import Request
+
+    client = HttpClient("127.0.0.1", port, max_connections=1)
+    try:
+        while True:
+            rsp = await client(Request(uri=path))
+            if rsp.body == want:
+                return (time.monotonic() - t0) * 1e3
+            if time.monotonic() - t0 > DISCO_WAIT_S:
+                raise AssertionError(
+                    f"discovery {what}: no answer from {want.decode()} "
+                    f"{DISCO_WAIT_S} s after the change (last: "
+                    f"{rsp.status} {rsp.body[:40]!r})")
+            await asyncio.sleep(DISCO_PROBE_S)
+    finally:
+        await client.close()
+
+
+async def disco_until(pred, what: str, timeout: float = DISCO_WAIT_S,
+                      every: float = 0.005) -> float:
+    """The monotonic instant ``pred()`` first holds, polled every
+    ``every`` s; fails after ``timeout`` s."""
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"discovery: {what} after {timeout} s")
+        await asyncio.sleep(every)
+    return time.monotonic()
+
+
+def disco_front_config(port: int, admin: int, consul: int, marathon: int,
+                       zk: int) -> dict:
+    zk_addrs = [{"host": "127.0.0.1", "port": zk}]
+    return {
+        "routers": [{
+            "protocol": "http", "label": DISCO_LABEL,
+            "identifier": {"kind": "io.l5d.path", "segments": 2},
+            "dtab": DISCO_DTAB, "servers": [{"port": port}],
+            "client": {"failureAccrual": {
+                "kind": "io.l5d.consecutiveFailures",
+                "failures": DISCO_ACCRUAL}}}],
+        "namers": [
+            {"kind": "io.l5d.consul", "host": "127.0.0.1", "port": consul},
+            {"kind": "io.l5d.marathon", "host": "127.0.0.1",
+             "port": marathon, "ttlMs": DISCO_TTL_MS},
+            {"kind": "io.l5d.serversets", "zkAddrs": zk_addrs},
+            {"kind": "io.l5d.zkLeader", "zkAddrs": zk_addrs},
+            {"kind": "io.l5d.curator", "zkAddrs": zk_addrs,
+             "basePath": "/services"}],
+        "telemetry": [{"kind": "io.l5d.jaxAnomaly"}],
+        "admin": {"port": admin}, "usage": {"enabled": False}}
+
+
+def disco_downstream_config(i: int, ports, admin: int, backend: int,
+                            zk: int) -> dict:
+    """Downstream linkerd ``i``: one server a serverset, each announcing
+    itself into ``/discovery/ss<k>``, all routed to its backend."""
+    return {
+        "routers": [{
+            "protocol": "http", "label": f"ds{i}",
+            "identifier": {"kind": "io.l5d.path", "segments": 2},
+            "dtab": f"/svc => /$/inet/127.0.0.1/{backend} ;",
+            "servers": [{"port": p,
+                         "announce": [f"/#/io.l5d.serversets/ss{k}"]}
+                        for k, p in enumerate(ports)]}],
+        "announcers": [{"kind": "io.l5d.serversets", "pathPrefix":
+                        "/discovery",
+                        "zkAddrs": [{"host": "127.0.0.1", "port": zk}]}],
+        "admin": {"port": admin}, "usage": {"enabled": False}}
+
+
+def disco_cli(cfg: Path, log: Path, dev: str):
+    """``python -m linkerd_tpu_torch <cfg>`` (``--device cpu`` only when
+    ``dev`` is the CPU), with no DC/OS credential in its environment."""
+    argv = [sys.executable, "-m", "linkerd_tpu_torch", str(cfg)]
+    if dev == "cpu":
+        argv[3:3] = ["--device", "cpu"]
+    env = {k: v for k, v in os.environ.items()
+           if k != "DCOS_SERVICE_ACCOUNT_CREDENTIAL"}
+    with open(log, "w") as out:
+        return subprocess.Popen(argv, cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                env=dict(env, PYTHONPATH=str(ROOT)))
+
+
+class BoardSampler:
+    """Samples /anomaly.json every 0.1 s: (instant, the faulted
+    destination's score, the median of the others')."""
+
+    def __init__(self, admin: int, dst: str):
+        self.admin, self.dst, self.samples = admin, dst, []
+        self.last = None
+        self.task = asyncio.get_running_loop().create_task(self.run())
+
+    async def run(self):
+        while True:
+            scores = json.loads((await http_get(
+                self.admin, "/anomaly.json"))[1])["scores"]
+            self.last = scores
+            if self.dst in scores:
+                others = [v for k, v in scores.items() if k != self.dst]
+                self.samples.append((time.monotonic(), scores[self.dst],
+                                     float(np.median(others))))
+            await asyncio.sleep(0.1)
+
+    async def stop(self) -> list:
+        self.task.cancel()
+        (got,) = await asyncio.gather(self.task, return_exceptions=True)
+        if not isinstance(got, asyncio.CancelledError):
+            raise AssertionError(f"discovery: the board sampler ended: "
+                                 f"{got!r}")
+        return self.samples
+
+
+async def disco_hits(backs) -> np.ndarray:
+    loop = asyncio.get_running_loop()
+    backs.send("hits")
+    return np.asarray(await loop.run_in_executor(None, backs.recv))
+
+
+async def disco_part_a(env: dict) -> dict:
+    """Calm traffic through every namer; a consul replica replaced and a
+    Marathon task replaced, each timed from the fake's write to the first
+    answer from the new one; then one consul replica faulted. The board
+    is sampled through the calm run and the fault: the faulted
+    destination's margin over the others' median, before and during."""
+    sampler = BoardSampler(env["admin"], "/svc/c/svc01")
+    try:
+        return await disco_part_a_sampled(env, sampler)
+    finally:
+        # a failed part leaves no sampler behind to fail at the loop's end
+        sampler.task.cancel()
+        await asyncio.gather(sampler.task, return_exceptions=True)
+
+
+async def disco_part_a_sampled(env: dict, sampler) -> dict:
+    consul, marathon, names, ports = (env[k] for k in (
+        "consul", "marathon", "names", "ports"))
+    port, rng, out = env["port"], env["rng"], {}
+    calm = await disco_traffic(env["loads"], port,
+                               disco_plans(rng, DISCO_CALM))
+    out["calm"] = disco_traffic_checks(calm, "A calm")
+    answered = disco_answered(calm)
+    env["answered"] = answered
+    short = {p: a for p, a in answered.items() if not a}
+    if short:
+        raise AssertionError(f"discovery A: destinations never answered: "
+                             f"{sorted(short)}")
+    # a consul deregister plus register: replica 2 of svc00 gives way to
+    # the spare, in one write
+    hp = lambda n: ("127.0.0.1", ports[names.index(n)])  # noqa: E731
+    consul.set_service("svc00", [hp("c00/0"), hp("c00/1"), hp("c00/3")])
+    out["consul_change_ms"] = await disco_first_answer(
+        port, "/c/svc00", b"c00/3", consul.written["svc00"],
+        "A consul change")
+    marathon.set_app("/app0", [hp("m0/0"), hp("m0/1"), hp("m0/3")])
+    out["marathon_change_ms"] = await disco_first_answer(
+        port, "/m/app0", b"m0/3", marathon.written["/app0"],
+        "A Marathon change")
+    # the fault: replica 0 of svc01
+    faulted = next(d for d, (p, _) in enumerate(DISCO_DSTS)
+                   if p == "/c/svc01")
+    fi = names.index(DISCO_FAULTED_NAME)
+    before = await disco_hits(env["backs"])
+    env["flag"].value = fi
+    env["window_t"] = time.monotonic()
+    try:
+        faulty = await disco_traffic(env["loads"], port,
+                                     disco_plans(rng, DISCO_FAULTED))
+    finally:
+        env["flag"].value = -1
+    samples = await sampler.stop()
+    if not samples:
+        raise AssertionError(f"discovery A: no score for /svc/c/svc01 on "
+                             f"the board: {sampler.last}")
+    hits = await disco_hits(env["backs"]) - before
+    out["faulted"] = disco_traffic_checks(faulty, "A faulted", faulted)
+    mine = hits[[names.index(f"c01/{r}") for r in range(DISCO_REPLICAS)]]
+    errors = int(((faulty["dst"] == faulted)
+                  & (faulty["status"] != 200)).sum())
+    pre = [s - m for t, s, m in samples if t < env["window_t"]]
+    during = [s - m for t, s, m in samples if t >= env["window_t"]]
+    out["fault"] = {"hits_by_replica": mine.tolist(), "errors": errors,
+                    "margin_before": float(np.mean(pre)) if pre else None,
+                    "margin_during": float(np.mean(during)) if during
+                    else None,
+                    "margin_before_max": max(pre) if pre else None,
+                    "margin_during_max": max(during) if during else None,
+                    "samples": [len(pre), len(during)]}
+    # removed: after DISCO_ACCRUAL failures in a row it took no request
+    # but a probe or two, while the others took more
+    if not (DISCO_ACCRUAL <= mine[0] <= DISCO_ACCRUAL + 2
+            and mine[0] < min(mine[1:]) and errors <= mine[0]):
+        raise AssertionError(
+            f"discovery A: failure accrual did not remove the faulted "
+            f"replica: {out['fault']}")
+    if not (pre and during and np.mean(during) > np.mean(pre)):
+        raise AssertionError(
+            f"discovery A: the faulted destination's score did not rise: "
+            f"{out['fault']}")
+    return out
+
+
+async def disco_part_b(env: dict) -> dict:
+    """A downstream linkerd SIGKILLed: ms until its members are gone (from
+    the kill and from its reap), until the router re-read each serverset,
+    and no failed request once it had; the leader changed, timed; the
+    curator's instances all answered."""
+    zk, port = env["zk"], env["port"]
+    loop = asyncio.get_running_loop()
+    out = {"serverset_answers": {p: a for p, a in env["answered"].items()
+                                 if p.startswith("/s/")},
+           "curator_answers": env["answered"]["/k/api"]}
+    if any(a != [0, 1] for a in out["serverset_answers"].values()):
+        raise AssertionError(f"discovery B: serversets not answered by both "
+                             f"downstreams: {out['serverset_answers']}")
+    if out["curator_answers"] != list(range(DISCO_REPLICAS)):
+        raise AssertionError(f"discovery B: curator instances answered: "
+                             f"{out['curator_answers']}")
+    victim = env["downstreams"][1]
+    members = env["members"][1]
+    stop = asyncio.Event()
+    seen = []
+
+    async def prober():
+        from linkerd_tpu_torch.protocol.http.client import HttpClient
+        from linkerd_tpu_torch.protocol.http.message import Request
+
+        client = HttpClient("127.0.0.1", port, max_connections=1)
+        try:
+            k = 0
+            while not stop.is_set():
+                path = f"/s/ss{k % DISCO_SETS}"
+                try:
+                    rsp = await client(Request(uri=path))
+                    status, who = rsp.status, disco_who(rsp.body, "ds")
+                except Exception:  # noqa: BLE001 — a failed request
+                    status, who = -1, -1
+                seen.append((time.monotonic(), status, who))
+                k += 1
+                await asyncio.sleep(DISCO_PROBE_S)
+        finally:
+            await client.close()
+
+    probes = [loop.create_task(prober()) for _ in range(4)]
+    try:
+        await asyncio.sleep(0.5)
+        t_kill = time.monotonic()
+        victim.send_signal(signal.SIGKILL)
+        # reaped off the loop: the instant wait() returned
+        reaped = loop.run_in_executor(
+            None, lambda: (victim.wait(), time.monotonic())[1])
+        await disco_until(lambda: not any(m in zk.nodes for m in members),
+                          "the killed members still in ZooKeeper")
+        t_gone = max(zk.deleted[m] for m in members)
+        t_reap = await reaped
+        # the router's namer re-reads each set once its watch fires
+        rereads = []
+        for m in members:
+            base = m.rsplit("/", 1)[0]
+
+            def reread(base=base, m=m):
+                return [t for t in zk.reads.get(base, [])
+                        if t >= zk.deleted[m]]
+
+            await disco_until(lambda: reread(), f"no re-read of {base}")
+            rereads.append(min(reread()))
+        t_reread = max(rereads)
+        await asyncio.sleep(max(0.0, t_reread + DISCO_SETTLE_S
+                                + DISCO_KILL_WINDOW_S - time.monotonic()))
+    finally:
+        stop.set()
+        await asyncio.gather(*probes, return_exceptions=True)
+    failed = [t for t, s, _ in seen if s != 200]
+    late = [t for t in failed if t > t_reread + DISCO_SETTLE_S]
+    out["kill"] = {
+        "member_gone_from_kill_ms": (t_gone - t_kill) * 1e3,
+        "member_gone_from_reap_ms": (t_gone - t_reap) * 1e3,
+        "reap_from_kill_ms": (t_reap - t_kill) * 1e3,
+        "router_reread_from_kill_ms": (t_reread - t_kill) * 1e3,
+        "failed_after_kill": len(failed),
+        "last_failure_from_kill_ms": (max(failed) - t_kill) * 1e3
+        if failed else None,
+        "probes": len(seen),
+        "window_s": seen[-1][0] - t_reread if seen else 0.0}
+    if late:
+        raise AssertionError(
+            f"discovery B: {len(late)} serverset requests failed more than "
+            f"{DISCO_SETTLE_S} s after the router re-read the serversets "
+            f"without the killed linkerd: {out['kill']}")
+    if [w for t, s, w in seen if t > t_reread and s == 200 and w == 1]:
+        raise AssertionError("discovery B: the killed linkerd answered")
+    # the leader's node goes: the next candidate leads
+    t0 = time.monotonic()
+    zk.delete_node("/election/jobs/c_0000000000")
+    out["leader_change_ms"] = await disco_first_answer(
+        port, "/l/jobs", b"leader/1", t0, "B leader change")
+    return out
+
+
+async def disco_part_c(env: dict) -> dict:
+    """/config-check.json on the live CLI (clean) and on the planted one
+    (its rule ids at their lines); the p99 of traffic with and without
+    checks running."""
+    admin, port, rng = env["admin"], env["port"], env["rng"]
+    status, body = await http_get(admin, "/config-check.json")
+    live = json.loads(body)
+    if status != 200 or live.get("clean") is not True:
+        raise AssertionError(f"discovery C: the live config's check: "
+                             f"{status} {live}")
+    status, body = await http_get(env["planted_admin"], "/config-check.json")
+    planted = json.loads(body)
+    got = sorted((f["rule"], f["line"]) for f in planted.get("findings", []))
+    if status != 200 or got != DISCO_PLANTED_FINDINGS:
+        raise AssertionError(f"discovery C: the planted config's check "
+                             f"gave {got}, not {DISCO_PLANTED_FINDINGS}")
+    quiet = await disco_traffic(env["loads"], port,
+                                disco_plans(rng, DISCO_CHECK))
+    stop, checks = asyncio.Event(), []
+
+    async def checking():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            s, _ = await http_get(admin, "/config-check.json")
+            checks.append(((time.perf_counter() - t0) * 1e3, s))
+
+    task = asyncio.get_running_loop().create_task(checking())
+    try:
+        busy = await disco_traffic(env["loads"], port,
+                                   disco_plans(rng, DISCO_CHECK))
+    finally:
+        stop.set()
+        await task
+    if not checks or any(s != 200 for _, s in checks):
+        raise AssertionError(f"discovery C: checks beside traffic: {checks}")
+    return {"live_clean": True, "planted": got,
+            "without_checks": disco_traffic_checks(quiet, "C quiet"),
+            "with_checks": disco_traffic_checks(busy, "C checked"),
+            "checks": len(checks),
+            "check_ms_p50": float(np.median([ms for ms, _ in checks]))}
+
+
+async def disco_phase(dev: str = "cuda", parts=("A", "B", "C")):
+    """The fakes here, the backends, load clients, downstream linkerds,
+    the planted CLI and the CLI under test spawned at once; parts A-C;
+    then the CLI's tap: one kernel launch a batch (and the warm-up's),
+    kernel vs plain on every row, every row scored, every destination on
+    the board. Returns the results and the CLI's kernel launches."""
+    import multiprocessing
+
+    from linkerd_tpu_torch.testing.discovery import FakeConsul, FakeMarathon
+
+    mp = multiprocessing.get_context("spawn")
+    t_phase = time.perf_counter()
+    res, procs, clis = {}, [], {}
+    work = Path(tempfile.mkdtemp(prefix="disco-"))
+    flag = mp.RawValue("i", -1)
+    consul = await FakeConsul().start()
+    marathon = await FakeMarathon().start()
+    zk = await logged_zk().start()
+    names = disco_names()
+    env = {"consul": consul, "marathon": marathon, "zk": zk, "flag": flag,
+           "names": names, "rng": np.random.default_rng(18)}
+    backs = child = None
+    try:
+        backs, theirs = mp.Pipe()
+        p = mp.Process(target=disco_backends, args=(theirs, names, flag),
+                       daemon=True)
+        p.start()
+        procs.append(p)
+        loads = []
+        for _ in range(DISCO_LOAD_PROCS):
+            ours, theirs = mp.Pipe()
+            p = mp.Process(target=disco_load, args=(theirs,), daemon=True)
+            p.start()
+            procs.append(p)
+            loads.append((ours, p))
+        loop = asyncio.get_running_loop()
+        ports = await loop.run_in_executor(None, backs.recv)
+        env.update(backs=backs, loads=loads, ports=ports)
+        hp = lambda n: ("127.0.0.1", ports[names.index(n)])  # noqa: E731
+        for k in range(DISCO_CONSUL):
+            consul.set_service(f"svc{k:02d}", [
+                hp(f"c{k:02d}/{r}") for r in range(DISCO_REPLICAS)])
+        for k in range(DISCO_APPS):
+            marathon.set_app(f"/app{k}", [hp(f"m{k}/{r}")
+                                          for r in range(DISCO_REPLICAS)])
+        for r in range(DISCO_REPLICAS):
+            zk.set_node(f"/election/jobs/c_{r:010d}",
+                        "{}:{}".format(*hp(f"leader/{r}")).encode())
+            zk.set_node(f"/services/api/i-{r}", json.dumps({
+                "name": "api", "id": f"i-{r}", "address": "127.0.0.1",
+                "port": hp(f"api/{r}")[1], "sslPort": None}).encode())
+        # the downstream linkerds, the planted CLI and the CLI under test
+        admins = {}
+        ds_ports = []
+        for i in range(2):
+            ds_ports.append([free_port() for _ in range(DISCO_SETS)])
+            admins[f"ds{i}"] = free_port()
+            (work / f"ds{i}.json").write_text(json.dumps(
+                disco_downstream_config(i, ds_ports[i], admins[f"ds{i}"],
+                                        hp(f"ds{i}/0")[1], zk.port)))
+            clis[f"ds{i}"] = disco_cli(work / f"ds{i}.json",
+                                       work / f"ds{i}.log", dev)
+        admins["planted"] = free_port()
+        (work / "planted.yml").write_text(DISCO_PLANTED.format(
+            port=free_port(), port2=free_port(), admin=admins["planted"]))
+        clis["planted"] = disco_cli(work / "planted.yml",
+                                    work / "planted.log", dev)
+        env["port"], env["admin"] = free_port(), free_port()
+        (work / "linker.json").write_text(json.dumps(disco_front_config(
+            env["port"], env["admin"], consul.port, marathon.port,
+            zk.port)))
+        child = mp.Process(target=cli_child, daemon=True, args=(
+            str(work / "linker.json"), str(work / "tap.npz"), dev))
+        saved = os.environ.pop("DCOS_SERVICE_ACCOUNT_CREDENTIAL", None)
+        try:
+            child.start()
+        finally:
+            if saved is not None:
+                os.environ["DCOS_SERVICE_ACCOUNT_CREDENTIAL"] = saved
+        boot = await asyncio.gather(
+            wait_ping(env["admin"], child.is_alive, "discovery linkerd"),
+            *(wait_ping(admins[k], lambda c=clis[k]: c.poll() is None,
+                        f"discovery {k}") for k in clis))
+        res["boot_ms"] = dict(zip(["linkerd", *clis], boot))
+        env["planted_admin"] = admins["planted"]
+        env["downstreams"] = [clis["ds0"], clis["ds1"]]
+        # every server announced: one ephemeral member_ a downstream a set
+        await disco_until(lambda: all(
+            len(zk.children_of(f"/discovery/ss{k}")) == 2
+            for k in range(DISCO_SETS)), "the downstreams' members")
+        env["members"] = [[], []]
+        for k in range(DISCO_SETS):
+            for m in zk.children_of(f"/discovery/ss{k}"):
+                node = zk.nodes[f"/discovery/ss{k}/{m}"]
+                ep = json.loads(node.data)["serviceEndpoint"]["port"]
+                if not m.startswith("member_") or not node.ephemeral_owner:
+                    raise AssertionError(f"discovery: {m} is not an "
+                                         f"ephemeral member_")
+                env["members"][int(ep in ds_ports[1])].append(
+                    f"/discovery/ss{k}/{m}")
+        # a warm-up: the scorer is built and warmed off the router's loop
+        # after the first /ping; the parts start once every destination
+        # is on the board
+        t0 = time.monotonic()
+        warm = await disco_traffic(env["loads"], env["port"], disco_plans(
+            env["rng"], 16 * len(DISCO_DSTS)))
+        res["warm"] = disco_traffic_checks(warm, "warm-up")
+        await wait_json(env["admin"], "/anomaly.json", lambda b: all(
+            f"/svc{p}" in b["scores"] for p, _ in DISCO_DSTS),
+            "every destination on the board", timeout=CLI_BOOT_S)
+        res["board_after_ping_ms"] = (time.monotonic() - t0) * 1e3
+        for name, part in (("A", disco_part_a), ("B", disco_part_b),
+                           ("C", disco_part_c)):
+            if name in parts:
+                t0 = time.perf_counter()
+                res[f"part_{name.lower()}"] = await part(env)
+                res[f"part_{name.lower()}"]["s"] = time.perf_counter() - t0
+        model = await wait_json(
+            env["admin"], "/model.json", lambda m: m["requests_total"]
+            == m["scored_total"] > 0, "every request scored")
+        board = json.loads((await http_get(env["admin"],
+                                           "/anomaly.json"))[1])["scores"]
+        missing = [p for p, _ in DISCO_DSTS if f"/svc{p}" not in board]
+        if missing:
+            raise AssertionError(f"discovery: no board score for {missing}")
+        res["scored"] = model["scored_total"]
+        res["stops"] = {"linkerd": stop_process(child, "discovery linkerd")}
+        for k in ("ds0", "planted"):
+            res["stops"][k] = stop_process(clis[k], f"discovery {k}")
+        tap = dict(np.load(work / "tap.npz"))
+        checked = cli_tap_checks(tap, env.get("window_t", 0.0), dev)
+        # the fault's rows carry no labels of their own here: no AUC
+        for k in ("window_rows", "window_auc"):
+            checked.pop(k)
+        res.update(checked)
+    finally:
+        for proc in [child, *clis.values()]:
+            if proc is None:
+                continue
+            alive = (proc.poll() is None if hasattr(proc, "poll")
+                     else proc.is_alive())
+            if alive:
+                proc.kill()
+                (proc.wait if hasattr(proc, "poll") else proc.join)()
+        for conn in [backs] + [c for c, _ in env.get("loads", [])]:
+            if conn is None:
+                continue
+            try:
+                conn.send(None)
+            except OSError:
+                pass
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        for fake in (consul, marathon, zk):
+            try:
+                await asyncio.wait_for(fake.close(), K8S_TEARDOWN_S)
+            except asyncio.TimeoutError:
+                print(f"discovery: {type(fake).__name__} did not close "
+                      f"within {K8S_TEARDOWN_S} s")
+        shutil.rmtree(work, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    a, b, c = (res.get(f"part_{k}", {}) for k in "abc")
+    print(f"discovery: {res['launches']} launches for {res['batches']} "
+          f"batches; kernel vs plain max|diff| "
+          f"{res['kernel_vs_plain_max']:.3e} ({res['rows_past_row_tol']} of "
+          f"{res['rows']} rows past {ROW_TOL}); {res['scored']} rows scored")
+    if a:
+        print(f"discovery A: calm {a['calm']['requests_per_s']:.0f} "
+              f"requests/s, p50 {a['calm']['p50_ms']:.3f} ms, p99 "
+              f"{a['calm']['p99_ms']:.3f} ms; consul change "
+              f"{a['consul_change_ms']:.1f} ms, Marathon change "
+              f"{a['marathon_change_ms']:.1f} ms; fault {a['fault']}")
+    if b:
+        print(f"discovery B: kill {b['kill']}; leader change "
+              f"{b['leader_change_ms']:.1f} ms")
+    if c:
+        print(f"discovery C: planted {c['planted']}; p99 without checks "
+              f"{c['without_checks']['p99_ms']:.3f} ms, with "
+              f"{c['with_checks']['p99_ms']:.3f} ms ({c['checks']} checks, "
+              f"p50 {c['check_ms_p50']:.1f} ms)")
+    print(f"discovery: boot {res['boot_ms']}; {res['phase_s']:.1f} s")
+    return res, res["launches"]
+
+
 # The witness of the kernel's sums (``--witness``): on a phase's window
 # rows, an "exact" forward in float64 with the kernel's rounding points
 # (the float64 sum of bf16 products rounded to float32 and then to bf16,
@@ -10318,7 +11141,8 @@ LINKER_MUTANT = "one_rounding"  # ... and, on this one, the linker,
 # --check and --mutant take these too (fastpath_d: the fastpath phase's
 # part D alone)
 PHASES = ("telemeter", "linker", "fastpath", "fastpath_d", "control",
-          "cli", "h2", "h2fast", "mux", "k8s", "edge", "sidecar")
+          "cli", "h2", "h2fast", "mux", "k8s", "edge", "sidecar",
+          "discovery")
 # Broken copies of the port that the cli phase's checks must catch, one
 # a family: (file, text found once, its replacement) edits. The tracer
 # not installed; the router's request counter not incremented for a
@@ -10549,9 +11373,36 @@ SIDECAR_MUTANTS = {
         "linkerd_tpu_torch/telemetry/anomaly.py",
         "                self._maybe_push_fleet_model()\n", "")],
 }
+# Broken copies of the port that the discovery phase must catch: the
+# consul namer keeping its first answer whatever the index says (A's
+# consul change never shows); the serverset namer keeping members that
+# were removed (B: the killed linkerd's addresses stay, and requests to
+# them fail); the /config-check.json handler dropping dtab-shadowed
+# findings (C: the planted CLI's rule ids).
+DISCOVERY_MUTANTS = {
+    "consul_first_answer": [(
+        "linkerd_tpu_torch/consul/namer.py",
+        "                self.addr.update(_entries_to_addr(entries, "
+        "self._prefer))\n",
+        "                if not self.seen.sample():\n"
+        "                    self.addr.update(_entries_to_addr(\n"
+        "                        entries, self._prefer))\n")],
+    "serverset_keeps_removed": [(
+        "linkerd_tpu_torch/namer/zk.py",
+        "            addr = Bound(frozenset(addresses))\n",
+        "            old = var.sample() if var is not None else None\n"
+        "            addr = Bound(frozenset(addresses) | (\n"
+        "                old.addresses if isinstance(old, Bound)\n"
+        "                else frozenset()))\n")],
+    "check_drops_shadowed": [(
+        "linkerd_tpu_torch/admin/handlers.py",
+        "        unsuppressed = [f for f in findings if not f.suppressed]\n",
+        "        unsuppressed = [f for f in findings if not f.suppressed\n"
+        "                        and f.rule != \"dtab-shadowed\"]\n")],
+}
 EDIT_MUTANTS = {**CLI_MUTANTS, **FASTPATH_MUTANTS, **H2_MUTANTS,
                 **H2FAST_MUTANTS, **MUX_MUTANTS, **K8S_MUTANTS,
-                **EDGE_MUTANTS, **SIDECAR_MUTANTS}
+                **EDGE_MUTANTS, **SIDECAR_MUTANTS, **DISCOVERY_MUTANTS}
 
 
 def run_check(which: str) -> int:
@@ -10567,13 +11418,15 @@ def run_check(which: str) -> int:
     elif which == "served":
         asyncio.run(drive_service(cfg, rng))
     elif which in ("linker", "fastpath", "fastpath_d", "control", "cli",
-                   "h2", "h2fast", "mux", "k8s", "edge", "sidecar"):
+                   "h2", "h2fast", "mux", "k8s", "edge", "sidecar",
+                   "discovery"):
         from linkerd_tpu_torch import native
         from linkerd_tpu_torch.native import _build as native_build
         from linkerd_tpu_torch.ops import _build
 
         _build.build("score_mlp")  # before the event loop serves
-        if which.startswith("fastpath") or which in ("h2fast", "edge"):
+        if which.startswith("fastpath") or which in ("h2fast", "edge",
+                                                      "discovery"):
             native.ensure_built()
             native_build.build("h2bench")
         phase = {"linker": linker_phase, "fastpath": fastpath_phase,
@@ -10581,7 +11434,8 @@ def run_check(which: str) -> int:
                  "control": control_phase, "cli": cli_phase,
                  "h2": h2_phase, "h2fast": h2fast_phase,
                  "mux": mux_phase, "k8s": k8s_phase,
-                 "edge": edge_phase, "sidecar": sidecar_phase}[which]
+                 "edge": edge_phase, "sidecar": sidecar_phase,
+                 "discovery": disco_phase}[which]
         res, _ = asyncio.run(phase())
         name, _, limit = card_line().partition(",")
         print(json.dumps({which: res, "card": name.strip(),
@@ -10747,7 +11601,7 @@ def check_mutants() -> int:
         results += [run_mutant(LINKER_MUTANT, phase, tmp)
                     for phase in ("linker", "fastpath", "control", "cli",
                                   "h2", "h2fast", "mux", "k8s", "edge",
-                                  "sidecar")]
+                                  "sidecar", "discovery")]
         results += [run_mutant(name, "cli", tmp) for name in CLI_MUTANTS]
         results += [run_mutant(name, "fastpath_d", tmp)
                     for name in FASTPATH_MUTANTS]
@@ -10759,6 +11613,8 @@ def check_mutants() -> int:
         results += [run_mutant(name, "edge", tmp) for name in EDGE_MUTANTS]
         results += [run_mutant(name, "sidecar", tmp)
                     for name in SIDECAR_MUTANTS]
+        results += [run_mutant(name, "discovery", tmp)
+                    for name in DISCOVERY_MUTANTS]
     missed = []
     for name, which, rc, last in results:
         print(f"mutant {name}, {which} check: "
@@ -11005,6 +11861,7 @@ def main() -> int:
     edge, edge_launches = run_phase("edge", edge_phase())
     sidecar, sidecar_launches = run_phase("sidecar", sidecar_phase(
         service_rows_per_s=service["rows_per_s"]))
+    discovery, discovery_launches = run_phase("discovery", disco_phase())
     telemeter["recorder"] = recorder_us()
     print(f"recorder filter: {telemeter['recorder']['recorder_us']:.2f} us "
           f"a request, the downstream alone "
@@ -11039,7 +11896,8 @@ def main() -> int:
                                   h2fast=h2fast_launches,
                                   mux=mux_launches, k8s=k8s_launches,
                                   edge=edge_launches,
-                                  sidecar=sidecar_launches),
+                                  sidecar=sidecar_launches,
+                                  discovery=discovery_launches),
         "max_abs_err": max_err,
         "ms": main_rows["ms"],
         "plain_ms": main_rows["plain_ms"],
@@ -11082,6 +11940,8 @@ def main() -> int:
     print(json.dumps({"edge": edge, "card": name.strip(),
                       "power_limit": limit.strip()}, default=str))
     print(json.dumps({"sidecar": sidecar, "card": name.strip(),
+                      "power_limit": limit.strip()}, default=str))
+    print(json.dumps({"discovery": discovery, "card": name.strip(),
                       "power_limit": limit.strip()}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

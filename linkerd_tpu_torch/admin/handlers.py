@@ -1,15 +1,13 @@
-"""Linkerd admin handlers: delegator, bound names, log levels: the
-counterpart of ``linkerd_tpu/admin/handlers.py`` less
-``/config-check.json``.
+"""Linkerd admin handlers: delegator, bound names, log levels, config
+check: the counterpart of ``linkerd_tpu/admin/handlers.py``.
 
 Ref: linkerd/admin/.../LinkerdAdmin.scala:71-109 (composition),
 admin/.../names/DelegateApiHandler.scala:331 (delegate JSON API),
 admin/.../BoundNamesHandler, admin/.../LoggingHandler.scala:95.
 
-The reference's ``/config-check.json`` runs l5dcheck from the repo's
-``tools/analysis/semantic``, which imports the JAX package; the port
-serves every other handler, and that one waits for a copy of the
-analyzer (ROADMAP Queue 1 item 16).
+``/config-check.json`` runs the port's own copy of l5dcheck's semantic
+check (``linkerd_tpu_torch/check``) where the reference's reaches the
+repo's ``tools/analysis/semantic``.
 """
 
 from __future__ import annotations
@@ -193,6 +191,37 @@ def mk_streams_handler(linker: "Linker"):
     return handler
 
 
+def mk_config_check_handler(linker: "Linker"):
+    """``/config-check.json`` — l5dcheck semantic verification of the
+    live linker's parsed config (the same rules as ``python -m
+    tools.analysis check``, run against what this process actually
+    loaded). Findings are returned, never enforced: the linker is
+    already serving this config."""
+    async def handler(req: Request) -> Response:
+        import asyncio
+
+        def run():
+            from linkerd_tpu_torch.check import check_data, check_text
+            if linker.config_text is not None:
+                return check_text(linker.config_text, "<live-config>")
+            return check_data(linker.config_dict, "<live-config>")
+
+        try:
+            # symbolic delegation over a big dtab is CPU work; keep the
+            # event loop serving while it runs
+            findings = await asyncio.to_thread(run)
+        except Exception as e:  # noqa: BLE001 — analyzer bug != outage
+            return json_response({"error": repr(e)}, status=500)
+        unsuppressed = [f for f in findings if not f.suppressed]
+        return json_response({
+            "clean": not unsuppressed,
+            "findings": [f.to_dict() for f in unsuppressed],
+            "suppressed": [f.to_dict() for f in findings if f.suppressed],
+        })
+
+    return handler
+
+
 def mk_identifier_handler(linker: "Linker"):
     """``/identifier.json`` — run each http router's identifier against a
     synthetic request and show the resulting logical name (ref:
@@ -346,8 +375,7 @@ async def mk_identifier_server(linker: "Linker", port: int,
 
 
 def linkerd_admin_handlers(linker: "Linker") -> List[Tuple[str, Any]]:
-    """The standard linkerd admin surface (LinkerdAdmin.apply), less
-    ``/config-check.json``."""
+    """The standard linkerd admin surface (LinkerdAdmin.apply)."""
     from linkerd_tpu_torch.admin.dashboard import dashboard_handler
     return [
         ("/", dashboard_handler),
@@ -357,6 +385,7 @@ def linkerd_admin_handlers(linker: "Linker") -> List[Tuple[str, Any]]:
         ("/model.json", mk_model_handler(linker)),
         ("/tenants.json", mk_tenants_handler(linker)),
         ("/streams.json", mk_streams_handler(linker)),
+        ("/config-check.json", mk_config_check_handler(linker)),
         ("/identifier.json", mk_identifier_handler(linker)),
         ("/logging.json", logging_handler),
         ("/admin/pprof/profile", pprof_profile_handler),

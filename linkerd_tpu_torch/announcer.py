@@ -1,14 +1,11 @@
-"""Announcers: register server addresses into service discovery; a copy
-of ``linkerd_tpu/announcer.py`` without ``ZkAnnouncer`` and its
-``io.l5d.serversets`` kind, which need a ZooKeeper client (the linker
-refuses that kind by name).
+"""Announcers: register server addresses into service discovery.
 
 Ref: linkerd/core/.../Announcer.scala:41 (SPI; ``servers[].announce``
 paths matched by announcer prefix, driven from Main.announce,
-linkerd/main/.../Main.scala:97-130). The fs announcer is the file-based
-counterpart of the fs namer — a linkerd announcing into a directory that
-other linkerds discover from, and the scorer sidecar registering its
-replicas where linkers resolve them.
+linkerd/main/.../Main.scala:97-130) and linkerd/announcer/serversets
+ZkAnnouncer.scala:19. The fs announcer is the file-based counterpart of
+the fs namer — a linkerd announcing into a directory that other linkerds
+discover from (the single-node-stack analogue of serversets).
 """
 
 from __future__ import annotations
@@ -88,6 +85,111 @@ class FsAnnouncerConfig:
         if not self.rootDir:
             raise ConfigError("io.l5d.fs announcer needs rootDir")
         return FsAnnouncer(self.rootDir, Path.read(self.prefix))
+
+
+class ZkAnnouncer(Announcer):
+    """Announce into a ZK serverset: an ephemeral-sequential ``member_``
+    node carrying serviceEndpoint JSON under ``{pathPrefix}{name}``
+    (kind ``io.l5d.serversets``; ref: linkerd/announcer/serversets/...
+    /ZkAnnouncer.scala:19 — ephemerality is the withdrawal mechanism, so
+    a crashed linkerd's announcement dies with its session)."""
+
+    def __init__(self, hosts: str, path_prefix: Path, prefix: Path,
+                 session_timeout_ms: int = 10000):
+        from linkerd_tpu_torch.namer.zk import shared_zk
+
+        self.zk = shared_zk(hosts, session_timeout_ms)
+        self.path_prefix = path_prefix
+        self.prefix = prefix
+
+    def announce(self, host: str, port: int, name: Path) -> Closable:
+        import asyncio
+        import json
+        import logging
+
+        from linkerd_tpu_torch.zk.client import ZkError, ZK_NONODE, zk_backoff
+
+        log = logging.getLogger(__name__)
+        zk_path = "/" + "/".join(self.path_prefix + name)
+        data = json.dumps({
+            "serviceEndpoint": {"host": host, "port": port},
+            "additionalEndpoints": {},
+            "status": "ALIVE",
+        }).encode("utf-8")
+        state = {"node": None}
+
+        async def maintain() -> None:
+            # Supervising loop: (re)create the ephemeral member and
+            # re-announce whenever it disappears (session expiry deletes
+            # ephemerals server-side; the watch — or the synthetic
+            # Disconnected event on session loss — wakes us to rejoin).
+            attempt = 0
+            try:
+                while True:
+                    try:
+                        if state["node"] is None:
+                            await self.zk.ensure_path(zk_path)
+                            state["node"] = await self.zk.create(
+                                f"{zk_path}/member_", data,
+                                ephemeral=True, sequential=True)
+                            log.info("announced %s at %s:%d",
+                                     state["node"], host, port)
+                        gone = asyncio.Event()
+                        stat = await self.zk.exists(
+                            state["node"], watch=lambda ev: gone.set())
+                        if stat is None:
+                            state["node"] = None
+                            continue
+                        attempt = 0
+                        await gone.wait()
+                        # re-check on the next iteration (exists) —
+                        # a data-change event is not a disappearance
+                    except asyncio.CancelledError:
+                        raise
+                    except Exception as e:  # noqa: BLE001 — keep trying
+                        log.debug("zk announce %s: %r", zk_path, e)
+                        attempt = await zk_backoff(attempt)
+            finally:
+                # withdraw: delete whatever we know we created. If a
+                # create was in flight when cancelled, the node is
+                # ephemeral and dies with the session.
+                node = state["node"]
+                if node is not None:
+                    try:
+                        await self.zk.delete(node)
+                    except ZkError as e:
+                        if e.code != ZK_NONODE:
+                            log.debug("zk withdraw %s: %r", node, e)
+                    except Exception:  # noqa: BLE001
+                        pass
+
+        task = asyncio.get_event_loop().create_task(maintain())
+
+        def withdraw() -> None:
+            task.cancel()
+
+        return Closable(withdraw)
+
+
+@register("announcer", "io.l5d.serversets")
+@dataclass
+class ZkAnnouncerConfig:
+    """Announce server ports as ZooKeeper serversets under
+    ``pathPrefix`` (finagle-compatible member JSON), so serverset-aware
+    namers (io.l5d.serversets) resolve this router's listeners."""
+
+    zkAddrs: list = None  # type: ignore[assignment]
+    hosts: str = ""
+    pathPrefix: str = "/discovery"
+    prefix: str = "/io.l5d.serversets"
+    sessionTimeoutMs: int = 10000
+
+    def mk(self) -> Announcer:
+        from linkerd_tpu_torch.namer.zk import parse_zk_addrs
+
+        connect = parse_zk_addrs(self.zkAddrs or [], self.hosts)
+        return ZkAnnouncer(connect, Path.read(self.pathPrefix),
+                           Path.read(self.prefix), self.sessionTimeoutMs)
 
 
 def match_announcer(announcers: List[Tuple[Path, Announcer]],

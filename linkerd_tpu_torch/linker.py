@@ -15,19 +15,24 @@ failures) and mux and thriftmux routers (the bound residual as the
 downstream Tdispatch dest), with the ``io.l5d.fs`` namer, the k8s
 family (the ``io.l5d.k8s``, ``io.l5d.k8s.ns`` and ``io.l5d.k8s.external``
 namers, the ``io.l5d.ingress`` identifiers and the
-``io.l5d.k8s.configMap`` interpreter), the istio family (pilot's
+``io.l5d.k8s.configMap`` interpreter), the consul, marathon and
+ZooKeeper namers (``io.l5d.consul``, ``io.l5d.marathon``,
+``io.l5d.serversets``, ``io.l5d.zkLeader``, ``io.l5d.curator``), the
+istio family (pilot's
 ``io.l5d.k8s.istio`` namer, interpreter and identifiers, the
 ``io.l5d.k8s.istio-ingress`` identifiers and the ``io.l5d.istio`` mixer
 telemeter) and the ``io.l5d.fs`` interpreter (plus the in-process
 ``/$/inet`` and status utility namers, and the ``io.l5d.rewrite``
 namer); a namer's ``transformers`` rewrite what it binds
-(``namer/transformers.py``), and the ``io.l5d.fs`` announcer registers
-each server's ``announce`` paths while the linker runs. Routers bind in
+(``namer/transformers.py``), and the ``io.l5d.fs`` and
+``io.l5d.serversets`` announcers register each server's ``announce``
+paths while the linker runs. Routers bind in
 process,
 through namerd's HTTP API (``interpreter: {kind: io.l5d.namerd.http}``)
 or its thrift interface (``interpreter: {kind: io.l5d.namerd}``), and
 the ``io.l5d.jaxAnomaly`` telemeter, whose
-scorer runs on ``device``, beside the metric-exporter and tracer
+scorer runs on ``device`` (resolved when the first telemeter that takes
+one is built), beside the metric-exporter and tracer
 telemeters (``telemetry/exporters.py``), whose tracers are broadcast to
 every router's trace filters and to the anomaly telemeter's scorer
 spans. Servers and clients of a Python router take ``tls``. An http
@@ -126,6 +131,7 @@ from linkerd_tpu_torch.telemetry.telemeter import BroadcastTracer, NullTracer
 # h2 identifiers and classifiers, the http request loggers and the
 # exporter telemeters here.
 import linkerd_tpu_torch.announcer  # noqa: F401
+import linkerd_tpu_torch.consul.namer  # noqa: F401
 import linkerd_tpu_torch.interpreter.configs  # noqa: F401
 import linkerd_tpu_torch.istio.identifier  # noqa: F401
 import linkerd_tpu_torch.istio.interpreter  # noqa: F401
@@ -134,6 +140,8 @@ import linkerd_tpu_torch.istio.telemeter  # noqa: F401
 import linkerd_tpu_torch.k8s.ingress  # noqa: F401
 import linkerd_tpu_torch.k8s.namer  # noqa: F401
 import linkerd_tpu_torch.namer.fs  # noqa: F401
+import linkerd_tpu_torch.namer.marathon  # noqa: F401
+import linkerd_tpu_torch.namer.zk  # noqa: F401
 import linkerd_tpu_torch.namer.transformers  # noqa: F401
 import linkerd_tpu_torch.protocol.h2.classifiers  # noqa: F401
 import linkerd_tpu_torch.protocol.h2.identifiers  # noqa: F401
@@ -143,10 +151,6 @@ import linkerd_tpu_torch.telemetry.exporters  # noqa: F401
 log = logging.getLogger(__name__)
 
 DEFAULT_ADMIN_PORT = 9990  # ref: Linker.scala:37
-
-# The ROADMAP items (Queue 1) that bring what this linker refuses.
-_ANNOUNCERS = "ROADMAP Queue 1 item 11 (the announcers)"
-_NAMING = "ROADMAP Queue 1 item 13 (the zk, consul and marathon namers)"
 
 # Router keys the reference takes and the port does not yet, each with
 # the item that brings it: none since tenants, the request loggers and
@@ -160,16 +164,11 @@ REFUSED_ROUTER_KEYS: Dict[str, str] = {}
 REFUSED_PROTOCOLS: Dict[str, str] = {}
 
 # Kinds the reference registers and the port has not ported yet, by
-# category, each with the item that brings it. A kind in neither
-# package keeps the reference's own "unknown ... kind" error.
-UNPORTED_KINDS: Dict[str, Dict[str, str]] = {
-    "namer": {
-        "io.l5d.consul": _NAMING, "io.l5d.curator": _NAMING,
-        "io.l5d.marathon": _NAMING, "io.l5d.serversets": _NAMING,
-        "io.l5d.zkLeader": _NAMING,
-    },
-    "announcer": {"io.l5d.serversets": _ANNOUNCERS},
-}
+# category, each with the item that brings it: none since the consul,
+# marathon and ZooKeeper namers and the serversets announcer (ROADMAP
+# Queue 1 items 11 and 13). A kind in neither package keeps the
+# reference's own "unknown ... kind" error.
+UNPORTED_KINDS: Dict[str, Dict[str, str]] = {"namer": {}, "announcer": {}}
 
 
 def _instantiate(category: str, raw: Any, where: str) -> Any:
@@ -658,7 +657,10 @@ class Linker:
                  config_dict: Any = None,
                  config_text: Optional[str] = None):
         self.spec = spec
-        self.device = resolve_device(device)
+        # resolved when the first telemeter that takes a device is
+        # built, so a config whose telemeters need none loads anywhere
+        self._device_arg = device
+        self.device: Any = None
         self.config_dict = config_dict
         self.config_text = config_text
         self.metrics = MetricsTree()
@@ -739,6 +741,8 @@ class Linker:
             # the exporter telemeters are device-free copies whose mk
             # takes the metrics tree alone
             if "device" in inspect.signature(tcfg.mk).parameters:
+                if self.device is None:
+                    self.device = resolve_device(self._device_arg)
                 self.telemeters.append(
                     tcfg.mk(self.metrics, device=self.device))
             else:

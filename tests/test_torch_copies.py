@@ -87,7 +87,30 @@ COPIES = (
     "namer/transformers.py",
     # the sidecar's tiers: the breaker and the scorer replica pool
     "telemetry/resilience.py", "fleet/scorer_pool.py",
+    # the consul, marathon and ZooKeeper namers, the ZooKeeper client
+    # and its fake server, the serversets announcer, and the fleet doc
+    # that the config check reads
+    "zk/__init__.py", "zk/jute.py", "zk/client.py", "testing/zkserver.py",
+    "namer/zk.py", "announcer.py", "consul/__init__.py",
+    "consul/client.py", "consul/namer.py", "namer/marathon.py",
+    "fleet/doc.py",
 )
+
+# The port's copy of l5dcheck's semantic config check, and the repo file
+# each module copies (``linkerd_tpu_torch.check`` is read as
+# ``tools.analysis.semantic``, its ``core`` as ``tools.analysis.core``).
+CHECK_COPIES = {
+    "check/__init__.py": "tools/analysis/semantic/__init__.py",
+    "check/loader.py": "tools/analysis/semantic/loader.py",
+    "check/engine.py": "tools/analysis/semantic/engine.py",
+    "check/dtab_check.py": "tools/analysis/semantic/dtab_check.py",
+    "check/router_check.py": "tools/analysis/semantic/router_check.py",
+    "check/telemetry_check.py": "tools/analysis/semantic/telemetry_check.py",
+}
+# check/core.py holds these definitions of tools/analysis/core.py and
+# nothing else beside its imports
+CHECK_CORE_NAMES = ("SEVERITIES", "_SUPPRESS_RE", "Suppression",
+                    "suppression_at", "Finding")
 
 # Modules that differ on purpose: reason, and the top-level names that
 # differ (None: the module is a partial counterpart, not a copy with a
@@ -114,9 +137,11 @@ DIFFERENT = {
          "refusal", "instantiate_ported", "ConfigError", "kinds",
          "lookup"}),
     "admin/handlers.py": (
-        "no /config-check.json: the reference's runs l5dcheck from "
-        "tools/, which imports the JAX package (ROADMAP Queue 1 item 16)",
-        {"mk_config_check_handler", "linkerd_admin_handlers"}),
+        "/config-check.json runs the port's copy of l5dcheck "
+        "(linkerd_tpu_torch/check) where the reference's puts the repo "
+        "root on sys.path and imports tools/, which imports the JAX "
+        "package",
+        {"mk_config_check_handler"}),
     "__main__.py": (
         "--device: the telemeters run on the CUDA device unless "
         "--device cpu is given, and with no CUDA device the CLI exits "
@@ -134,9 +159,8 @@ DIFFERENT = {
         "stores by name; its logger and usage line name the port",
         {"log", "main"}),
     "linker.py": (
-        "the five router protocols, with a device for the telemeters and "
-        "by-name refusals of what is not ported (the zk, consul and "
-        "marathon namers, the serversets announcer); "
+        "the five router protocols, with a device for the telemeters, "
+        "resolved when the first telemeter that takes one is built; "
         "_mk_thrift_router and _mk_mux_router are the reference's",
         None),
     "testing/faults.py": (
@@ -160,10 +184,6 @@ DIFFERENT = {
         "and regions come with control.fleet (ROADMAP Queue 1 item 14)",
         {"FleetDoc", "FleetView", "FleetConfig", "FleetExchange",
          "ScorerReplicaPool"}),
-    "announcer.py": (
-        "ZkAnnouncer and its io.l5d.serversets kind are left out: they "
-        "need the ZooKeeper client (zk/, ROADMAP Queue 1 item 11)",
-        {"ZkAnnouncer", "ZkAnnouncerConfig"}),
     "native/__init__.py": (
         "the loader builds the port's own library from native/ and has no "
         "pure-Python fallback (a failed build raises); FastPathEngine and "
@@ -200,16 +220,28 @@ DIFFERENT = {
 }
 
 
+def _ref_module(name: str) -> str:
+    """The reference's name for a port module: ``linkerd_tpu_torch.check``
+    is l5dcheck's ``tools.analysis.semantic`` (its ``core`` is
+    ``tools.analysis.core``), the rest is under ``linkerd_tpu``."""
+    if name == "linkerd_tpu_torch.check.core":
+        return "tools.analysis.core"
+    if name.split(".")[:2] == ["linkerd_tpu_torch", "check"]:
+        return "tools.analysis.semantic" + name[len("linkerd_tpu_torch.check"):]
+    if name.split(".")[0] == "linkerd_tpu_torch":
+        return "linkerd_tpu" + name[len("linkerd_tpu_torch"):]
+    return name
+
+
 class _Rename(ast.NodeTransformer):
     def visit_ImportFrom(self, node):
-        if node.module and node.module.split(".")[0] == "linkerd_tpu_torch":
-            node.module = "linkerd_tpu" + node.module[len("linkerd_tpu_torch"):]
+        if node.module:
+            node.module = _ref_module(node.module)
         return node
 
     def visit_Import(self, node):
         for alias in node.names:
-            if alias.name.split(".")[0] == "linkerd_tpu_torch":
-                alias.name = "linkerd_tpu" + alias.name[len("linkerd_tpu_torch"):]
+            alias.name = _ref_module(alias.name)
         return node
 
 
@@ -268,6 +300,9 @@ def test_lists_are_disjoint_and_complete():
     for rel in COPIES + tuple(DIFFERENT):
         assert (PORT / rel).is_file(), rel
         assert (REF / rel).is_file(), rel
+    for rel, ref in CHECK_COPIES.items():
+        assert (PORT / rel).is_file(), rel
+        assert (ROOT / ref).is_file(), ref
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -275,6 +310,26 @@ def test_copy_is_ast_equal(rel):
     port, ref = normalized(PORT / rel), normalized(REF / rel)
     assert ast.dump(port) == ast.dump(ref), (
         f"linkerd_tpu_torch/{rel} is no longer a copy of linkerd_tpu/{rel}")
+
+
+@pytest.mark.parametrize("rel", sorted(CHECK_COPIES))
+def test_check_copy_is_ast_equal(rel):
+    port = normalized(PORT / rel)
+    ref = normalized(ROOT / CHECK_COPIES[rel])
+    assert ast.dump(port) == ast.dump(ref), (
+        f"linkerd_tpu_torch/{rel} is no longer a copy of "
+        f"{CHECK_COPIES[rel]}")
+
+
+def test_check_core_is_a_copy():
+    port = top_level(normalized(PORT / "check/core.py"))
+    ref = top_level(normalized(ROOT / "tools/analysis/core.py"))
+    for name in CHECK_CORE_NAMES:
+        assert port[name] == ref[name], f"check/core.py: {name} differs"
+    imported = {n for n, dumps in port.items()
+                if all(d.startswith(("ImportFrom(", "Import("))
+                       for d in dumps)}
+    assert set(port) - imported == set(CHECK_CORE_NAMES)
 
 
 @pytest.mark.parametrize("rel", sorted(DIFFERENT))
@@ -303,10 +358,11 @@ def test_part_is_a_copy(rel, name):
     assert a[name] == b[name], f"{rel}: {name} is no longer a copy"
 
 
-# The port's copy of what the reactor's verify_override reaches in
-# l5dcheck (tools/analysis/semantic/dtab_check.py): these definitions,
-# and these methods of DtabAnalysis, are AST-equal to the original's.
-VERIFY = ("control/verify.py", "tools/analysis/semantic/dtab_check.py")
+# What the reactor's verify_override reaches in l5dcheck
+# (tools/analysis/semantic/dtab_check.py): these definitions, and these
+# methods of DtabAnalysis, are AST-equal to the original's in the port's
+# copy of the module, which control/verify.py imports them from.
+VERIFY = ("check/dtab_check.py", "tools/analysis/semantic/dtab_check.py")
 VERIFY_NAMES = ("PROBE_SEG", "ProbeNamer", "probe_interpreter",
                 "probe_path_for", "terminals", "prefix_subsumes",
                 "dst_leaf_paths", "_dentry_anchor_map", "check_override")
@@ -331,17 +387,19 @@ def test_verify_is_a_copy_of_dtab_check(name):
             _methods(ref, "DtabAnalysis")[m]
         return
     a, b = top_level(port), top_level(ref)
-    assert a[name] == b[name], f"control/verify.py: {name} differs"
+    assert a[name] == b[name], f"{VERIFY[0]}: {name} differs"
 
 
 def test_verify_defines_only_the_copied_parts():
-    """Beside the copied definitions, control/verify.py defines only the
-    stand-ins for l5dcheck's Finding and ConfigSource."""
-    tree = normalized(PORT / VERIFY[0])
-    defined = {n.name for n in tree.body
-               if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
-    defined |= {t.id for n in tree.body if isinstance(n, ast.Assign)
-                for t in n.targets if isinstance(t, ast.Name)}
-    assert defined == set(VERIFY_NAMES) | {
-        "DtabAnalysis", "Finding", "ConfigSource"}
-    assert set(_methods(tree, "DtabAnalysis")) == set(VERIFY_METHODS)
+    """control/verify.py keeps no copy of its own: it defines nothing,
+    and imports the copied definitions, DtabAnalysis among them, from
+    check/dtab_check.py, the one copy of l5dcheck's dtab analysis."""
+    tree = normalized(PORT / "control/verify.py")
+    assert not [n for n in tree.body
+                if not isinstance(n, (ast.Import, ast.ImportFrom))]
+    (imp,) = tree.body
+    assert imp.module == "tools.analysis.semantic.dtab_check"
+    assert {a.name for a in imp.names} == set(VERIFY_NAMES) - {
+        "_dentry_anchor_map"} | {"DtabAnalysis"}
+    assert set(VERIFY_METHODS) <= set(
+        _methods(normalized(PORT / VERIFY[0]), "DtabAnalysis"))

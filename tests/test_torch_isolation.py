@@ -47,7 +47,19 @@ def port_modules():
 
 def test_sources_found():
     assert len(SOURCES) >= 12
-    assert "linkerd_tpu_torch.telemetry.sidecar" in port_modules()
+    mods = port_modules()
+    for mod in ("linkerd_tpu_torch.telemetry.sidecar",
+                "linkerd_tpu_torch.zk.client", "linkerd_tpu_torch.zk.jute",
+                "linkerd_tpu_torch.consul.client",
+                "linkerd_tpu_torch.consul.namer",
+                "linkerd_tpu_torch.namer.zk",
+                "linkerd_tpu_torch.namer.marathon",
+                "linkerd_tpu_torch.testing.zkserver",
+                "linkerd_tpu_torch.check.engine",
+                "linkerd_tpu_torch.check.router_check",
+                "linkerd_tpu_torch.check.telemetry_check",
+                "linkerd_tpu_torch.fleet.doc"):
+        assert mod in mods, mod
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -110,6 +122,67 @@ def test_imports_and_scores_with_reference_blocked():
 
         asyncio.run(go())
     """)
+
+
+def test_config_check_and_zk_run_with_reference_blocked():
+    """With the JAX package and tools unimportable: the port's config
+    check runs on a linker config naming the five discovery kinds and a
+    jaxAnomaly telemeter, and a serverset namer binds a member on the
+    port's fake ZooKeeper."""
+    run_blocked('''
+        import asyncio
+        import json
+        from linkerd_tpu_torch.check import check_data
+        from linkerd_tpu_torch.core import Path
+        from linkerd_tpu_torch.namer.zk import (
+            ServersetNamer, close_shared_zk, shared_zk,
+        )
+        from linkerd_tpu_torch.testing.zkserver import FakeZkServer
+
+        zk_addrs = [{"host": "127.0.0.1", "port": 1}]
+        cfg = {
+            "namers": [
+                {"kind": "io.l5d.consul", "host": "127.0.0.1", "port": 1},
+                {"kind": "io.l5d.marathon", "host": "127.0.0.1", "port": 1},
+                {"kind": "io.l5d.serversets", "zkAddrs": zk_addrs},
+                {"kind": "io.l5d.zkLeader", "zkAddrs": zk_addrs},
+                {"kind": "io.l5d.curator", "zkAddrs": zk_addrs},
+            ],
+            "telemetry": [{"kind": "io.l5d.jaxAnomaly"}],
+            "routers": [{
+                "protocol": "http",
+                "dtab": "/svc/web => /#/io.l5d.consul/dc1/web ; "
+                        "/svc => /#/io.l5d.marathon ;",
+                "servers": [{"port": 4140}, {"port": 4140}],
+            }],
+        }
+        rules = sorted({f.rule for f in check_data(cfg)})
+        assert rules == ["dtab-shadowed", "router-port-conflict"], rules
+
+        async def go():
+            zk = await FakeZkServer().start()
+            member = {"serviceEndpoint": {"host": "10.0.0.1", "port": 80},
+                      "status": "ALIVE"}
+            zk.set_node("/d/web/member_0000000000",
+                        json.dumps(member).encode())
+            namer = ServersetNamer(shared_zk(zk.hosts).start(),
+                                   Path.of("#", "io.l5d.serversets"))
+            try:
+                act = namer.lookup(Path.read("/d/web"))
+                for _ in range(500):
+                    if act.current.__class__.__name__ == "Ok":
+                        break
+                    await asyncio.sleep(0.01)
+                leaf = act.current.value
+                addrs = leaf.value.addr.sample().addresses
+                assert [(a.host, a.port) for a in addrs] == [("10.0.0.1", 80)]
+            finally:
+                namer.close()
+                await close_shared_zk()
+                await zk.close()
+
+        asyncio.run(go())
+    ''')
 
 
 def test_sidecar_hop_serves_with_grpc_blocked():

@@ -367,6 +367,15 @@ K8S_ISTIO_KINDS = (
     *(("interpreter", k) for k in ("io.l5d.fs", "io.l5d.k8s.configMap",
                                    "io.l5d.k8s.istio")),
 )
+# Kinds refused by name until the consul, marathon and ZooKeeper namers
+# and the serversets announcer were ported (ROADMAP Queue 1 items 11
+# and 13).
+DISCOVERY_KINDS = (
+    *(("namer", k) for k in ("io.l5d.consul", "io.l5d.curator",
+                             "io.l5d.marathon", "io.l5d.serversets",
+                             "io.l5d.zkLeader")),
+    ("announcer", "io.l5d.serversets"),
+)
 REFUSALS = {
     **{f"router key {k}": (
         f"routers:\n- protocol: http\n  {k}: {{}}\n", k)
@@ -448,6 +457,7 @@ PORTED = {
         FP0 + "  client:\n    kind: io.l5d.static\n    configs:\n"
         "    - prefix: /svc\n      tls: {commonName: x}\n"),
     **{f"{cat} kind {k}": kind_text(cat, k) for cat, k in K8S_ISTIO_KINDS},
+    **{f"{cat} kind {k}": kind_text(cat, k) for cat, k in DISCOVERY_KINDS},
 }
 
 
@@ -546,14 +556,16 @@ def test_unported_kinds_are_the_reference_kinds():
     from linkerd_tpu.config import kinds as ref_kinds
     from linkerd_tpu_torch.config import kinds as port_kinds
     for cat in {*UNPORTED_KINDS,
-                *(c for c, _ in K8S_ISTIO_KINDS + EDGE_KINDS)}:
+                *(c for c, _ in K8S_ISTIO_KINDS + EDGE_KINDS
+                  + DISCOVERY_KINDS)}:
         unported = UNPORTED_KINDS.get(cat, {})
         assert sorted(set(port_kinds(cat)) | set(unported)) == sorted(
             ref_kinds(cat)), cat
         assert not set(port_kinds(cat)) & set(unported)
 
 
-@pytest.mark.parametrize("cat,kind", K8S_ISTIO_KINDS + EDGE_KINDS)
+@pytest.mark.parametrize("cat,kind",
+                         K8S_ISTIO_KINDS + EDGE_KINDS + DISCOVERY_KINDS)
 def test_ported_kind_config_is_the_references(cat, kind):
     """Each kind that left the refusals builds, from the same mapping,
     the reference's config class with the same fields and values."""
@@ -600,11 +612,15 @@ def test_admin_and_usage_parse_but_need_a_router():
 
 
 def test_cuda_by_default():
+    """The telemeters run on CUDA unless the CPU is named: with no CUDA
+    device a telemeter that takes a device raises; a config with none
+    loads, and resolves no device."""
     import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        port_load_linker(BASE)
+        port_load_linker(BASE + "telemetry:\n- {kind: io.l5d.jaxAnomaly}\n")
+    assert port_load_linker(BASE).device is None
 
 
 def test_json_config_needs_no_yaml(monkeypatch):

@@ -311,8 +311,8 @@ announcers:
 
 def test_announce_errors_alike():
     """An announce path outside /#/ and one no announcer covers fail the
-    load with the reference's words; a serversets announcer is refused by
-    name."""
+    load with the reference's words; so does a serversets announcer with
+    no ZooKeeper address (refused by name until it was ported)."""
     base = ("routers:\n- protocol: http\n  servers:\n  - port: 0\n"
             "    announce: [{path}]\nannouncers:\n- kind: io.l5d.fs\n"
             "  rootDir: .\n")
@@ -328,12 +328,16 @@ def test_announce_errors_alike():
                 got.append(str(e))
         out[pkg] = got
     assert out["port"] == out["ref"] and len(out["port"]) == 2
+    from linkerd_tpu.config import ConfigError as RefConfigError
     from linkerd_tpu_torch.config import ConfigError
-    from linkerd_tpu_torch.linker import load_linker
-    with pytest.raises(ConfigError, match="io.l5d.serversets.*ROADMAP "
-                                          "Queue 1 item 11"):
-        load_linker("routers:\n- protocol: http\nannouncers:\n"
-                    "- {kind: io.l5d.serversets}\n", device="cpu")
+    text = ("routers:\n- protocol: http\nannouncers:\n"
+            "- {kind: io.l5d.serversets}\n")
+    with pytest.raises(ConfigError) as port_err:
+        mod("port", "linker").load_linker(text, device="cpu")
+    with pytest.raises(RefConfigError) as ref_err:
+        mod("ref", "linker").load_linker(text)
+    assert str(port_err.value) == str(ref_err.value)
+    assert "zkAddrs" in str(port_err.value)
 
 
 # -- the usage report -------------------------------------------------------
